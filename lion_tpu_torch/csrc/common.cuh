@@ -6,11 +6,37 @@
 // cudaGetLastError() so a refused launch surfaces at the call site.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define LION_EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace lion {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) {
+  return __bfloat162float(v);
+}
+
+// Store a float as float, or rounded to nearest even as bf16.
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// v rounded to the precision of T, returned as float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // Squared distance summed as ((dx*dx + dy*dy) + dz*dz) with every operation
 // rounded on its own (no fused multiply-add), so the result is bit-identical
@@ -29,6 +55,47 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
                                       float bx, float by, float bz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
                    __fmul_rn(az, bz));
+}
+
+// Trilinear interpolation at continuous voxel coords p[0..2] in [0, r-1] of
+// the values load(cell), cell = (x * r + y) * r + z: lo = floor(p),
+// frac = p - lo, hi = lo + (frac > 0), so the hi corner collapses onto lo when
+// frac is exactly 0 and no index leaves the grid. The corners are summed in
+// the order (dx, dy, dz) = (0,0,0), (0,0,1), ..., (1,1,1), each weight
+// (wx * wy) * wz rounded to the precision of T, unfused in float32.
+template <typename T, class Load>
+__device__ __forceinline__ float trilinear(const float* p, int r,
+                                           const Load& load) {
+  int lo[3], hi[3];
+  float w1[3], w0[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float l = floorf(p[a]);
+    const float f = __fsub_rn(p[a], l);
+    const int li = min(max(static_cast<int>(l), 0), r - 1);
+    lo[a] = li;
+    hi[a] = min(li + (f > 0.0f ? 1 : 0), r - 1);
+    w1[a] = f;
+    w0[a] = __fsub_rn(1.0f, f);
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz) {
+        const float w = round_to<T>(
+            __fmul_rn(__fmul_rn(dx ? w1[0] : w0[0], dy ? w1[1] : w0[1]),
+                      dz ? w1[2] : w0[2]));
+        const size_t cell =
+            (static_cast<size_t>(dx ? hi[0] : lo[0]) * r +
+             (dy ? hi[1] : lo[1])) * r + (dz ? hi[2] : lo[2]);
+        acc = __fadd_rn(acc, __fmul_rn(load(cell), w));
+      }
+    }
+  }
+  return acc;
 }
 
 inline int ceil_div(long long a, long long b) {

@@ -26,9 +26,19 @@
 // each thread accumulates a 4 x 4 register tile in fp32 (no tensor cores,
 // no TF32). The epilogue stores y and reduces (sum, sumsq) per channel in
 // shared memory, then one atomicAdd per channel per block.
+//
+// bf16 variant (lion_conv3d_3x3_bf16): x, w and y in bf16. The prologue runs
+// in float32 and is rounded to bf16 before the products (as
+// ops/pallas/conv3d.py:460-468), the products are summed in float32 on the
+// tensor cores, y is rounded to bf16 and the statistics are those of the
+// rounded y (conv3d_packed.py:466-472: stats of what the next stage reads).
+// Bound: tensor-core rate against the input gather; a block of 4 warps owns
+// 64 voxels x 64 output channels (conv_tile.cuh), one K-step of 32 input
+// channels of one tap at a time, without double buffering.
 #include <cmath>
 
 #include "common.cuh"
+#include "conv_tile.cuh"
 
 namespace {
 
@@ -162,7 +172,59 @@ void launch(const float* x, const float* w, const float* scale,
       x, w, scale, shift, r, ci, co, y, stats);
 }
 
+using Tile = lion::ConvTile<2, 2>;
+
+template <bool kSwish>
+__global__ void __launch_bounds__(Tile::kThreads)
+conv3d_bf16_kernel(const lion::bf16* __restrict__ x,
+                   const lion::bf16* __restrict__ w,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ shift, int r, int ci, int co,
+                   lion::bf16* __restrict__ y, float* __restrict__ stats) {
+  __shared__ __align__(128) Tile::Smem sm;
+  const int b = blockIdx.z;
+  const int r3 = r * r * r;
+  const int v0 = blockIdx.x * Tile::kBM;
+  const int n0 = blockIdx.y * Tile::kBN;
+  const lion::AffinePrologue<kSwish> pro{
+      scale ? scale + static_cast<size_t>(b) * ci : nullptr,
+      shift ? shift + static_cast<size_t>(b) * ci : nullptr};
+  lion::conv_tile_mma<2, 2, false>(x + static_cast<size_t>(b) * r3 * ci, w,
+                                   r, ci, co, v0, n0, pro, sm);
+  float* st = stats + static_cast<size_t>(b) * 2 * co;
+  lion::conv_tile_store<2, 2>(sm, y + static_cast<size_t>(b) * r3 * co, r3,
+                              co, v0, n0, st, st + co);
+}
+
 }  // namespace
+
+// bf16 x (B, r, r, r, Ci), w (3, 3, 3, Ci, Co), f32 scale/shift (B, Ci) or
+// null -> bf16 y (B, r, r, r, Co), f32 stats (B, 2, Co) (zeroed by the
+// caller).
+LION_EXPORT int lion_conv3d_3x3_bf16(const void* x, const void* w,
+                                     const void* scale, const void* shift,
+                                     void* y, void* stats, int b, int r,
+                                     int ci, int co, int pre_swish,
+                                     void* stream) {
+  const dim3 grid(lion::ceil_div(static_cast<long long>(r) * r * r,
+                                 Tile::kBM),
+                  lion::ceil_div(co, Tile::kBN), b);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const lion::bf16*>(x);
+  const auto* wb = static_cast<const lion::bf16*>(w);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* sh = static_cast<const float*>(shift);
+  auto* yb = static_cast<lion::bf16*>(y);
+  auto* st = static_cast<float*>(stats);
+  if (pre_swish) {
+    conv3d_bf16_kernel<true><<<grid, Tile::kThreads, 0, s>>>(
+        xb, wb, sc, sh, r, ci, co, yb, st);
+  } else {
+    conv3d_bf16_kernel<false><<<grid, Tile::kThreads, 0, s>>>(
+        xb, wb, sc, sh, r, ci, co, yb, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x (B, r, r, r, Ci), w (3, 3, 3, Ci, Co), scale/shift (B, Ci) or null
 // -> y (B, r, r, r, Co), stats (B, 2, Co) (zeroed by the caller).

@@ -4,10 +4,14 @@
 // (_devox_kernel) and lion_tpu/ops/pallas/devox_binned.py:
 // trilinear_devoxelize_binned (_devox_binned_kernel).
 //
-// Semantics: lo = floor(p), frac = p - lo, hi = lo + (frac > 0), so the hi
-// corner collapses onto lo when frac is exactly 0 and no index leaves the
-// grid. out = sum over the 8 corners of grid[corner] * wx * wy * wz, taken
-// in the order (dx, dy, dz) = (0,0,0), (0,0,1), ..., (1,1,1).
+// Semantics (common.cuh trilinear): lo = floor(p), frac = p - lo,
+// hi = lo + (frac > 0), so the hi corner collapses onto lo when frac is
+// exactly 0 and no index leaves the grid. out = sum over the 8 corners of
+// grid[corner] * wx * wy * wz, taken in the order (dx, dy, dz) = (0,0,0),
+// (0,0,1), ..., (1,1,1). The grid is float32 or bfloat16: with bf16 each
+// corner weight is rounded to bf16 (the JAX form casts its weights to the
+// grid's dtype, lion_tpu/ops/voxel.py:249), the products are summed in
+// float32 and the sum is rounded once.
 //
 // Bound on the H100: device-memory bandwidth, 8 gathered rows of C floats
 // per point (random rows of the grid, mostly L2 hits at r <= 32).
@@ -20,61 +24,45 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void devox_kernel(const float* __restrict__ grid,
+template <typename T>
+__global__ void devox_kernel(const T* __restrict__ grid,
                              const float* __restrict__ coords, int b, int n,
-                             int c, int r, float* __restrict__ out) {
+                             int c, int r, T* __restrict__ out) {
   const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= static_cast<size_t>(b) * n * c) return;
   const int ch = static_cast<int>(t % c);
   const size_t pt = t / c;
-  const float* p = coords + pt * 3;
-  int lo[3], hi[3];
-  float w1[3], w0[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float l = floorf(p[a]);
-    const float f = __fsub_rn(p[a], l);
-    const int li = min(max(static_cast<int>(l), 0), r - 1);
-    lo[a] = li;
-    hi[a] = min(li + (f > 0.0f ? 1 : 0), r - 1);
-    w1[a] = f;
-    w0[a] = __fsub_rn(1.0f, f);
-  }
   const size_t r3 = static_cast<size_t>(r) * r * r;
-  const float* g = grid + (pt / n) * r3 * c + ch;
-  float acc = 0.0f;
-#pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const int ix = dx ? hi[0] : lo[0];
-        const int iy = dy ? hi[1] : lo[1];
-        const int iz = dz ? hi[2] : lo[2];
-        const float w = __fmul_rn(__fmul_rn(dx ? w1[0] : w0[0],
-                                            dy ? w1[1] : w0[1]),
-                                  dz ? w1[2] : w0[2]);
-        const size_t cell = (static_cast<size_t>(ix) * r + iy) * r + iz;
-        acc = __fadd_rn(acc, __fmul_rn(g[cell * c], w));
-      }
-    }
+  const T* g = grid + (pt / n) * r3 * c + ch;
+  const float v = lion::trilinear<T>(
+      coords + pt * 3, r,
+      [&](size_t cell) { return lion::to_float(g[cell * c]); });
+  lion::store(out + t, v);
+}
+
+template <typename T>
+void launch(const void* grid, const void* coords, void* out, int b, int n,
+            int c, int r, cudaStream_t s) {
+  const long long total = static_cast<long long>(b) * n * c;
+  if (total > 0) {
+    devox_kernel<T><<<lion::ceil_div(total, kThreads), kThreads, 0, s>>>(
+        static_cast<const T*>(grid), static_cast<const float*>(coords), b, n,
+        c, r, static_cast<T*>(out));
   }
-  out[t] = acc;
 }
 
 }  // namespace
 
-// grid (B, r^3, C) f32, coords (B, N, 3) f32 in [0, r-1] -> out (B, N, C).
+// grid (B, r^3, C) f32 or bf16 (bf16 != 0), coords (B, N, 3) f32 in
+// [0, r-1] -> out (B, N, C) of the grid's dtype.
 LION_EXPORT int lion_trilinear_devoxelize(const void* grid, const void* coords,
                                           void* out, int b, int n, int c,
-                                          int r, void* stream) {
-  const long long total = static_cast<long long>(b) * n * c;
-  if (total > 0) {
-    devox_kernel<<<lion::ceil_div(total, kThreads), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(grid), static_cast<const float*>(coords), b,
-        n, c, r, static_cast<float*>(out));
+                                          int r, int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    launch<__nv_bfloat16>(grid, coords, out, b, n, c, r, s);
+  } else {
+    launch<float>(grid, coords, out, b, n, c, r, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

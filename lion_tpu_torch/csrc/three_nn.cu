@@ -7,9 +7,10 @@
 // three smallest d2 with strict '<' in index order (ties go to the lowest
 // index); d2 clamped to [1e-10, 1e10]; weights w_i = prod_{j!=i} d_j /
 // sum_k prod_{j!=k} d_j; out = (f0*w0 + f1*w1) + f2*w2. With fewer than 3
-// centers the empty slots keep index 0 and d2 = 1e10. Unlike the TPU
-// kernel, which rounds features and weights to bf16 for its one-hot matmul,
-// everything stays fp32.
+// centers the empty slots keep index 0 and d2 = 1e10. Features are float32
+// or bfloat16: with bf16 the three weights are rounded to bf16, as the JAX
+// form casts them (lion_tpu/ops/interpolate.py:98), and the weighted sum is
+// taken in float32 and rounded once; with float32 everything stays fp32.
 //
 // Bound on the H100: arithmetic on the N*M distance scan (2048 x 1024 per
 // cloud at the FP3 stage), then device-memory bandwidth on the N*C output.
@@ -27,11 +28,12 @@ namespace {
 constexpr int kPoints = 128;  // points (and threads) per block
 constexpr int kTile = 1024;   // centers per shared-memory tile
 
+template <typename T>
 __global__ void __launch_bounds__(kPoints)
 three_nn_kernel(const float* __restrict__ points,
                 const float* __restrict__ centers,
-                const float* __restrict__ feats, int n, int m, int c,
-                float* __restrict__ out) {
+                const T* __restrict__ feats, int n, int m, int c,
+                T* __restrict__ out) {
   __shared__ float scx[kTile], scy[kTile], scz[kTile], sc2[kTile];
   __shared__ int sidx[3][kPoints];
   __shared__ float sw[3][kPoints];
@@ -103,36 +105,50 @@ three_nn_kernel(const float* __restrict__ points,
   sidx[0][threadIdx.x] = i0;
   sidx[1][threadIdx.x] = i1;
   sidx[2][threadIdx.x] = i2;
-  sw[0][threadIdx.x] = __fmul_rn(d1d2, inv);
-  sw[1][threadIdx.x] = __fmul_rn(d0d2, inv);
-  sw[2][threadIdx.x] = __fmul_rn(d0d1, inv);
+  sw[0][threadIdx.x] = lion::round_to<T>(__fmul_rn(d1d2, inv));
+  sw[1][threadIdx.x] = lion::round_to<T>(__fmul_rn(d0d2, inv));
+  sw[2][threadIdx.x] = lion::round_to<T>(__fmul_rn(d0d1, inv));
   __syncthreads();
 
   const int npts = min(kPoints, n - base);
-  const float* fb = feats + static_cast<size_t>(b) * m * c;
-  float* ob = out + (static_cast<size_t>(b) * n + base) * c;
+  const T* fb = feats + static_cast<size_t>(b) * m * c;
+  T* ob = out + (static_cast<size_t>(b) * n + base) * c;
   for (int e = threadIdx.x; e < npts * c; e += kPoints) {
     const int q = e / c;
     const int ch = e - q * c;
-    const float f0 = fb[static_cast<size_t>(sidx[0][q]) * c + ch];
-    const float f1 = fb[static_cast<size_t>(sidx[1][q]) * c + ch];
-    const float f2 = fb[static_cast<size_t>(sidx[2][q]) * c + ch];
-    ob[e] = __fadd_rn(__fadd_rn(__fmul_rn(f0, sw[0][q]),
-                                __fmul_rn(f1, sw[1][q])),
-                      __fmul_rn(f2, sw[2][q]));
+    const float f0 =
+        lion::to_float(fb[static_cast<size_t>(sidx[0][q]) * c + ch]);
+    const float f1 =
+        lion::to_float(fb[static_cast<size_t>(sidx[1][q]) * c + ch]);
+    const float f2 =
+        lion::to_float(fb[static_cast<size_t>(sidx[2][q]) * c + ch]);
+    lion::store(ob + e, __fadd_rn(__fadd_rn(__fmul_rn(f0, sw[0][q]),
+                                            __fmul_rn(f1, sw[1][q])),
+                                  __fmul_rn(f2, sw[2][q])));
   }
 }
 
 }  // namespace
 
-// points (B, N, 3), centers (B, M, 3), feats (B, M, C) f32 -> out (B, N, C).
+// points (B, N, 3), centers (B, M, 3) f32, feats (B, M, C) f32 or bf16
+// (bf16 != 0) -> out (B, N, C) of the features' dtype.
 LION_EXPORT int lion_three_nn_interpolate(const void* points,
                                           const void* centers,
                                           const void* feats, void* out, int b,
-                                          int n, int m, int c, void* stream) {
+                                          int n, int m, int c, int bf16,
+                                          void* stream) {
   const dim3 grid(lion::ceil_div(n, kPoints), b);
-  three_nn_kernel<<<grid, kPoints, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(points), static_cast<const float*>(centers),
-      static_cast<const float*>(feats), n, m, c, static_cast<float*>(out));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(points);
+  const float* ctr = static_cast<const float*>(centers);
+  if (bf16) {
+    three_nn_kernel<__nv_bfloat16><<<grid, kPoints, 0, s>>>(
+        p, ctr, static_cast<const __nv_bfloat16*>(feats), n, m, c,
+        static_cast<__nv_bfloat16*>(out));
+  } else {
+    three_nn_kernel<float><<<grid, kPoints, 0, s>>>(
+        p, ctr, static_cast<const float*>(feats), n, m, c,
+        static_cast<float*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }

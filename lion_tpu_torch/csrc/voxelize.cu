@@ -6,7 +6,9 @@
 // point-binned variant to feed its matrix unit; one scatter serves here.
 //
 // Semantics: cell index x*r^2 + y*r + z; each cell holds the mean of the
-// features of the points that fall in it; empty cells hold 0.
+// features of the points that fall in it; empty cells hold 0. Features are
+// float32 or bfloat16; sums are taken in float32 and the mean is rounded
+// once to the features' dtype (lion_tpu/ops/voxel.py:61,92).
 //
 // Bound on the H100: device-memory bandwidth and atomic throughput. The
 // scatter moves N*C floats in and the divide pass touches the whole
@@ -22,7 +24,8 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void vox_scatter_kernel(const float* __restrict__ feats,
+template <typename T>
+__global__ void vox_scatter_kernel(const T* __restrict__ feats,
                                    const int* __restrict__ vox, int b, int n,
                                    int c, int r, float* __restrict__ grid,
                                    float* __restrict__ count) {
@@ -35,38 +38,51 @@ __global__ void vox_scatter_kernel(const float* __restrict__ feats,
   if (x < 0 || x >= r || y < 0 || y >= r || z < 0 || z >= r) return;
   const size_t r3 = static_cast<size_t>(r) * r * r;
   const size_t cell = (pt / n) * r3 + (static_cast<size_t>(x) * r + y) * r + z;
-  atomicAdd(grid + cell * c + ch, feats[t]);
+  atomicAdd(grid + cell * c + ch, lion::to_float(feats[t]));
   if (ch == 0) atomicAdd(count + cell, 1.0f);
 }
 
-__global__ void vox_divide_kernel(float* __restrict__ grid,
+// out may alias grid (float32): each thread reads and writes one element.
+template <typename T>
+__global__ void vox_divide_kernel(const float* grid,
                                   const float* __restrict__ count,
-                                  size_t total, int c) {
+                                  size_t total, int c, T* out) {
   const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= total) return;
   const float k = count[t / c];
-  if (k > 0.0f) grid[t] = grid[t] / k;
+  lion::store(out + t, k > 0.0f ? grid[t] / k : grid[t]);
 }
 
-}  // namespace
-
-// feats (B, N, C) f32, vox (B, N, 3) i32 -> grid (B, r^3, C) f32 (zeroed by
-// the caller), count (B, r^3) f32 scratch (zeroed by the caller).
-LION_EXPORT int lion_avg_voxelize(const void* feats, const void* vox,
-                                  void* grid, void* count, int b, int n,
-                                  int c, int r, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename T>
+int launch(const void* feats, const void* vox, void* grid, void* count,
+           void* out, int b, int n, int c, int r, cudaStream_t s) {
   const long long points = static_cast<long long>(b) * n * c;
   if (points > 0) {
-    vox_scatter_kernel<<<lion::ceil_div(points, kThreads), kThreads, 0, s>>>(
-        static_cast<const float*>(feats), static_cast<const int*>(vox), b, n,
-        c, r, static_cast<float*>(grid), static_cast<float*>(count));
+    vox_scatter_kernel<T><<<lion::ceil_div(points, kThreads), kThreads, 0,
+                            s>>>(
+        static_cast<const T*>(feats), static_cast<const int*>(vox), b, n, c,
+        r, static_cast<float*>(grid), static_cast<float*>(count));
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long cells = static_cast<long long>(b) * r * r * r * c;
-  vox_divide_kernel<<<lion::ceil_div(cells, kThreads), kThreads, 0, s>>>(
-      static_cast<float*>(grid), static_cast<const float*>(count),
-      static_cast<size_t>(cells), c);
+  vox_divide_kernel<T><<<lion::ceil_div(cells, kThreads), kThreads, 0, s>>>(
+      static_cast<const float*>(grid), static_cast<const float*>(count),
+      static_cast<size_t>(cells), c, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// feats (B, N, C) f32 or bf16 (bf16 != 0), vox (B, N, 3) i32 -> out
+// (B, r^3, C) of the features' dtype. grid (B, r^3, C) f32 and count
+// (B, r^3) f32 are scratch zeroed by the caller; for f32 out may be grid.
+LION_EXPORT int lion_avg_voxelize(const void* feats, const void* vox,
+                                  void* grid, void* count, void* out, int b,
+                                  int n, int c, int r, int bf16,
+                                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16>(feats, vox, grid, count, out, b, n, c,
+                                      r, s)
+              : launch<float>(feats, vox, grid, count, out, b, n, c, r, s);
 }

@@ -5,6 +5,9 @@ sampling path only decodes.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 from torch import nn
 
 from ..nn.unet import PVCNN2Unet
@@ -36,7 +39,8 @@ class LatentPointDecPVC(nn.Module):
                  skip_weight: float = 0.1, ada_mlp_init_scale: float = 1.0,
                  vres_mult: float = 1.0, ncenter_mult: float = 1.0,
                  sa_blocks=LATENT_PTS_SA_BLOCKS,
-                 fp_blocks=LATENT_PTS_FP_BLOCKS):
+                 fp_blocks=LATENT_PTS_FP_BLOCKS,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.point_dim = point_dim
         self.context_dim = context_dim
@@ -47,7 +51,7 @@ class LatentPointDecPVC(nn.Module):
             embed_dim=0, extra_feature_channels=context_dim,
             input_dim=point_dim, style_dim=style_dim,
             init_scale=ada_mlp_init_scale, vres_mult=vres_mult,
-            ncenter_mult=ncenter_mult)
+            ncenter_mult=ncenter_mult, dtype=dtype)
 
     def forward(self, context, style):
         b = context.shape[0]

@@ -10,7 +10,9 @@ the hierarchy:
                   the global sample; the latent is carried as (B, N, C)
     decode:       one U-Net forward of the VAE decoder
 
-fp32 only. DDIM, the PF-ODE, class and CLIP conditioning and released .pt
+With `cfg.tpu.bf16 = True` the local prior's and the decoder's U-Nets
+compute in bf16; the global prior, the parameters and the DDPM chain stay
+fp32. DDIM, the PF-ODE, class and CLIP conditioning and released .pt
 checkpoints are not ported yet.
 """
 from __future__ import annotations

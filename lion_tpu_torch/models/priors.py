@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..config.view import as_view
-from ..nn.common import TDense, require_fp32, timestep_embedding
+from ..nn.common import TDense, compute_dtype, timestep_embedding
 from ..nn.unet import PVCNN2Unet
 
 # local prior U-Net specs (latent_points_ada_localprior.py:17-28); the third
@@ -106,7 +106,6 @@ class LocalPrior(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         cfg = as_view(cfg)
-        require_fp32(cfg)
         if cfg.data.cond_on_cat or cfg.clipforge.enable:
             raise NotImplementedError("class / CLIP conditioning not ported")
         self.latent_dim = cfg.shapelatent.latent_dim
@@ -130,7 +129,8 @@ class LocalPrior(nn.Module):
             style_dim=cfg.latent_pts.style_dim,
             init_scale=cfg.latent_pts.ada_mlp_init_scale,
             vres_mult=cfg.tpu.vres_mult if "tpu" in cfg else 1.0,
-            ncenter_mult=cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0)
+            ncenter_mult=cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0,
+            dtype=compute_dtype(cfg))
 
     def forward(self, x, t, condition_input):
         """x (B, N*C) or (B, N, C), t (B,), condition_input (B, style) ->

@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ..config.view import as_view
-from ..nn.common import require_fp32
+from ..nn.common import compute_dtype
 from .encoders import (LATENT_PTS_FP_BLOCKS, LATENT_PTS_SA_BLOCKS,
                        LatentPointDecPVC)
 
@@ -42,7 +42,6 @@ class VAE(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         cfg = as_view(cfg)
-        require_fp32(cfg)
         if cfg.data.cond_on_cat:
             raise NotImplementedError("class-conditional decoding not ported")
         if not cfg.shapelatent.decoder_type.endswith("LatentPointDecPVC"):
@@ -59,7 +58,8 @@ class VAE(nn.Module):
             ada_mlp_init_scale=cfg.latent_pts.ada_mlp_init_scale,
             vres_mult=cfg.tpu.vres_mult if "tpu" in cfg else 1.0,
             ncenter_mult=cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0,
-            sa_blocks=sa_blocks, fp_blocks=fp_blocks)
+            sa_blocks=sa_blocks, fp_blocks=fp_blocks,
+            dtype=compute_dtype(cfg))
 
     def sample(self, num_samples: int, decomposed_eps) -> torch.Tensor:
         """Decode the latents [z_global (B, style), z_local (B, N*(latent +

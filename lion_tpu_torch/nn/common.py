@@ -11,18 +11,25 @@ Parameters start empty; `init_weights(module, generator)` draws them with
 the JAX package's initializers (torch nn.Linear's default uniform for Dense
 and Conv, a fan-avg uniform for the AdaGN style projection).
 Inference only: no dropout, no gradient through the fused conv.
+
+Compute dtype: modules built with `dtype=torch.bfloat16` compute in bf16
+while their parameters stay fp32, as the JAX package's `dtype` does. Dense
+layers cast their kernel and bias to the dtype at use; GroupNorm and AdaGN
+compute in fp32 and SharedMLP rounds norm + swish once to its dtype;
+LinearAttention runs its softmax in fp32.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 import torch
 from torch import nn
 
-from ..ops.conv3d import conv3d_3x3_fused
+from ..ops.conv3d import (GN_EPS, GN_GROUPS, conv3d_3x3_fused,
+                          gn_affine_from_stats)
 
 
 def swish(x):
@@ -44,11 +51,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 class TDense(nn.Module):
     """Dense layer with torch nn.Linear's default init: kernel and bias
-    ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)). `dtype` is the compute dtype;
+    None computes in the promoted dtype of the input and the fp32 kernel,
+    as flax's nn.Dense does."""
 
-    def __init__(self, features: int, fan_in: int, use_bias: bool = True):
+    def __init__(self, features: int, fan_in: int, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.fan_in = fan_in
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(fan_in, features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
@@ -59,8 +70,9 @@ class TDense(nn.Module):
             _uniform(self.bias, bound, generator)
 
     def forward(self, x):
-        y = torch.matmul(x, self.kernel)
-        return y if self.bias is None else y + self.bias
+        dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+        y = torch.matmul(x.to(dt), self.kernel.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Conv3dSame(nn.Module):
@@ -81,10 +93,12 @@ class Conv3dSame(nn.Module):
 
     def forward(self, x, in_affine=None, pre_swish: bool = False):
         """Returns (y_raw, stats, bias): y_raw = conv(swish?(x*s + b)) WITHOUT
-        the conv bias, stats (B, 2, C) = per-channel (sum, sumsq) of y_raw;
-        the caller folds bias into the next norm."""
+        the conv bias, in x's dtype (the kernel is cast to it), stats
+        (B, 2, C) = per-channel (sum, sumsq) of y_raw; the caller folds bias
+        into the next norm."""
         sc, bi = (None, None) if in_affine is None else in_affine
-        y, st = conv3d_3x3_fused(x.contiguous(), self.kernel.detach(),
+        y, st = conv3d_3x3_fused(x.contiguous(),
+                                 self.kernel.detach().to(x.dtype),
                                  None if sc is None else sc.contiguous(),
                                  None if bi is None else bi.contiguous(),
                                  pre_swish=pre_swish)
@@ -105,46 +119,17 @@ class GNAffine(nn.Module):
             self.bias.zero_()
 
 
-GN_GROUPS, GN_EPS = 8, 1e-5
-
-
 def group_norm(x, scale, bias):
     """GroupNorm(8) over (B, ..., C) as flax computes it: statistics over
-    all non-batch dims of each group, var = E[x^2] - E[x]^2 clamped at 0."""
+    all non-batch dims of each group, var = E[x^2] - E[x]^2 clamped at 0.
+    Computed and returned in fp32 whatever x's dtype."""
     b, c = x.shape[0], x.shape[-1]
-    xg = x.reshape(b, -1, GN_GROUPS, c // GN_GROUPS)
+    xg = x.float().reshape(b, -1, GN_GROUPS, c // GN_GROUPS)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = torch.clamp_min((xg * xg).mean(dim=(1, 3), keepdim=True)
                           - mean * mean, 0.0)
     y = ((xg - mean) * torch.rsqrt(var + GN_EPS)).reshape(x.shape)
     return y * scale + bias
-
-
-def gn_affine_from_stats(s1, s2, count, gn_scale, gn_bias, pre_bias=None):
-    """Fold GroupNorm(8) into per-channel (scale, bias) from raw statistics.
-
-    s1/s2 (B, C): per-channel sum and sum of squares of the raw tensor y
-    over `count` spatial elements; pre_bias (C,) is added to y before the
-    norm (the conv bias). Returns (scale, bias) (B, C) with
-    GN(y + pre_bias) == scale * y + bias."""
-    b, c = s1.shape
-    mean_c = s1 / count
-    ex2_c = s2 / count
-    if pre_bias is not None:
-        # E[(y+b)^2] = E[y^2] + 2 b E[y] + b^2
-        ex2_c = ex2_c + 2.0 * pre_bias[None, :] * mean_c + pre_bias[None, :] ** 2
-        mean_c = mean_c + pre_bias[None, :]
-    per = c // GN_GROUPS
-    gmean = mean_c.reshape(b, GN_GROUPS, per).mean(dim=2)
-    gex2 = ex2_c.reshape(b, GN_GROUPS, per).mean(dim=2)
-    gvar = torch.clamp_min(gex2 - gmean ** 2, 0.0)
-    rs_c = torch.rsqrt(gvar + GN_EPS).repeat_interleave(per, dim=1)
-    mu_c = gmean.repeat_interleave(per, dim=1)
-    scale = rs_c * gn_scale[None, :]
-    bias = gn_bias[None, :] - mu_c * scale
-    if pre_bias is not None:
-        bias = bias + pre_bias[None, :] * scale
-    return scale, bias
 
 
 class _StyleDense(TDense):
@@ -181,19 +166,17 @@ class AdaGN(nn.Module):
         return s[:, :self.n_channel], s[:, self.n_channel:]
 
     def forward(self, x, style):
+        """AdaGN(x) in fp32."""
         factor, bias = self._style(style)
         out = group_norm(x, self.norm.scale, self.norm.bias)
         shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (self.n_channel,)
         return out * factor.reshape(shape) + bias.reshape(shape)
 
-    def fold(self, style, stats, count, conv_bias=None):
-        """Per-channel (scale, bias) (B, C) of this norm over a raw tensor
-        whose (sum, sumsq) are `stats` (B, 2, C)."""
+    def channel_affine(self, style):
+        """The post-norm (ca, cb) (B, C) with AdaGN(x) == GN0(x) * ca + cb,
+        GN0 the parameter-free GroupNorm."""
         factor, bias = self._style(style)
-        sc, bi = gn_affine_from_stats(stats[:, 0], stats[:, 1], count,
-                                      self.norm.scale, self.norm.bias,
-                                      pre_bias=conv_bias)
-        return sc * factor, bi * factor + bias
+        return self.norm.scale * factor, self.norm.bias * factor + bias
 
 
 class Normalizer(nn.Module):
@@ -209,15 +192,26 @@ class Normalizer(nn.Module):
             self.gn = GNAffine(n_channel)
 
     def forward(self, x, style=None):
+        """The norm of x, in fp32."""
         if self.is_ada:
             return self.ada(x, style)
         return group_norm(x, self.gn.scale, self.gn.bias)
 
-    def fold(self, style, stats, count, conv_bias=None):
+    def channel_affine(self, style, batch: int):
+        """The post-norm channel affine (ca, cb) (batch, C) with
+        Norm(x) == GN0(x) * ca + cb (lion_tpu/nn/common.py:188-193,302-304)."""
         if self.is_ada:
-            return self.ada.fold(style, stats, count, conv_bias)
-        return gn_affine_from_stats(stats[:, 0], stats[:, 1], count,
-                                    self.gn.scale, self.gn.bias,
+            return self.ada.channel_affine(style)
+        c = self.gn.scale.shape[0]
+        return (self.gn.scale[None].expand(batch, c),
+                self.gn.bias[None].expand(batch, c))
+
+    def fold(self, style, stats, count, conv_bias=None):
+        """Per-channel (scale, bias) (B, C) of this norm over a raw tensor
+        whose (sum, sumsq) are `stats` (B, 2, C), with the conv bias added
+        before the norm."""
+        ca, cb = self.channel_affine(style, stats.shape[0])
+        return gn_affine_from_stats(stats[:, 0], stats[:, 1], count, ca, cb,
                                     pre_bias=conv_bias)
 
 
@@ -236,21 +230,24 @@ class SE(nn.Module):
 
 
 class LinearAttention(nn.Module):
-    """softmax(k) @ v attention over the point axis, O(N d^2)."""
+    """softmax(k) @ v attention over the point axis, O(N d^2); the softmax
+    runs in fp32."""
 
-    def __init__(self, dim: int, heads: int = 4):
+    def __init__(self, dim: int, heads: int = 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         dim_head = 32
         self.heads, self.dim_head = heads, dim_head
-        self.to_qkv = TDense(heads * dim_head * 3, dim, use_bias=False)
-        self.to_out = TDense(dim, heads * dim_head)
+        self.to_qkv = TDense(heads * dim_head * 3, dim, use_bias=False,
+                             dtype=dtype)
+        self.to_out = TDense(dim, heads * dim_head, dtype=dtype)
 
     def forward(self, x):
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         qkv = self.to_qkv(x).reshape(b, n, 3, h, d)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # (B, N, h, d)
-        k = torch.softmax(k, dim=1)
+        k = torch.softmax(k.float(), dim=1).to(k.dtype)
         context = torch.einsum("bnhd,bnhe->bhde", k, v)
         out = torch.einsum("bhde,bnhd->bnhe", context, q)
         return self.to_out(out.reshape(b, n, h * d))
@@ -258,16 +255,18 @@ class LinearAttention(nn.Module):
 
 class SharedMLP(nn.Module):
     """Per-point MLP: [Dense -> (Ada)GN(8) -> swish] x len(out_channels),
-    on (B, N, C) or (B, M, K, C)."""
+    on (B, N, C) or (B, M, K, C). The norm and swish run in fp32 and the
+    result is rounded once to the dense layer's dtype."""
 
     def __init__(self, in_channels: int, out_channels: Sequence[int],
                  ada: bool = False, style_dim: int = 128,
-                 init_scale: float = 1.0):
+                 init_scale: float = 1.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.depth = len(out_channels)
         cin = in_channels
         for i, oc in enumerate(out_channels):
-            self.add_module(f"conv{i}", TDense(oc, cin))
+            self.add_module(f"conv{i}", TDense(oc, cin, dtype=dtype))
             self.add_module(f"norm{i}",
                             Normalizer(oc, ada, style_dim, init_scale))
             cin = oc
@@ -276,8 +275,19 @@ class SharedMLP(nn.Module):
     def forward(self, x, style=None):
         for i in range(self.depth):
             x = getattr(self, f"conv{i}")(x)
-            x = swish(getattr(self, f"norm{i}")(x, style))
+            x = swish(getattr(self, f"norm{i}")(x, style)).to(x.dtype)
         return x
+
+    def fold(self, style, batch: int):
+        """Fold mode for fused-kernel consumers (lion_tpu/nn/common.py:
+        384-400): per layer (kernel (Cin, C), bias (C,), ca, cb (batch, C))
+        with layer(x) == swish(GN0(x @ kernel + bias) * ca + cb)."""
+        layers = []
+        for i in range(self.depth):
+            dense = getattr(self, f"conv{i}")
+            ca, cb = getattr(self, f"norm{i}").channel_affine(style, batch)
+            layers.append((dense.kernel, dense.bias, ca, cb))
+        return layers
 
 
 def timestep_embedding(timesteps: torch.Tensor, embed_dim: int,
@@ -296,14 +306,13 @@ def timestep_embedding(timesteps: torch.Tensor, embed_dim: int,
     return emb
 
 
-def require_fp32(cfg) -> None:
-    """The port runs fp32 only."""
-    if "tpu" in cfg and cfg.tpu.bf16:
-        raise NotImplementedError("lion_tpu_torch runs fp32 only "
-                                  "(tpu.bf16 = True is a later port)")
+def compute_dtype(cfg) -> Optional[torch.dtype]:
+    """The U-Nets' compute dtype: bf16 when cfg.tpu.bf16 is set, else None
+    (fp32), as lion_tpu/models/priors.py:231 and vae.py:60 pick it."""
+    return torch.bfloat16 if ("tpu" in cfg and cfg.tpu.bf16) else None
 
 
 __all__ = ["swish", "init_weights", "TDense", "Conv3dSame", "GNAffine",
            "group_norm", "gn_affine_from_stats", "AdaGN", "Normalizer", "SE",
            "LinearAttention", "SharedMLP", "timestep_embedding",
-           "require_fp32"]
+           "compute_dtype"]

@@ -110,18 +110,24 @@ class PVCNN2Unet(nn.Module):
     """SA encoder + global LinearAttention + FP decoder + classifier head,
     with an optional sinusoidal time embedding (embed_dim > 0) and AdaGN
     style conditioning threaded through every block (the AdaGN U-Nets of
-    the local prior and the VAE decoder)."""
+    the local prior and the VAE decoder).
+
+    `dtype` is the compute dtype of every block (None: fp32); the time
+    embedding and the classifier's last dense layer stay fp32 and the
+    output is fp32 (lion_tpu/nn/unet.py:157-159,282)."""
 
     def __init__(self, num_classes: int, sa_blocks, fp_blocks,
                  embed_dim: int = 0, extra_feature_channels: int = 3,
                  input_dim: int = 3, time_emb_scales: float = 1.0,
                  style_dim: int = 128, init_scale: float = 1.0,
-                 vres_mult: float = 1.0, ncenter_mult: float = 1.0):
+                 vres_mult: float = 1.0, ncenter_mult: float = 1.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.input_dim = input_dim
         self.embed_dim = embed_dim
         self.time_emb_scales = time_emb_scales
-        kw = dict(ada=True, style_dim=style_dim, init_scale=init_scale)
+        kw = dict(ada=True, style_dim=style_dim, init_scale=init_scale,
+                  dtype=dtype)
         if embed_dim > 0:
             self.embedf0 = TDense(embed_dim, embed_dim)
             self.embedf1 = TDense(embed_dim, embed_dim)
@@ -151,7 +157,7 @@ class PVCNN2Unet(nn.Module):
         # only the extra (non-coordinate) input channels feed the last FP
         skip_channels[0] = extra_feature_channels + input_dim - 3
 
-        self.global_att = LinearAttention(channels_sa, heads=8)
+        self.global_att = LinearAttention(channels_sa, heads=8, dtype=dtype)
 
         self.fp_stages = build_fp_stages(fp_blocks, vres_mult=vres_mult)
         for fp_idx, stage in enumerate(self.fp_stages):
@@ -198,7 +204,7 @@ class PVCNN2Unet(nn.Module):
         def with_temb(feat):
             if temb is None:
                 return feat
-            tt = temb[:, None, :].expand(-1, feat.shape[1], -1)
+            tt = temb[:, None, :].to(feat.dtype).expand(-1, feat.shape[1], -1)
             return torch.cat([feat, tt], dim=-1)
 
         coords_list, in_features_list = [], []
@@ -230,4 +236,4 @@ class PVCNN2Unet(nn.Module):
                 features = self._run_conv(f"fp{fp_idx}_conv{j}", features,
                                           coords, style)
 
-        return self.cls_out(self.cls_mlp(features, style))
+        return self.cls_out(self.cls_mlp(features, style)).float()

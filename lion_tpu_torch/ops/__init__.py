@@ -4,18 +4,20 @@
 `reset_counts()` zeroes their launch and plain-call counters.
 """
 from ._cuda import KERNELS, reset_counts
-from .conv3d import conv3d_3x3_fused
+from .conv3d import conv3d_3x3_fused, conv3d_pair
 from .interpolate import nearest_neighbor_interpolate
 from .points import (ball_query, ball_query_group, fps,
                      furthest_point_sample, furthest_point_sample_idx,
                      gather, grouping)
+from .pvblock import pvconv_block_pair
+from .sa_fused import sa_fused
 from .voxel import (avg_voxelize, normalize_coords, trilinear_devoxelize,
                     voxelize)
 
 __all__ = [
-    "KERNELS", "reset_counts", "conv3d_3x3_fused",
+    "KERNELS", "reset_counts", "conv3d_3x3_fused", "conv3d_pair",
     "nearest_neighbor_interpolate", "ball_query", "ball_query_group", "fps",
     "furthest_point_sample", "furthest_point_sample_idx", "gather",
-    "grouping", "avg_voxelize", "normalize_coords", "trilinear_devoxelize",
-    "voxelize",
+    "grouping", "pvconv_block_pair", "sa_fused", "avg_voxelize",
+    "normalize_coords", "trilinear_devoxelize", "voxelize",
 ]

@@ -1,11 +1,12 @@
 """Build, load and dispatch the port's hand-written CUDA kernels.
 
-The kernels live in `lion_tpu_torch/csrc/*.cu`. On first use they are
-compiled with nvcc for Hopper (`sm_90a`) into one shared library with a
-plain C interface under `build/lion_tpu_torch/` in the checkout, named by a
-hash of the sources and flags, and loaded with ctypes. Nothing is compiled
-or imported from CUDA when this module is imported, so the CPU tests run
-on machines without nvcc.
+The kernels live in `lion_tpu_torch/csrc/*.cu`. On first use each source is
+compiled with nvcc for Hopper (`sm_90a`), all sources at once in parallel
+processes, and the objects are linked into one shared library with a plain
+C interface under `build/lion_tpu_torch/` in the checkout, named by a hash
+of the sources and flags, and loaded with ctypes. Nothing is compiled or
+imported from CUDA when this module is imported, so the CPU tests run on
+machines without nvcc.
 
 Every kernel has a wrapper made by `kernel(...)`. The wrapper runs the
 kernel's plain PyTorch version for a tensor on the CPU, launches the kernel
@@ -31,7 +32,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lion_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points (csrc/*.cu) and their argument types; every one returns
@@ -39,11 +40,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lion_fps": (_P, _P, _P, _I, _I, _I, _P),
     "lion_ball_query_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "lion_avg_voxelize": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "lion_avg_voxelize": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_conv3d_3x3_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _P),
-    "lion_trilinear_devoxelize": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "lion_three_nn_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "lion_conv3d_3x3_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P),
+    "lion_conv3d_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _P),
+    "lion_pvconv_block_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _P),
+    "lion_sa_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                      _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "lion_trilinear_devoxelize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lion_three_nn_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # name -> wrapper, in registration order (one entry per kernel)
@@ -77,8 +86,24 @@ def library_path() -> Path:
     return BUILD_DIR / f"liblion_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the compiler's errors if
+    any fails. Returns their stdout + stderr, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)} ({rc}):\n{o}" for c, rc, o in failed))
+    return outs
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, all started together, then one link.
 
     The compiler's resource report (-Xptxas=-v) is kept beside the library
     as `<library>.log`."""
@@ -86,15 +111,20 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    out.with_name(out.name + ".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    try:
+        logs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                         for s, o in zip(srcs, objs)])
+        logs += _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                           str(tmp), *map(str, objs)]])
+        out.with_name(out.name + ".log").write_text("".join(logs))
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 
@@ -132,10 +162,11 @@ def ptr(t) -> int:
     return None if t is None else t.data_ptr()
 
 
-def check_cuda(*tensors, dtype=torch.float32) -> None:
-    """Raise unless every given tensor is a contiguous CUDA tensor of
-    `dtype` on the device of the first."""
-    dev = tensors[0].device
+def check_cuda(*tensors, dtype=torch.float32, device=None) -> None:
+    """Raise unless every given tensor (None is skipped) is a contiguous,
+    16-byte aligned CUDA tensor of `dtype` on `device`, by default the
+    device of the first (the kernels read rows with 16-byte loads)."""
+    dev = device or tensors[0].device
     for t in tensors:
         if t is None:
             continue
@@ -145,6 +176,15 @@ def check_cuda(*tensors, dtype=torch.float32) -> None:
             raise TypeError(f"expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("expected a contiguous tensor")
+        if t.data_ptr() % 16:
+            raise ValueError("expected a 16-byte aligned tensor")
+
+
+def check_float(t: torch.Tensor, name: str) -> torch.dtype:
+    """The activation dtype a kernel takes: float32 or bfloat16."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
+    return t.dtype
 
 
 def kernel(name: str, plain: Callable, source: str, replaces: str):

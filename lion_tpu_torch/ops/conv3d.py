@@ -1,13 +1,21 @@
-"""Fused eval-path 3x3x3 convolution (port of conv3d_3x3_fused,
-lion_tpu/ops/pallas/conv3d.py:441-474).
+"""Fused eval-path 3x3x3 convolutions (ports of conv3d_3x3_fused,
+lion_tpu/ops/pallas/conv3d.py:441-474, and conv3d_packed_pair,
+lion_tpu/ops/pallas/conv3d_packed.py:608).
 
-Kernel here:
-  K4 `conv3d_3x3_fused` (csrc/conv3d.cu).
+Kernels here:
+  K4 `conv3d_3x3_fused` (csrc/conv3d.cu): one conv with an input prologue
+     and output statistics, in float32 or bfloat16.
+  K8 `conv3d_pair` (csrc/conv3d_pair.cu): conv0 -> GroupNorm fold ->
+     swish -> conv1 of a PVConv whose input width equals its output width.
 
-y = conv3d_SAME(swish?(x * in_scale + in_bias), w), bias-free, plus the
+K4: y = conv3d_SAME(swish?(x * in_scale + in_bias), w), bias-free, plus the
 per-channel statistics stats[b] = (sum of y, sum of y^2) over the grid, which
 the caller folds with the conv bias into the next GroupNorm. The prologue
-applies to in-grid inputs only: the zero halo is added after it.
+applies to in-grid inputs only: the zero halo is added after it. With
+bfloat16 x and w the prologue runs in float32 and is rounded to bfloat16
+(ops/pallas/conv3d.py:460-468), the products are summed in float32, y is
+rounded to bfloat16 and the statistics are taken of the rounded y, as the
+TPU kernels take them (conv3d_packed.py:466-472).
 Inference only: no gradient.
 """
 from __future__ import annotations
@@ -17,7 +25,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ._cuda import check_cuda, kernel, launch, ptr, stream_of
+from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
+
+GN_GROUPS, GN_EPS = 8, 1e-5
 
 
 def _conv3d_3x3_fused_plain(x: torch.Tensor, w: torch.Tensor,
@@ -30,10 +40,12 @@ def _conv3d_3x3_fused_plain(x: torch.Tensor, w: torch.Tensor,
             + in_bias[:, None, None, None, :]
     if pre_swish:
         xx = xx * torch.sigmoid(xx)
+    xx = xx.to(x.dtype).float()
     y = F.conv3d(xx.permute(0, 4, 1, 2, 3), w.float().permute(4, 3, 0, 1, 2),
                  padding=1)
-    y = y.permute(0, 2, 3, 4, 1).contiguous()
-    stats = torch.stack([y.sum(dim=(1, 2, 3)), (y * y).sum(dim=(1, 2, 3))],
+    y = y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
+    yf = y.float()
+    stats = torch.stack([yf.sum(dim=(1, 2, 3)), (yf * yf).sum(dim=(1, 2, 3))],
                         dim=1)
     return y, stats
 
@@ -45,19 +57,90 @@ def conv3d_3x3_fused(x: torch.Tensor, w: torch.Tensor,
                      in_scale: Optional[torch.Tensor] = None,
                      in_bias: Optional[torch.Tensor] = None,
                      pre_swish: bool = False):
-    """x (B, R, R, R, Ci), w (3, 3, 3, Ci, Co), in_scale/in_bias (B, Ci) or
-    None -> (y (B, R, R, R, Co), stats (B, 2, Co) f32)."""
+    """x (B, R, R, R, Ci), w (3, 3, 3, Ci, Co) of one dtype (f32 or bf16),
+    in_scale/in_bias (B, Ci) f32 or None -> (y (B, R, R, R, Co) of x's
+    dtype, stats (B, 2, Co) f32)."""
     if (in_scale is None) != (in_bias is None):
         raise ValueError("in_scale and in_bias go together")
-    check_cuda(x, w, in_scale, in_bias)
+    dt = check_float(x, "conv3d_3x3_fused")
+    check_cuda(x, w, dtype=dt)
+    check_cuda(in_scale, in_bias, device=x.device)
     b, r = x.shape[0], x.shape[1]
     ci, co = w.shape[3], w.shape[4]
     if x.shape[1:] != (r, r, r, ci) or w.shape[:3] != (3, 3, 3):
         raise ValueError(f"conv3d_3x3_fused: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
-    y = torch.empty((b, r, r, r, co), device=x.device)
+    y = torch.empty((b, r, r, r, co), device=x.device, dtype=dt)
     stats = torch.zeros((b, 2, co), device=x.device)
-    launch("lion_conv3d_3x3_fused", ptr(x), ptr(w), ptr(in_scale),
-           ptr(in_bias), ptr(y), ptr(stats), b, r, ci, co, int(pre_swish),
-           stream_of(x))
+    entry = ("lion_conv3d_3x3_fused" if dt == torch.float32
+             else "lion_conv3d_3x3_bf16")
+    launch(entry, ptr(x), ptr(w), ptr(in_scale), ptr(in_bias), ptr(y),
+           ptr(stats), b, r, ci, co, int(pre_swish), stream_of(x))
     return y, stats
+
+
+def gn_affine_from_stats(s1, s2, count, ca, cb, pre_bias=None):
+    """Fold GroupNorm(8) into per-channel (scale, bias) from raw statistics.
+
+    s1/s2 (B, C): per-channel sum and sum of squares of the raw tensor y
+    over `count` spatial elements; pre_bias (C,) is added to y before the
+    norm (the conv bias); (ca, cb) (C,) or (B, C) is the affine after the
+    parameter-free norm GN0. Returns (scale, bias) (B, C) with
+    GN0(y + pre_bias) * ca + cb == scale * y + bias: groups of 8,
+    var = E[x^2] - E[x]^2 clamped at 0, eps 1e-5 (lion_tpu/nn/common.py:
+    242-271 and the TPU conv pair's fold, conv3d_packed.py:537-562)."""
+    b, c = s1.shape
+    mean_c = s1 / count
+    ex2_c = s2 / count
+    if pre_bias is not None:
+        # E[(y+b)^2] = E[y^2] + 2 b E[y] + b^2
+        ex2_c = ex2_c + 2.0 * pre_bias * mean_c + pre_bias * pre_bias
+        mean_c = mean_c + pre_bias
+    per = c // GN_GROUPS
+    gmean = mean_c.reshape(b, GN_GROUPS, per).mean(dim=2)
+    gex2 = ex2_c.reshape(b, GN_GROUPS, per).mean(dim=2)
+    gvar = torch.clamp_min(gex2 - gmean * gmean, 0.0)
+    rs_c = torch.rsqrt(gvar + GN_EPS).repeat_interleave(per, dim=1)
+    mu_c = gmean.repeat_interleave(per, dim=1)
+    scale = rs_c * ca
+    bias = cb - mu_c * scale
+    if pre_bias is not None:
+        bias = bias + pre_bias * scale
+    return scale, bias
+
+
+def _conv3d_pair_plain(x, w0, b0, ca, cb, w1):
+    r = x.shape[1]
+    y0, st0 = _conv3d_3x3_fused_plain(x, w0)
+    sc, bi = gn_affine_from_stats(st0[:, 0], st0[:, 1], float(r ** 3), ca,
+                                  cb, pre_bias=b0)
+    return _conv3d_3x3_fused_plain(y0, w1, sc, bi, pre_swish=True)
+
+
+@kernel("conv3d_pair", _conv3d_pair_plain,
+        "lion_tpu_torch/csrc/conv3d_pair.cu",
+        "lion_tpu/ops/pallas/conv3d_packed.py:608")
+def conv3d_pair(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                ca: torch.Tensor, cb: torch.Tensor, w1: torch.Tensor):
+    """conv1(swish(GN(conv0(x) + b0) folded with (ca, cb))) in bf16.
+
+    x (B, R, R, R, C) bf16; w0, w1 (3, 3, 3, C, C) bf16; b0 (C,) f32 the
+    conv0 bias; ca, cb (B, C) f32 the post-norm channel affine. Returns
+    (y1 (B, R, R, R, C) bf16 without conv1's bias, st1 (B, 2, C) f32 the
+    (sum, sumsq) of the rounded y1). Two launches: conv0 (+ its stats),
+    then conv1 with the fold computed from those stats in every block."""
+    check_cuda(x, w0, w1, dtype=torch.bfloat16)
+    check_cuda(b0, ca, cb, device=x.device)
+    b, r, c = x.shape[0], x.shape[1], x.shape[-1]
+    if (x.shape[1:] != (r, r, r, c) or w0.shape != (3, 3, 3, c, c)
+            or w1.shape != w0.shape or c % 8 or c > 256):
+        raise ValueError(f"conv3d_pair: x {tuple(x.shape)}, w0 "
+                         f"{tuple(w0.shape)}, w1 {tuple(w1.shape)} (needs "
+                         "Ci == Co, a multiple of 8, at most 256)")
+    y0 = torch.empty_like(x)
+    y1 = torch.empty_like(x)
+    st = torch.zeros((2, b, 2, c), device=x.device)
+    launch("lion_conv3d_pair", ptr(x), ptr(w0), ptr(b0), ptr(ca), ptr(cb),
+           ptr(w1), ptr(y0), ptr(st[0]), ptr(y1), ptr(st[1]), b, r, c,
+           stream_of(x))
+    return y1, st[1]

@@ -6,13 +6,17 @@ Kernel here:
 
 The plain version evaluates the distances and the weighted sum op by op in
 the order the kernel uses with unfused arithmetic, so both pick the same
-neighbours and agree bit for bit on the card.
+neighbours and agree bit for bit on the card. Features may be float32 or
+bfloat16; the output takes their dtype. With bfloat16 features the three
+weights are rounded to bfloat16, as the JAX form casts them
+(lion_tpu/ops/interpolate.py:98), and the weighted sum is taken in float32
+and rounded once.
 """
 from __future__ import annotations
 
 import torch
 
-from ._cuda import check_cuda, kernel, launch, ptr, stream_of
+from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
 
 
 def _sq_norm(p: torch.Tensor) -> torch.Tensor:
@@ -60,14 +64,15 @@ def _nearest_neighbor_interpolate_plain(points, centers, centers_features):
     d0, d1, d2_ = d2[..., 0], d2[..., 1], d2[..., 2]
     d0d1, d0d2, d1d2 = d0 * d1, d0 * d2_, d1 * d2_
     inv = 1.0 / (d0d1 + d0d2 + d1d2)
+    dt = centers_features.dtype
     feats = centers_features.float()
     c = feats.shape[-1]
     out = None
     for j, w in enumerate((d1d2 * inv, d0d2 * inv, d0d1 * inv)):
         f = torch.gather(feats, 1, idx[..., j:j + 1].expand(-1, -1, c))
-        term = f * w[..., None]
+        term = f * w.to(dt).float()[..., None]
         out = term if out is None else out + term
-    return out
+    return out.to(dt)
 
 
 @kernel("three_nn_interpolate", _nearest_neighbor_interpolate_plain,
@@ -75,14 +80,17 @@ def _nearest_neighbor_interpolate_plain(points, centers, centers_features):
         "lion_tpu/ops/pallas/three_nn.py:74")
 def nearest_neighbor_interpolate(points: torch.Tensor, centers: torch.Tensor,
                                  centers_features: torch.Tensor):
-    """points (B, N, 3), centers (B, M, 3), centers_features (B, M, C) ->
-    (B, N, C)."""
-    check_cuda(points, centers, centers_features)
+    """points (B, N, 3), centers (B, M, 3) f32, centers_features (B, M, C)
+    f32 or bf16 -> (B, N, C) of the features' dtype."""
+    dt = check_float(centers_features, "nearest_neighbor_interpolate")
+    check_cuda(points, centers)
+    check_cuda(centers_features, dtype=dt)
     b, n, _ = points.shape
     m, c = centers_features.shape[1], centers_features.shape[2]
     if m < 1:
         raise ValueError("nearest_neighbor_interpolate needs M >= 1")
-    out = torch.empty((b, n, c), device=points.device)
+    out = torch.empty((b, n, c), device=points.device, dtype=dt)
     launch("lion_three_nn_interpolate", ptr(points), ptr(centers),
-           ptr(centers_features), ptr(out), b, n, m, c, stream_of(points))
+           ptr(centers_features), ptr(out), b, n, m, c,
+           int(dt == torch.bfloat16), stream_of(points))
     return out

@@ -6,12 +6,16 @@ Kernels here:
   K3 `avg_voxelize` (csrc/voxelize.cu): scatter-mean of point features.
   K5 `trilinear_devoxelize` (csrc/devoxelize.cu): 8-corner trilinear
      gather.
+Both take float32 or bfloat16 features and emit their dtype. K3 sums in
+float32 and rounds the mean once (lion_tpu/ops/voxel.py:61,92); K5 rounds
+each corner weight to the grid's dtype, as the JAX form casts its weights
+(voxel.py:249), accumulates the 8 products in float32 and rounds once.
 """
 from __future__ import annotations
 
 import torch
 
-from ._cuda import check_cuda, kernel, launch, ptr, stream_of
+from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
 
 
 def normalize_coords(coords: torch.Tensor, resolution: int) -> torch.Tensor:
@@ -44,7 +48,7 @@ def _avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
     count = grid.new_zeros((b, r ** 3))
     count.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.float32))
     grid = grid / count.clamp(min=1.0)[:, :, None]
-    return grid.reshape(b, r, r, r, c)
+    return grid.reshape(b, r, r, r, c).to(features.dtype)
 
 
 @kernel("avg_voxelize", _avg_voxelize_plain,
@@ -52,17 +56,21 @@ def _avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
         "lion_tpu/ops/pallas/voxelize.py:107")
 def avg_voxelize(features: torch.Tensor, vox_coords: torch.Tensor,
                  resolution: int) -> torch.Tensor:
-    """features (B, N, C), vox_coords (B, N, 3) int32 in [0, r) ->
-    (B, R, R, R, C); a point outside the grid is dropped."""
-    check_cuda(features)
+    """features (B, N, C) f32 or bf16, vox_coords (B, N, 3) int32 in
+    [0, r) -> (B, R, R, R, C) of the features' dtype; a point outside the
+    grid is dropped."""
+    dt = check_float(features, "avg_voxelize")
+    check_cuda(features, dtype=dt)
     check_cuda(vox_coords, dtype=torch.int32)
     b, n, c = features.shape
     r = resolution
-    grid = torch.zeros((b, r, r, r, c), device=features.device)
+    sums = torch.zeros((b, r, r, r, c), device=features.device)
     count = torch.zeros((b, r ** 3), device=features.device)
-    launch("lion_avg_voxelize", ptr(features), ptr(vox_coords), ptr(grid),
-           ptr(count), b, n, c, r, stream_of(features))
-    return grid
+    out = sums if dt == torch.float32 else torch.empty_like(sums, dtype=dt)
+    launch("lion_avg_voxelize", ptr(features), ptr(vox_coords), ptr(sums),
+           ptr(count), ptr(out), b, n, c, r, int(dt == torch.bfloat16),
+           stream_of(features))
+    return out
 
 
 def voxelize(features: torch.Tensor, coords: torch.Tensor, resolution: int):
@@ -88,8 +96,7 @@ def _trilinear_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
     frac = coords - lo
     lo_i = lo.long()
     hi_i = lo_i + (frac > 0).long()  # hi collapses onto lo when frac == 0
-    out = torch.zeros((b, coords.shape[1], c), dtype=grid.dtype,
-                      device=grid.device)
+    out = torch.zeros((b, coords.shape[1], c), device=grid.device)
     for dx in (0, 1):
         wx = frac[..., 0] if dx else 1.0 - frac[..., 0]
         ix = hi_i[..., 0] if dx else lo_i[..., 0]
@@ -102,8 +109,9 @@ def _trilinear_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
                 idx = (ix * r + iy) * r + iz                  # (B, N)
                 corner = torch.gather(flat_grid, 1,
                                       idx[:, :, None].expand(-1, -1, c))
-                out = out + corner * (wx * wy * wz)[:, :, None]
-    return out
+                w = (wx * wy * wz).to(grid.dtype).float()
+                out = out + corner.float() * w[:, :, None]
+    return out.to(grid.dtype)
 
 
 @kernel("trilinear_devoxelize", _trilinear_devoxelize_plain,
@@ -111,11 +119,14 @@ def _trilinear_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
         "lion_tpu/ops/pallas/devox.py:117")
 def trilinear_devoxelize(grid: torch.Tensor, norm_coords: torch.Tensor,
                          resolution: int) -> torch.Tensor:
-    """grid (B, R, R, R, C), norm_coords (B, N, 3) f32 -> (B, N, C)."""
-    check_cuda(grid, norm_coords)
+    """grid (B, R, R, R, C) f32 or bf16, norm_coords (B, N, 3) f32 ->
+    (B, N, C) of the grid's dtype."""
+    dt = check_float(grid, "trilinear_devoxelize")
+    check_cuda(grid, dtype=dt)
+    check_cuda(norm_coords)
     b, c = grid.shape[0], grid.shape[-1]
     n = norm_coords.shape[1]
-    out = torch.empty((b, n, c), device=grid.device)
+    out = torch.empty((b, n, c), device=grid.device, dtype=dt)
     launch("lion_trilinear_devoxelize", ptr(grid), ptr(norm_coords), ptr(out),
-           b, n, c, resolution, stream_of(grid))
+           b, n, c, resolution, int(dt == torch.bfloat16), stream_of(grid))
     return out

@@ -1,8 +1,9 @@
 """Device-time breakdown of the denoise steps of both priors on one GPU.
 
-    python -m lion_tpu_torch.profile_step [--batch 4] [--steps 5]
+    python -m lion_tpu_torch.profile_step [--batch 4] [--steps 5] [--bf16]
 
-Builds the flagship LION (fp32, random weights from a seed), warms up, then
+Builds the flagship LION (fp32, or with `tpu.bf16 = True` under --bf16;
+random weights from a seed), warms up, then
 records `--steps` ancestral steps of the local prior and of the global prior
 (model forward + update, as `LION.sample` runs them) under torch.profiler.
 For each prior it prints the wall ms per step, the summed device ms per
@@ -19,8 +20,13 @@ _OURS = {"fps_kernel": "fps", "bqg_kernel": "ball_query_group",
          "vox_scatter_kernel": "avg_voxelize",
          "vox_divide_kernel": "avg_voxelize",
          "conv3d_kernel": "conv3d_3x3_fused",
+         "conv3d_bf16_kernel": "conv3d_3x3_fused",
          "devox_kernel": "trilinear_devoxelize",
-         "three_nn_kernel": "three_nn_interpolate"}
+         "three_nn_kernel": "three_nn_interpolate",
+         "sa_first_kernel": "sa_fused", "sa_stats_kernel": "sa_fused",
+         "sa_dense_kernel": "sa_fused", "sa_max_kernel": "sa_fused",
+         "pair_conv_kernel": "conv3d_pair",
+         "pvblock_kernel": "pvconv_block_pair"}
 
 
 def _group(name: str) -> str:
@@ -70,6 +76,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bf16 configuration (tpu.bf16 = True)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -78,8 +86,9 @@ def main(argv=None):
 
     from .config import flagship_cfg
     from .models import LION
-    lion = LION(flagship_cfg()).init_params(
-        torch.Generator().manual_seed(0)).cuda()
+    cfg = flagship_cfg()
+    cfg.tpu.bf16 = args.bf16
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
     b = args.batch
     z_global = torch.randn(b, lion.style_dim, generator=g, device="cuda")
@@ -88,7 +97,8 @@ def main(argv=None):
     noise_g, noise_l = torch.randn_like(z_global), torch.randn_like(x_local)
     diff = lion.diffusion
     print(f"[setup] {torch.cuda.get_device_name(0)}, batch {b}, "
-          f"{args.steps} profiled steps per prior")
+          f"{'bf16' if args.bf16 else 'fp32'}, {args.steps} profiled steps "
+          "per prior")
 
     with torch.no_grad():
         profile_steps(lambda: diff._ancestral_step(

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path does not reach (empty balls, fewer than three
 centers, grids whose voxel count is not a multiple of the conv tile, odd
-channel counts).
+channel counts), in fp32 and in bf16.
 
 Needs an NVIDIA GPU: every test is marked `gpu` and skips without CUDA.
 This file imports no JAX, so it runs on a machine without it:
@@ -15,6 +15,7 @@ from lion_tpu_torch import ops
 from lion_tpu_torch.ops import voxel
 
 pytestmark = pytest.mark.gpu
+BF16 = torch.bfloat16
 
 
 @pytest.fixture(scope="module")
@@ -105,3 +106,159 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         ops.fps(xyz.transpose(1, 2).contiguous().transpose(1, 2), 8)
     with pytest.raises(TypeError):
         ops.fps(xyz.double(), 8)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.fps(_randn(gen, 1, 65, 3).reshape(-1)[3:].reshape(1, 64, 3), 8)
+
+
+# ------------------------------------------------------------------ bf16
+def _assert_bf16_close(got, ref, rel):
+    """bf16 outputs whose float32 sums were taken in another order: a
+    rounding may land one bf16 ulp (2^-8 relative) apart, and a flip in an
+    early stage moves what follows by about as much."""
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rel,
+                               atol=rel * scale)
+
+
+@pytest.mark.parametrize("r,c", [(5, 3), (8, 128), (32, 64)])
+def test_voxelize_kernels_bf16(gen, r, c):
+    xyz = _randn(gen, 2, 700, 3, scale=0.3)
+    nc = voxel.normalize_coords(xyz, r).contiguous()
+    vox = torch.round(nc).to(torch.int32)
+    feats = _randn(gen, 2, 700, c).to(BF16)
+    got, ref = _both("avg_voxelize", feats, vox, r)
+    assert got.dtype == BF16
+    # fp32 atomic sums in varying order, then one bf16 rounding
+    torch.testing.assert_close(got.float(), ref.float(), rtol=8e-3,
+                               atol=1e-6)
+    grid = _randn(gen, 2, r, r, r, c).to(BF16)
+    got, ref = _both("trilinear_devoxelize", grid, nc, r)
+    assert got.dtype == BF16 and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n,m,c", [(200, 64, 7), (50, 2, 4),
+                                   (2048, 1024, 192)])
+def test_three_nn_kernel_bf16(gen, n, m, c):
+    p = _randn(gen, 2, n, 3, scale=0.3)
+    ctr = _randn(gen, 2, m, 3, scale=0.3)
+    f = _randn(gen, 2, m, c).to(BF16)
+    got, ref = _both("three_nn_interpolate", p, ctr, f)
+    assert got.dtype == BF16 and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("r,ci,co,affine,swish", [
+    (32, 4, 32, False, False), (32, 32, 32, True, True),
+    (16, 128, 64, False, False), (8, 192, 128, True, True),
+    (5, 12, 24, True, False), (3, 16, 70, False, True)])
+def test_conv3d_kernel_bf16(gen, r, ci, co, affine, swish):
+    x = _randn(gen, 2, r, r, r, ci).to(BF16)
+    w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(BF16)
+    s = 1.0 + _randn(gen, 2, ci, scale=0.1) if affine else None
+    bb = _randn(gen, 2, ci, scale=0.1) if affine else None
+    (y, st), (yr, sr) = _both("conv3d_3x3_fused", x, w, s, bb,
+                              pre_swish=swish)
+    assert y.dtype == BF16
+    _assert_bf16_close(y, yr, 1e-2)
+    # sums of up to 32768 rounded outputs: a few one-ulp flips
+    torch.testing.assert_close(st, sr, rtol=1e-2,
+                               atol=1e-3 * float(sr.abs().max()))
+
+
+@pytest.mark.parametrize("r,c", [(32, 64), (16, 32), (8, 128), (4, 8)])
+def test_conv_pair_kernel(gen, r, c):
+    x = _randn(gen, 2, r, r, r, c).to(BF16)
+    w0 = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
+    w1 = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
+    b0 = _randn(gen, c, scale=0.1)
+    ca = 1.0 + _randn(gen, 2, c, scale=0.1)
+    cb = _randn(gen, 2, c, scale=0.1)
+    (y, st), (yr, sr) = _both("conv3d_pair", x, w0, b0, ca, cb, w1)
+    assert y.dtype == BF16
+    _assert_bf16_close(y, yr, 2e-2)
+    torch.testing.assert_close(st, sr, rtol=2e-2,
+                               atol=2e-3 * float(sr.abs().max()))
+
+
+@pytest.mark.parametrize("n", [64, 256, 2048])
+def test_pvconv_block_kernel(gen, n):
+    b, r, c = 3, 8, 128
+    xyz = _randn(gen, b, n, 3, scale=0.3)
+    nc = voxel.normalize_coords(xyz, r).contiguous()
+    vox = torch.round(nc).to(torch.int32)
+    feats = _randn(gen, b, n, c).to(BF16)
+    w0 = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
+    w1 = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
+    b0 = _randn(gen, c, scale=0.1)
+    ca = 1.0 + _randn(gen, b, c, scale=0.1)
+    cb = _randn(gen, b, c, scale=0.1)
+    (pts, st), (pr, sr) = _both("pvconv_block_pair", feats, vox, nc, w0, b0,
+                                ca, cb, w1, r)
+    assert pts.dtype == BF16 and pts.shape == (b, n, c)
+    _assert_bf16_close(pts, pr, 2e-2)
+    torch.testing.assert_close(st, sr, rtol=2e-2,
+                               atol=2e-3 * float(sr.abs().max()))
+
+
+def _sa_inputs(gen, b, n, m, k, widths, radius_ball):
+    pts = _randn(gen, b, n, 3, scale=0.3)
+    ctr = pts[:, :m].clone()
+    ctr[:, 0] = 5.0                              # an empty ball
+    c0 = 6
+    feats = _randn(gen, b, n, c0)
+    w1 = _randn(gen, 3 + c0, widths[0], scale=0.3)
+    a = (torch.cat([pts, feats], -1) @ w1).contiguous()
+    bc = -(ctr @ w1[:3]).contiguous()
+    ws = [_randn(gen, ci, co, scale=ci ** -0.5).to(BF16)
+          for ci, co in zip(widths[:-1], widths[1:])]
+    bs = [_randn(gen, co, scale=0.1) for co in widths[1:]]
+    cas = [1.0 + _randn(gen, b, co, scale=0.2) for co in widths]
+    cbs = [_randn(gen, b, co, scale=0.2) for co in widths]
+    return pts, ctr, a, bc, ws, bs, cas, cbs, radius_ball, k
+
+
+@pytest.mark.parametrize("n,m,k,widths,radius", [
+    (2048, 1024, 32, (32, 64), 0.1),          # SA0
+    (64, 16, 32, (128, 128, 128), 0.8),       # SA3
+    (300, 64, 8, (24,), 0.05),                # partial balls, one layer
+    (500, 40, 8, (16, 40, 8), 0.2),           # K = 8, three layers
+    (256, 128, 16, (64, 128), 0.3)])
+def test_sa_fused_kernel(gen, n, m, k, widths, radius):
+    args = _sa_inputs(gen, 2, n, m, k, widths, radius)
+    got, ref = _both("sa_fused", *args)
+    assert got.dtype == BF16 and got.shape == (2, m, widths[-1])
+    # GroupNorm over bf16 rows: statistics summed in another order (and
+    # merged in float64 on the card) move a few roundings by one ulp
+    _assert_bf16_close(got, ref, 2e-2)
+
+
+def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    c = 128
+    feats = _randn(gen, 1, 64, c).to(BF16)
+    nc = voxel.normalize_coords(_randn(gen, 1, 64, 3), 8).contiguous()
+    vox = torch.round(nc).to(torch.int32)
+    w = _randn(gen, 3, 3, 3, c, c).to(BF16)
+    b0, ca, cb = _randn(gen, c), _randn(gen, 1, c), _randn(gen, 1, c)
+    for bad in ((feats, vox, nc, w, b0, ca, cb, w, 16),      # r != 8
+                (feats[:, :60].contiguous(), vox[:, :60].contiguous(),
+                 nc[:, :60].contiguous(), w, b0, ca, cb, w, 8)):  # N % 8
+        with pytest.raises(ValueError, match="pvconv_block_pair"):
+            ops.pvconv_block_pair(*bad)
+    with pytest.raises(TypeError):
+        ops.pvconv_block_pair(feats.float(), vox, nc, w, b0, ca, cb, w, 8)
+    x = _randn(gen, 1, 8, 8, 8, c).to(BF16)
+    with pytest.raises(ValueError, match="conv3d_pair"):
+        ops.conv3d_pair(x, w[..., :64].contiguous(), b0, ca, cb, w)
+    with pytest.raises(TypeError):
+        ops.conv3d_pair(x.float(), w, b0, ca, cb, w)
+    with pytest.raises(TypeError):
+        ops.conv3d_3x3_fused(x, w.float())
+    with pytest.raises(TypeError):
+        ops.avg_voxelize(feats.half(), vox, 8)
+    args = list(_sa_inputs(gen, 1, 64, 16, 32, (32, 64), 0.3))
+    for k, widths in ((12, (32, 64)), (32, (32, 60)), (256, (32, 64))):
+        bad = list(_sa_inputs(gen, 1, 64, 16, k, widths, 0.3))
+        with pytest.raises(ValueError, match="sa_fused"):
+            ops.sa_fused(*bad)
+    args[4] = [w.float() for w in args[4]]
+    with pytest.raises(TypeError):
+        ops.sa_fused(*args)
