@@ -6,7 +6,7 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero:
   1. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off for matmuls and cuDNN.
-  2. build: compiles the nine CUDA kernels from lion_tpu_torch/csrc.
+  2. build: compiles the eleven CUDA kernels from lion_tpu_torch/csrc.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main paths' shapes (batch 16), fp32 and bf16, with times
      from CUDA events (and cuDNN's bf16 conv beside K4's bf16 variant).
@@ -21,6 +21,17 @@ non-zero:
   6. bf16 main path: the same LION with `tpu.bf16 = True` (the JAX bench's
      configuration) serves three requests of 16 shapes each, with the same
      checks on the bf16 path's kernels.
+  7. gradient parity: one full-width flagship two-prior loss (batch 2,
+     dropout 0) and its gradients on the card against the same modules on
+     the CPU (plain versions), on the same x and draws.
+  8. training main path: the flagship's two priors and frozen VAE take 2
+     warm-up and 5 timed steps of `make_prior_train_step` at batch 16; the
+     losses, parameters and EMA must stay finite and change, every kernel
+     of the training path must have launched and no plain version run.
+Beside each kernel the JSON line gives its bound on the card (the larger of
+its bytes over 3.35 TB/s and its operations over 67 TFLOP/s fp32 or 989
+TFLOP/s bf16, H100 SXM peaks, counted from this run's inputs) and, where one
+PyTorch call computes the same function, that call's time (TF32 off).
 The card's name and power limit are printed as nvidia-smi gives them, on a
 line of their own. The line before the last is a JSON object describing the
 kernels; the last line is {"ok": true, "device": {...}}.
@@ -45,7 +56,16 @@ FP32_PATH = ("fps", "ball_query_group", "avg_voxelize", "conv3d_3x3_fused",
 BF16_PATH = ("fps", "avg_voxelize", "conv3d_3x3_fused",
              "trilinear_devoxelize", "three_nn_interpolate", "sa_fused",
              "conv3d_pair", "pvconv_block_pair")
-REPORT_ORDER = FP32_PATH + ("sa_fused", "conv3d_pair", "pvconv_block_pair")
+# the two-prior step: the frozen encode's eval flow (K1-K6), the priors'
+# train flow (K10 forward and dx) and the SA blocks' backward (K11)
+TRAIN_PATH = FP32_PATH + ("conv3d_3x3_same", "ball_query")
+REPORT_ORDER = FP32_PATH + ("sa_fused", "conv3d_pair", "pvconv_block_pair",
+                            "conv3d_3x3_same", "ball_query")
+BATCH_TRAIN = 16   # scripts/profile_train_step.py's batch
+WARMUP_STEPS, TRAIN_STEPS = 2, 5
+# H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the tensor
+# cores, bf16 on them, device memory
+PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 
 def log(*args):
@@ -101,14 +121,33 @@ def phase_build():
                 log(f"[build] {line.strip()}")
 
 
-class KernelCheck:
-    """One kernel-vs-plain comparison at one shape."""
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
-    def __init__(self, name, case, args, kwargs, compare, iters, plain_iters):
+
+def bound(moved_bytes, fp32_ops=0.0, bf16_ops=0.0):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = moved_bytes / PEAK_BYTES * 1e3
+    t_ops = (fp32_ops / PEAK_FP32 + bf16_ops / PEAK_BF16) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+class KernelCheck:
+    """One kernel-vs-plain comparison at one shape. `work` is the case's
+    bound (`bound(...)`), given for the case the report keeps (each
+    kernel's first); `library` a single PyTorch call computing the same
+    function, timed beside the kernel, or None."""
+
+    def __init__(self, name, case, args, kwargs, compare, iters, plain_iters,
+                 work=None, library=None):
         self.name, self.case = name, case
         self.args, self.kwargs = args, kwargs
         self.compare, self.iters, self.plain_iters = compare, iters, \
             plain_iters
+        self.work, self.library = work, library
 
     def run(self, kernels):
         w = kernels[self.name]
@@ -119,9 +158,18 @@ class KernelCheck:
         ms = cuda_time_ms(lambda: w(*self.args, **self.kwargs), self.iters)
         plain_ms = cuda_time_ms(lambda: w.plain(*self.args, **self.kwargs),
                                 self.plain_iters, warmup=1)
-        log(f"[kernels] {self.name} {self.case}: max_abs_err {err:.3e}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        lib_ms = None if self.library is None else cuda_time_ms(
+            self.library, self.iters)
+        line = (f"[kernels] {self.name} {self.case}: max_abs_err {err:.3e}, "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if self.work is not None:
+            line += (f", bound {self.work['bound_ms']:.4f} ms "
+                     f"({self.work['bound_by']})")
+        if lib_ms is not None:
+            line += f", library {lib_ms:.4f} ms"
+        log(line)
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **(self.work or {}), "library_ms": lib_ms}
 
 
 def _exact(got, ref):
@@ -200,9 +248,82 @@ def _sa_case(randn, points, centers, widths, radius):
             radius, 32)
 
 
+def _scan_pairs(centers, points, radius, k):
+    """The (center, point) pairs a ball query tests on these inputs: each
+    center's scan of the cloud in index order stops at its K-th hit."""
+    from lion_tpu_torch.ops.points import _r2, _sq_dist
+    reached = (_sq_dist(centers, points) < _r2(radius)).cumsum(-1) >= k
+    stop = torch.where(reached.any(-1), reached.int().argmax(-1) + 1,
+                       points.shape[1])
+    return float(stop.sum())
+
+
+def _conv_ops(b, r, ci, co):
+    return 2.0 * 27 * ci * co * b * r ** 3
+
+
+def _devox_cells(nc, r):
+    """Grid cells that trilinear devoxelization reads at these coords."""
+    from lion_tpu_torch.ops.voxel import _corners
+    idx = torch.cat([i for i, _ in _corners(nc, r, torch.float32)], dim=1)
+    seen = torch.zeros((nc.shape[0], r ** 3), dtype=torch.bool,
+                       device=nc.device)
+    return float(seen.scatter_(1, idx, True).sum())
+
+
+def _sa_work(args, widths):
+    points, centers, a, bc, ws, bs, cas, cbs, radius, k = args
+    b, m = centers.shape[:2]
+    moved = nbytes(points, centers, a, bc, *ws, *bs, *cas, *cbs) \
+        + b * m * widths[-1] * 2
+    dense = sum(2.0 * ci * co * b * m * k
+                for ci, co in zip(widths[:-1], widths[1:]))
+    return bound(moved, fp32_ops=8 * _scan_pairs(centers, points, radius, k),
+                 bf16_ops=dense)
+
+
+def _ncdhw(x):
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def _oidhw(w):
+    return w.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+
+
+def _conv_same_check(randn, case, b, r, ci, co, iters):
+    """K10 forward at one shape, with cuDNN's fp32 conv beside it."""
+    import torch.nn.functional as F
+    x = randn(b, r, r, r, ci)
+    w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+    xc, wc = _ncdhw(x), _oidhw(w)
+    return KernelCheck(
+        "conv3d_3x3_same", case, (x, w), {}, _close(1e-4, 1e-4), iters,
+        iters, bound(nbytes(x, w) + b * r ** 3 * co * 4,
+                     fp32_ops=_conv_ops(b, r, ci, co)),
+        lambda: F.conv3d(xc, wc, padding=1))
+
+
+def log_unported_bounds(b):
+    """The bounds of the TPU kernels not ported yet, at the shapes their
+    callers would give them: the channel-first ball query + grouping at
+    SA0's shape (the same bytes as K2's output) and the approximate-EMD
+    cost of one pair of 2048-point clouds (10 auction levels, ~10 fp32
+    operations per (n, m) entry each, plus the distances)."""
+    n, m, k, c = 2048, 1024, 32, 32
+    cf = bound(b * (n * (3 + c) + m * 3) * 4 + b * m * k * (3 + c) * 4,
+               fp32_ops=8.0 * b * m * n)
+    emd = bound(2 * 2048 * 3 * 4, fp32_ops=(10 * 10 + 8.0) * 2048 * 2048)
+    log(f"[kernels] unported: ball_query_group_cf B{b} N{n} M{m} K{k} C{c} "
+        f"bound {cf['bound_ms']:.4f} ms ({cf['bound_by']}, no early stop "
+        f"counted); emd_approx one 2048x2048 pair bound "
+        f"{emd['bound_ms']:.4f} ms ({emd['bound_by']})")
+
+
 def phase_kernels():
     import torch.nn.functional as F
     from lion_tpu_torch import ops
+    from lion_tpu_torch.ops._cuda import no_tf32
     from lion_tpu_torch.ops.voxel import normalize_coords
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -216,6 +337,7 @@ def phase_kernels():
     centers = ops.KERNELS["fps"].plain(cloud, 1024)[1]
     cloud64 = centers[:, :64].contiguous()             # SA2's 64 centers
     centers16 = ops.KERNELS["fps"].plain(cloud64, 16)[1]
+    centers256 = ops.KERNELS["fps"].plain(centers, 256)[1]
     nc32 = normalize_coords(cloud, 32).contiguous()
     vox32 = torch.round(nc32).to(torch.int32)
     cloud256 = centers[:, :256].contiguous()
@@ -226,34 +348,73 @@ def phase_kernels():
     w32b = randn(3, 3, 3, 32, 32, scale=(27 * 32) ** -0.5).to(bf)
     w128b = randn(3, 3, 3, 128, 128, scale=(27 * 128) ** -0.5).to(bf)
     w64b = w64.to(bf)
+    f32c = randn(b, 2048, 32)
+    f64 = randn(b, 2048, 64)
+    cells = ((vox32[..., 0] * 32 + vox32[..., 1]) * 32 + vox32[..., 2]).long()
+    cells = cells[:, :, None].expand(-1, -1, 64)
+    grid64 = randn(b, 32, 32, 32, 64)
+    # grid_sample reads (x, y, z) as (W, H, D) in [-1, 1]: the port's grid
+    # is indexed (ix, iy, iz) = (D, H, W)
+    gs_grid = (nc32 / 31 * 2 - 1).flip(-1).reshape(b, 1, 1, 2048, 3)
+    x64 = randn(b, 32, 32, 32, 64)
+    s64, h64 = 1.0 + randn(b, 64, scale=0.1), randn(b, 64, scale=0.1)
+    x128 = randn(b, 16, 16, 16, 128)
+    f192 = randn(b, 1024, 192)
+    sa0 = _sa_case(randn, cloud, centers, (32, 64), 0.1)
+    sa3 = _sa_case(randn, cloud64, centers16, (128, 128, 128), 0.8)
+    xp = randn(b, 32, 32, 32, 64).to(bf)
+    pair_args = (xp, w64b, randn(64, scale=0.1), 1.0 + randn(b, 64, scale=0.1),
+                 randn(b, 64, scale=0.1), w64b)
+    fb = randn(b, 256, 128).to(bf)
+    block_args = (fb, vox8, nc8, w128b, randn(128, scale=0.1),
+                  1.0 + randn(b, 128, scale=0.1), randn(b, 128, scale=0.1),
+                  w128b, 8)
+    gx = randn(b, 32, 32, 32, 64)
+    w64_flip = w64.flip(0, 1, 2).transpose(3, 4).contiguous()
+    gxc, w64c = _ncdhw(gx), _oidhw(w64)
     checks = [
-        # K1, K2, K5, K6 evaluate the same unfused arithmetic in the same
-        # order as their plain versions, so they must agree bit for bit
+        # K1, K2, K5, K6, K11 evaluate the same unfused arithmetic in the
+        # same order as their plain versions, so they must agree bit for bit
         KernelCheck("fps", "B16 N2048->M1024", (cloud, 1024), {}, _exact,
-                    20, 2),
+                    20, 2, bound(nbytes(cloud) + b * 1024 * 16,
+                                 fp32_ops=10.0 * b * 1024 * 2048)),
         KernelCheck("ball_query_group", "B16 N2048 M1024 K32 r0.1 C32",
-                    (cloud, centers, randn(b, 2048, 32), 0.1, 32), {},
-                    _exact, 20, 3),
+                    (cloud, centers, f32c, 0.1, 32), {}, _exact, 20, 3,
+                    bound(nbytes(cloud, centers, f32c)
+                          + b * 1024 * 32 * 35 * 4,
+                          fp32_ops=8 * _scan_pairs(centers, cloud, 0.1, 32))),
         # K3: both scatter with atomics in varying order; a cell sums at
         # most a few dozen features
-        KernelCheck("avg_voxelize", "B16 N2048 r32 C64",
-                    (randn(b, 2048, 64), vox32, 32), {},
-                    _close(1e-5, 1e-5), 20, 5),
+        KernelCheck("avg_voxelize", "B16 N2048 r32 C64", (f64, vox32, 32), {},
+                    _close(1e-5, 1e-5), 20, 5,
+                    bound(nbytes(f64, vox32) + b * 32 ** 3 * 64 * 4,
+                          fp32_ops=b * 2048 * 64 + b * 32 ** 3 * 64),
+                    lambda: torch.zeros(b, 32 ** 3, 64, device=dev)
+                    .scatter_reduce_(1, cells, f64, "mean",
+                                     include_self=False)),
         KernelCheck("avg_voxelize", "bf16 B16 N2048 r32 C64",
                     (randn(b, 2048, 64).to(bf), vox32, 32), {},
                     _bf16_close(8e-3), 20, 5),
         KernelCheck("trilinear_devoxelize", "B16 N2048 r32 C64",
-                    (randn(b, 32, 32, 32, 64), nc32, 32), {}, _exact, 20, 5),
+                    (grid64, nc32, 32), {}, _exact, 20, 5,
+                    bound(_devox_cells(nc32, 32) * 64 * 4 + nbytes(nc32)
+                          + b * 2048 * 64 * 4,
+                          fp32_ops=16.0 * b * 2048 * 64),
+                    lambda: F.grid_sample(_ncdhw(grid64), gs_grid,
+                                          align_corners=True)),
         KernelCheck("trilinear_devoxelize", "bf16 B16 N2048 r32 C64",
                     (randn(b, 32, 32, 32, 64).to(bf), nc32, 32), {}, _exact,
                     20, 5),
+        # the library call is cuDNN's conv alone (TF32 off): no PyTorch
+        # call has K4's prologue and statistics
         KernelCheck("conv3d_3x3_fused", "B16 r32 C64->64 affine+swish",
-                    (randn(b, 32, 32, 32, 64), w64,
-                     1.0 + randn(b, 64, scale=0.1), randn(b, 64, scale=0.1)),
-                    {"pre_swish": True}, _conv_compare, 5, 5),
+                    (x64, w64, s64, h64), {"pre_swish": True}, _conv_compare,
+                    5, 5, bound(nbytes(x64, w64, s64, h64, x64)
+                                + b * 2 * 64 * 4,
+                                fp32_ops=_conv_ops(b, 32, 64, 64)),
+                    lambda: F.conv3d(_ncdhw(x64), w64c, padding=1)),
         KernelCheck("conv3d_3x3_fused", "B16 r16 C128->64",
-                    (randn(b, 16, 16, 16, 128), w128), {}, _conv_compare,
-                    10, 10),
+                    (x128, w128), {}, _conv_compare, 10, 10),
         KernelCheck("conv3d_3x3_fused", "bf16 B16 r32 C32->32 affine+swish",
                     (randn(b, 32, 32, 32, 32).to(bf), w32b,
                      1.0 + randn(b, 32, scale=0.1), randn(b, 32, scale=0.1)),
@@ -262,54 +423,89 @@ def phase_kernels():
                     (randn(b, 16, 16, 16, 128).to(bf), w128b), {},
                     _bf16_close(1e-2), 10, 5),
         KernelCheck("three_nn_interpolate", "B16 N2048 M1024 C192",
-                    (cloud, centers, randn(b, 1024, 192)), {}, _exact, 20, 5),
+                    (cloud, centers, f192), {}, _exact, 20, 5,
+                    bound(nbytes(cloud, centers, f192) + b * 2048 * 192 * 4,
+                          fp32_ops=10.0 * b * 2048 * 1024
+                          + 5.0 * b * 2048 * 192)),
         KernelCheck("three_nn_interpolate", "bf16 B16 N2048 M1024 C192",
                     (cloud, centers, randn(b, 1024, 192).to(bf)), {}, _exact,
+                    20, 5),
+        KernelCheck("three_nn_interpolate",
+                    "with (idx, w) B16 N2048 M1024 C192",
+                    (cloud, centers, f192), {"with_weights": True}, _exact,
                     20, 5),
         # K7-K9: GroupNorm over bf16 activations whose statistics are summed
         # in another order on each side: a few one-ulp rounding flips
         KernelCheck("sa_fused", "bf16 B16 SA0 N2048 M1024 K32 r0.1 C32,64",
-                    _sa_case(randn, cloud, centers, (32, 64), 0.1), {},
-                    _bf16_close(2e-2), 10, 3),
+                    sa0, {}, _bf16_close(2e-2), 10, 3,
+                    _sa_work(sa0, (32, 64))),
         KernelCheck("sa_fused", "bf16 B16 SA3 N64 M16 K32 r0.8 C128x3",
-                    _sa_case(randn, cloud64, centers16, (128, 128, 128), 0.8),
-                    {}, _bf16_close(2e-2), 20, 5),
-        KernelCheck("conv3d_pair", "bf16 B16 r32 C64",
-                    (randn(b, 32, 32, 32, 64).to(bf), w64b,
-                     randn(64, scale=0.1), 1.0 + randn(b, 64, scale=0.1),
-                     randn(b, 64, scale=0.1), w64b), {}, _bf16_close(2e-2),
-                    5, 3),
-        KernelCheck("pvconv_block_pair", "bf16 B16 r8 C128 N256",
-                    (randn(b, 256, 128).to(bf), vox8, nc8, w128b,
-                     randn(128, scale=0.1), 1.0 + randn(b, 128, scale=0.1),
-                     randn(b, 128, scale=0.1), w128b, 8), {},
-                    _bf16_close(2e-2), 20, 5),
+                    sa3, {}, _bf16_close(2e-2), 20, 5),
+        KernelCheck("conv3d_pair", "bf16 B16 r32 C64", pair_args, {},
+                    _bf16_close(2e-2), 5, 3,
+                    bound(nbytes(*pair_args, xp) + 2 * b * 2 * 64 * 4,
+                          bf16_ops=2 * _conv_ops(b, 32, 64, 64))),
+        KernelCheck("pvconv_block_pair", "bf16 B16 r8 C128 N256", block_args,
+                    {}, _bf16_close(2e-2), 20, 5,
+                    bound(nbytes(*block_args[:8], fb) + b * 2 * 128 * 4,
+                          bf16_ops=2 * _conv_ops(b, 8, 128, 128))),
+        # K10: fp32 sums of 27*Ci terms in another order (cuDNN, TF32 off)
+        _conv_same_check(randn, "B16 r32 C64->64", b, 32, 64, 64, 5),
+        _conv_same_check(randn, "B16 r32 C4->32", b, 32, 4, 32, 10),
+        _conv_same_check(randn, "B16 r16 C128->64", b, 16, 128, 64, 10),
+        _conv_same_check(randn, "B16 r8 C192->128", b, 8, 192, 128, 20),
+        KernelCheck("conv3d_3x3_same", "dx B16 r32 C64", (gx, w64_flip), {},
+                    _close(1e-4, 1e-4), 5, 5,
+                    bound(nbytes(gx, w64, gx),
+                          fp32_ops=_conv_ops(b, 32, 64, 64)),
+                    lambda: torch.nn.grad.conv3d_input(
+                        gxc.shape, w64c, gxc, padding=1)),
+        KernelCheck("ball_query", "B16 N2048 M1024 K32 r0.1",
+                    (centers, cloud, 0.1, 32), {}, _exact, 20, 3,
+                    bound(nbytes(centers, cloud) + b * 1024 * 32 * 4,
+                          fp32_ops=8 * _scan_pairs(centers, cloud, 0.1, 32))),
+        KernelCheck("ball_query", "B16 N1024 M256 K32 r0.2",
+                    (centers256, centers, 0.2, 32), {}, _exact, 20, 3),
     ]
     results = {}
-    for c in checks:
-        r = c.run(ops.KERNELS)
-        prev = results.get(c.name)
-        if prev is None:
-            results[c.name] = r
-        else:   # keep the first case's times, the worst error
-            prev["max_abs_err"] = max(prev["max_abs_err"], r["max_abs_err"])
-    # cuDNN's own bf16 conv beside K4's bf16 variant (channels-last, the
-    # layout K4 reads)
-    for case, x, w in (("r32 C32->32", randn(b, 32, 32, 32, 32), w32b),
-                       ("r16 C128->128", randn(b, 16, 16, 16, 128), w128b)):
-        xc = x.to(bf).permute(0, 4, 1, 2, 3)
-        wc = w.permute(4, 3, 0, 1, 2).contiguous(
-            memory_format=torch.channels_last_3d)
-        ms = cuda_time_ms(lambda: F.conv3d(xc, wc, padding=1), 10)
-        log(f"[kernels] cudnn bf16 conv3d B16 {case}: {ms:.4f} ms")
+    with no_tf32():
+        for c in checks:
+            r = c.run(ops.KERNELS)
+            prev = results.get(c.name)
+            if prev is None:
+                results[c.name] = r
+            else:   # keep the first case's times, the worst error
+                prev["max_abs_err"] = max(prev["max_abs_err"],
+                                          r["max_abs_err"])
+        # the library calls compute the kernels' functions: K3's scatter
+        # mean and K5's trilinear sample against the kernels
+        mean = torch.zeros(b, 32 ** 3, 64, device=dev).scatter_reduce_(
+            1, cells, f64, "mean", include_self=False)
+        sampled = F.grid_sample(_ncdhw(grid64), gs_grid, align_corners=True)
+        err_mean = max_abs(mean.reshape(b, 32, 32, 32, 64),
+                           ops.avg_voxelize(f64, vox32, 32))
+        err_sample = max_abs(sampled.reshape(b, 64, 2048).transpose(1, 2),
+                             ops.trilinear_devoxelize(grid64, nc32, 32))
+        log(f"[kernels] library vs kernel: scatter_reduce mean "
+            f"{err_mean:.3e}, grid_sample {err_sample:.3e}")
+        # cuDNN's own bf16 conv beside K4's bf16 variant (channels-last, the
+        # layout K4 reads)
+        for case, x, w in (("r32 C32->32", randn(b, 32, 32, 32, 32), w32b),
+                           ("r16 C128->128", randn(b, 16, 16, 16, 128),
+                            w128b)):
+            xc, wc = _ncdhw(x.to(bf)), _oidhw(w)
+            ms = cuda_time_ms(lambda: F.conv3d(xc, wc, padding=1), 10)
+            log(f"[kernels] cudnn bf16 conv3d B16 {case}: {ms:.4f} ms")
+    log_unported_bounds(b)
     return results
 
 
 def _local_prior_pair(cfg):
-    """The full-width local prior on the CPU and a copy on the card."""
+    """The full-width local prior on the CPU and a copy on the card, in eval
+    mode."""
     from lion_tpu_torch.models.registry import build_local_prior
     from lion_tpu_torch.nn import init_weights
-    cpu = build_local_prior(cfg)
+    cpu = build_local_prior(cfg).eval()
     init_weights(cpu, torch.Generator().manual_seed(7))
     return cpu, copy.deepcopy(cpu).cuda()
 
@@ -381,7 +577,7 @@ def phase_main_path(cfg, steps, batch, requests, path, label):
     from lion_tpu_torch.models import LION
     cfg.ddpm.num_steps = steps
     t0 = time.perf_counter()
-    lion = LION(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(0))
     log(f"[main {label}] LION flagship {label}, "
         f"{sum(p.numel() for p in lion.parameters())} params, init "
         f"{time.perf_counter() - t0:.1f} s; {requests} requests x batch "
@@ -422,6 +618,129 @@ def phase_main_path(cfg, steps, batch, requests, path, label):
     return {n: k for n, (k, _) in counts.items()}
 
 
+def _to(draws, dev):
+    return {k: (tuple(t.to(dev) for t in v) if isinstance(v, tuple)
+                else v.to(dev)) for k, v in draws.items()}
+
+
+def phase_grad_parity(cfg):
+    """One full-width flagship two-prior loss at batch 2 with dropout 0, its
+    gradients on the card against the same modules on the CPU."""
+    from lion_tpu_torch.models import LION
+    from lion_tpu_torch.ops._cuda import no_tf32
+    from lion_tpu_torch.trainers import prior_loss
+    cfg.sde.dropout = cfg.ddpm.dropout = 0.0
+    cpu = LION(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(11))
+    gpu = LION(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+    # a normalized-scale cloud, the encoder's two standard normals, t and
+    # the two diffusion noises, on the CPU
+    x = randn(2, 2048, 3) * 0.3
+    draws = dict(rho=(randn(2, 128), randn(2, 2048 * 4)),
+                 timestep=torch.tensor([500, 20]),
+                 noise=(randn(2, 128), randn(2, 2048 * 4)))
+    runs, seconds = [], []
+    for lion, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        t0 = time.perf_counter()
+        with no_tf32():
+            loss, metrics = prior_loss(lion, x.to(dev), **_to(draws, dev))
+            loss.backward()
+        grads = {f"{prior}.{k}": p.grad.detach().cpu()
+                 for prior in ("global_prior", "local_prior")
+                 for k, p in getattr(lion, prior).named_parameters()}
+        runs.append(({k: float(v.detach()) for k, v in metrics.items()},
+                     grads))
+        seconds.append(time.perf_counter() - t0)
+    (ref_m, ref_g), (got_m, got_g) = runs
+    loss_rel = abs(got_m["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
+    diff = torch.cat([(got_g[k].double() - ref_g[k].double()).reshape(-1)
+                      for k in ref_g])
+    norm = torch.cat([g.double().reshape(-1) for g in ref_g.values()]).norm()
+    rel = float(diff.norm() / norm)
+    worst = max(ref_g, key=lambda k: float(
+        (got_g[k].double() - ref_g[k].double()).norm()
+        / max(float(ref_g[k].double().norm()), 1e-30)))
+    worst_rel = float((got_g[worst].double() - ref_g[worst].double()).norm()
+                      / ref_g[worst].double().norm())
+    log(f"[grad parity] flagship prior loss B2: card {got_m} vs cpu {ref_m}; "
+        f"loss relative error {loss_rel:.3e} (limit 1e-4), flattened "
+        f"gradient relative L2 {rel:.3e} (limit 1e-3) over {diff.numel()} "
+        f"values; worst tensor {worst} {worst_rel:.3e}; cpu "
+        f"{seconds[0]:.1f} s, card {seconds[1]:.2f} s (first call)")
+    # fp32 through the encode, two priors and their backward, with every
+    # sum taken in another order on each side; the index decisions (FPS,
+    # ball query, voxel rounding, 3-NN) match, so the gradients agree to
+    # fp32 rounding amplified by depth
+    if not loss_rel <= 1e-4:
+        raise AssertionError(f"loss: relative error {loss_rel:.3e}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"gradient: relative L2 {rel:.3e}")
+    return {"loss_rel": loss_rel, "grad_rel_l2": rel}
+
+
+def phase_train(cfg, batch, warmup, steps):
+    """The flagship two-prior training step, with dropout, on the default
+    device; the launch counters are zeroed just before the steps and read
+    just after."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.models import LION
+    from lion_tpu_torch.trainers import (make_prior_train_step,
+                                         warmup_cosine_schedule)
+    t0 = time.perf_counter()
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(0))
+    # the schedule scripts/profile_train_step.py gives the JAX step
+    step = make_prior_train_step(
+        lion, warmup_cosine_schedule(2e-4, 2e-4, 10, 10, 1, 10))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(batch, 2048, 3, generator=gen, device="cuda") * 0.3
+    n_params = sum(p.numel() for p in step.params)
+    log(f"[train] flagship two-prior step, {n_params} prior params, init "
+        f"{time.perf_counter() - t0:.1f} s; batch {batch}, {warmup} warm-up "
+        f"+ {steps} timed steps")
+    params0 = [p.detach().clone() for p in step.params]
+    ema0 = [e.clone() for e in step.ema.shadow]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    metrics = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        metrics.append(step(x, gen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: (w.launches, w.plain_calls) for n, w in ops.KERNELS.items()}
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    log(f"[train] losses: {[round(m['loss'], 4) for m in losses]}")
+    if not all(torch.isfinite(torch.tensor(list(m.values()))).all()
+               for m in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    for name, now, before in (("parameters", step.params, params0),
+                              ("EMA", step.ema.shadow, ema0)):
+        if not all(bool(torch.isfinite(p).all()) for p in now):
+            raise AssertionError(f"non-finite {name}")
+        moved = sum(int((p.detach() != q).sum()) for p, q in zip(now, before))
+        log(f"[train] {name}: {moved} of {n_params} values changed")
+        if moved == 0:
+            raise AssertionError(f"the {name} did not change")
+    log(f"[train] {wall / steps * 1e3:.3f} ms/step, "
+        f"{batch * steps / wall:.3f} samples/s at batch {batch}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    log(f"[train] launches (kernel, plain) during the steps: {counts}")
+    missing = [n for n in TRAIN_PATH if counts[n][0] == 0]
+    plain = [n for n, (_, p) in counts.items() if p != 0]
+    if missing or plain:
+        raise AssertionError(f"kernels not launched: {missing}; "
+                             f"plain versions run: {plain}")
+    return {n: k for n, (k, _) in counts.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=100,
@@ -441,15 +760,19 @@ def main(argv=None):
     cfg16.tpu.bf16 = True
     bf16 = phase_main_path(cfg16, args.steps, BATCH_BF16, REQUESTS,
                            BF16_PATH, "bf16")
+    phase_grad_parity(flagship_cfg())
+    train = phase_train(flagship_cfg(), BATCH_TRAIN, WARMUP_STEPS,
+                        TRAIN_STEPS)
 
     report = []
     for name in REPORT_ORDER:
         w = KERNELS[name]
         report.append({"name": name, "route": "cuda", "source": w.source,
                        "replaces": w.replaces,
-                       "launches": fp32[name] + bf16[name],
+                       "launches": fp32[name] + bf16[name] + train[name],
                        "launches_fp32_path": fp32[name],
-                       "launches_bf16_path": bf16[name], **results[name]})
+                       "launches_bf16_path": bf16[name],
+                       "launches_train_path": train[name], **results[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

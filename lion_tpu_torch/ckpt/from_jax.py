@@ -9,14 +9,10 @@ imports no JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
-
-# subtrees of LION's JAX params that the port does not hold (the sampling
-# path never runs the VAE's encoders)
-LION_SKIPPED_PREFIXES = ("vae.encoder.", "vae.style_encoder.")
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -30,11 +26,7 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_jax(tree: Mapping,
-                        skip_prefixes: Iterable[str] = ()
-                        ) -> Dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays -> {dotted name: float32 tensor}, without
-    the leaves under any of `skip_prefixes`."""
-    skip = tuple(skip_prefixes)
+def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays -> {dotted name: float32 tensor}."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in flatten(tree).items() if not k.startswith(skip)}
+            for k, v in flatten(tree).items()}

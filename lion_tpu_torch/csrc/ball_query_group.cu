@@ -11,10 +11,10 @@
 // Bound on the H100: device-memory bandwidth on the output, which is
 // K * (3 + C) floats per center (K = 32), against N * 12 bytes of coords
 // read per center (L1/L2 resident).
-// Design: one warp per center scans the cloud 32 points at a time;
-// __ballot_sync/__popc assign hit slots in index order with no sort, the
-// scan stops once K hits are found, and the rows are written with lanes
-// over channels so each store is contiguous.
+// Design: one warp per center finds the ball (ball_query.cuh, shared with
+// K11), and the rows are written with lanes over channels so each store is
+// contiguous.
+#include "ball_query.cuh"
 #include "common.cuh"
 
 namespace {
@@ -35,30 +35,8 @@ bqg_kernel(const float* __restrict__ points, const float* __restrict__ ctrs,
 
   int* sel = slots + warp * k;
   const float* ctr = ctrs + (static_cast<size_t>(b) * m + center) * 3;
-  const float cx = ctr[0], cy = ctr[1], cz = ctr[2];
   const float* pts = points + static_cast<size_t>(b) * n * 3;
-
-  int count = 0;  // identical in every lane
-  for (int base = 0; base < n && count < k; base += 32) {
-    const int j = base + lane;
-    bool hit = false;
-    if (j < n) {
-      hit = lion::sq_dist(cx, cy, cz, pts[3 * j], pts[3 * j + 1],
-                          pts[3 * j + 2]) < r2;
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (hit) {
-      const int slot = count + __popc(mask & ((1u << lane) - 1u));
-      if (slot < k) sel[slot] = j;
-    }
-    count += __popc(mask);
-  }
-  __syncwarp();
-  const int found = count < k ? count : k;
-  const int first = found > 0 ? sel[0] : 0;
-  __syncwarp();
-  for (int s = found + lane; s < k; s += 32) sel[s] = first;
-  __syncwarp();
+  lion::warp_ball_query(ctr[0], ctr[1], ctr[2], pts, n, k, r2, sel);
 
   const int width = 3 + c;
   float* o = out + (static_cast<size_t>(b) * m + center) * k * width;

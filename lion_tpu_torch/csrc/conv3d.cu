@@ -15,6 +15,14 @@
 // stats[b, 0, co] += sum of y, stats[b, 1, co] += sum of y^2 over all R^3
 // voxels (the caller zeroes stats).
 //
+// K10 (lion_conv3d_3x3_same): the training conv, y = conv3d_SAME(x, w) in
+// fp32 with no bias, no prologue and no statistics. Replaces
+// lion_tpu/ops/pallas/conv3d.py: conv3d_3x3_same (_conv3d_pallas_fwd,
+// _conv3d_pallas_planes); its custom VJP runs the same kernel again for
+// dL/dx with flipped, channel-transposed weights (ops/conv3d.py). It is the
+// fp32 kernel below with the statistics epilogue and its atomics compiled
+// out, and takes any Ci, Co >= 1 and any r.
+//
 // Bound on the H100: fp32 arithmetic, 2 * 27 * Ci * Co flops per voxel
 // (116 GFLOP at B = 16, r = 32, Ci = Co = 64) against 4 * (Ci + Co) bytes of
 // activations per voxel, so well above the fp32 ridge point; this simple
@@ -47,7 +55,7 @@ constexpr int kBN = 64;  // output channels per block
 constexpr int kBK = 16;  // input channels per K-step
 constexpr int kThreads = 256;
 
-template <bool kAffine, bool kSwish>
+template <bool kAffine, bool kSwish, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 conv3d_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ scale, const float* __restrict__ shift,
@@ -68,7 +76,7 @@ conv3d_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const float* sb = kAffine ? scale + static_cast<size_t>(b) * ci : nullptr;
   const float* hb = kAffine ? shift + static_cast<size_t>(b) * ci : nullptr;
 
-  if (tid < kBN) {
+  if (kStats && tid < kBN) {
     ssum[tid] = 0.0f;
     ssq[tid] = 0.0f;
   }
@@ -150,9 +158,12 @@ conv3d_kernel(const float* __restrict__ x, const float* __restrict__ w,
         q += acc[i][j] * acc[i][j];
       }
     }
-    atomicAdd(&ssum[tx + 16 * j], s);
-    atomicAdd(&ssq[tx + 16 * j], q);
+    if (kStats) {
+      atomicAdd(&ssum[tx + 16 * j], s);
+      atomicAdd(&ssq[tx + 16 * j], q);
+    }
   }
+  if (!kStats) return;
   __syncthreads();
   if (tid < kBN && co0 + tid < co) {
     atomicAdd(stats + (static_cast<size_t>(b) * 2) * co + co0 + tid,
@@ -162,13 +173,13 @@ conv3d_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <bool kAffine, bool kSwish>
+template <bool kAffine, bool kSwish, bool kStats = true>
 void launch(const float* x, const float* w, const float* scale,
             const float* shift, float* y, float* stats, int b, int r, int ci,
             int co, cudaStream_t s) {
   const dim3 grid(lion::ceil_div(static_cast<long long>(r) * r * r, kBM),
                   lion::ceil_div(co, kBN), b);
-  conv3d_kernel<kAffine, kSwish><<<grid, kThreads, 0, s>>>(
+  conv3d_kernel<kAffine, kSwish, kStats><<<grid, kThreads, 0, s>>>(
       x, w, scale, shift, r, ci, co, y, stats);
 }
 
@@ -250,5 +261,17 @@ LION_EXPORT int lion_conv3d_3x3_fused(const void* x, const void* w,
   } else {
     launch<false, false>(xf, wf, sf, hf, yf, st, b, r, ci, co, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: x (B, r, r, r, Ci), w (3, 3, 3, Ci, Co) f32 -> y (B, r, r, r, Co) f32,
+// y = conv3d_SAME(x, w) without bias or statistics.
+LION_EXPORT int lion_conv3d_3x3_same(const void* x, const void* w, void* y,
+                                     int b, int r, int ci, int co,
+                                     void* stream) {
+  launch<false, false, false>(static_cast<const float*>(x),
+                              static_cast<const float*>(w), nullptr, nullptr,
+                              static_cast<float*>(y), nullptr, b, r, ci, co,
+                              static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

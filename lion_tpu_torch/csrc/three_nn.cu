@@ -11,6 +11,10 @@
 // or bfloat16: with bf16 the three weights are rounded to bf16, as the JAX
 // form casts them (lion_tpu/ops/interpolate.py:98), and the weighted sum is
 // taken in float32 and rounded once; with float32 everything stays fp32.
+// Optionally the kernel also writes each point's three neighbour indices
+// (int32) and weights (as used, float32): the backward of the
+// interpolation is a scatter-add of g * w into the centers' features and
+// needs no distance matrix (ops/interpolate.py).
 //
 // Bound on the H100: arithmetic on the N*M distance scan (2048 x 1024 per
 // cloud at the FP3 stage), then device-memory bandwidth on the N*C output.
@@ -33,7 +37,8 @@ __global__ void __launch_bounds__(kPoints)
 three_nn_kernel(const float* __restrict__ points,
                 const float* __restrict__ centers,
                 const T* __restrict__ feats, int n, int m, int c,
-                T* __restrict__ out) {
+                T* __restrict__ out, int* __restrict__ idx_out,
+                float* __restrict__ w_out) {
   __shared__ float scx[kTile], scy[kTile], scz[kTile], sc2[kTile];
   __shared__ int sidx[3][kPoints];
   __shared__ float sw[3][kPoints];
@@ -108,6 +113,14 @@ three_nn_kernel(const float* __restrict__ points,
   sw[0][threadIdx.x] = lion::round_to<T>(__fmul_rn(d1d2, inv));
   sw[1][threadIdx.x] = lion::round_to<T>(__fmul_rn(d0d2, inv));
   sw[2][threadIdx.x] = lion::round_to<T>(__fmul_rn(d0d1, inv));
+  if (idx_out != nullptr && valid) {
+    const size_t o = (static_cast<size_t>(b) * n + i) * 3;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      idx_out[o + j] = sidx[j][threadIdx.x];
+      w_out[o + j] = sw[j][threadIdx.x];
+    }
+  }
   __syncthreads();
 
   const int npts = min(kPoints, n - base);
@@ -131,11 +144,13 @@ three_nn_kernel(const float* __restrict__ points,
 }  // namespace
 
 // points (B, N, 3), centers (B, M, 3) f32, feats (B, M, C) f32 or bf16
-// (bf16 != 0) -> out (B, N, C) of the features' dtype.
+// (bf16 != 0) -> out (B, N, C) of the features' dtype, and, unless null,
+// idx (B, N, 3) int32 and w (B, N, 3) f32.
 LION_EXPORT int lion_three_nn_interpolate(const void* points,
                                           const void* centers,
-                                          const void* feats, void* out, int b,
-                                          int n, int m, int c, int bf16,
+                                          const void* feats, void* out,
+                                          void* idx, void* w, int b, int n,
+                                          int m, int c, int bf16,
                                           void* stream) {
   const dim3 grid(lion::ceil_div(n, kPoints), b);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -144,11 +159,13 @@ LION_EXPORT int lion_three_nn_interpolate(const void* points,
   if (bf16) {
     three_nn_kernel<__nv_bfloat16><<<grid, kPoints, 0, s>>>(
         p, ctr, static_cast<const __nv_bfloat16*>(feats), n, m, c,
-        static_cast<__nv_bfloat16*>(out));
+        static_cast<__nv_bfloat16*>(out), static_cast<int*>(idx),
+        static_cast<float*>(w));
   } else {
     three_nn_kernel<float><<<grid, kPoints, 0, s>>>(
         p, ctr, static_cast<const float*>(feats), n, m, c,
-        static_cast<float*>(out));
+        static_cast<float*>(out), static_cast<int*>(idx),
+        static_cast<float*>(w));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
-"""Discrete DDPM ancestral sampling (port of lion_tpu/diffusion/discrete.py:
-the constants, `_ancestral_step`, `run_denoising_diffusion` and
-`_denoise_ts`).
+"""Discrete DDPM (port of lion_tpu/diffusion/discrete.py: the constants,
+the training quantities `iw_quantities`, `iw_quantities_t`, `sample_q` and
+`get_mixing_component`, and the ancestral sampler `_ancestral_step`,
+`run_denoising_diffusion` and `_denoise_ts`).
 
 The JAX package scans the chain inside one program; here it is a Python
 loop over the steps (a CUDA graph of the step is later work).
@@ -55,6 +56,42 @@ class DiffusionDiscretized:
         self.betas = betas.astype(np.float32)
         self.alphas = alphas.astype(np.float32)
         self.alpha_bars = alpha_bars.astype(np.float32)
+
+    # ---------------------------------------------------------- training
+    def _alpha_bars_at(self, timestep: torch.Tensor) -> torch.Tensor:
+        table = torch.from_numpy(self.alpha_bars).to(timestep.device)
+        return table[timestep.long() - 1]
+
+    def iw_quantities(self, batch_size: int, generator: torch.Generator,
+                      timestep: Optional[torch.Tensor] = None):
+        """t ~ U{1..T} from `generator` (on its device), or the given
+        timesteps; returns (timestep (B,) int32, var_t (B, 1), m_t (B, 1))
+        (lion_tpu/diffusion/discrete.py:64-85; the p2 loss weight is left
+        out: the pvd_mse objective does not use it)."""
+        if timestep is None:
+            rho = torch.rand(batch_size, generator=generator,
+                             device=generator.device) * self.num_steps
+            # rand < 1, but rand * T may round up to T in float32
+            timestep = torch.clamp(rho.to(torch.int32) + 1,
+                                   max=self.num_steps)
+        return self.iw_quantities_t(timestep)
+
+    def iw_quantities_t(self, timestep: torch.Tensor):
+        """(timestep, var_t, m_t) for given timesteps in [1, T]."""
+        alpha_bars = self._alpha_bars_at(timestep)
+        return (timestep.to(torch.int32), (1.0 - alpha_bars)[:, None],
+                torch.sqrt(alpha_bars)[:, None])
+
+    @staticmethod
+    def sample_q(x_init, noise, var_t, m_t):
+        """A sample of q(x_t | x_0): m_t * x_0 + sqrt(var_t) * noise."""
+        return m_t * x_init + torch.sqrt(var_t) * noise
+
+    def get_mixing_component(self, x_noisy, timestep):
+        """sqrt(1 - alpha_bar_t) * x_t, broadcast over x's trailing dims."""
+        shape = (x_noisy.shape[0],) + (1,) * (x_noisy.ndim - 1)
+        return torch.sqrt(1.0 - self._alpha_bars_at(timestep)).reshape(
+            shape) * x_noisy
 
     def _coefficients(self, t: int):
         """float32 per-step scalars of the step at index t."""

@@ -1,9 +1,12 @@
-"""LION: the public sampling API (port of lion_tpu/models/lion.py, the
-ancestral DDPM branch).
+"""LION: the model and its sampling API (port of lion_tpu/models/lion.py,
+the ancestral DDPM branch); the priors' training step is
+`trainers.make_prior_train_step`.
 
-`LION(cfg)` holds the VAE decoder and the two priors as one nn.Module whose
-parameter names are the JAX package's param-tree paths. `sample(n)` runs
-the hierarchy:
+`LION(cfg, device="cuda")` holds the VAE (encoders and decoder) and the two
+priors as one nn.Module whose parameter names are the JAX package's
+param-tree paths, on the card unless the caller asks for `device="cpu"`;
+without CUDA the default raises. `sample(n)` runs, in eval mode, the
+hierarchy:
 
     global prior: T ancestral steps over the 2048-wide ResNet
     local prior:  T ancestral steps over the PVCNN2 U-Net, conditioned on
@@ -23,7 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ckpt.from_jax import LION_SKIPPED_PREFIXES, state_dict_from_jax
+from ..ckpt.from_jax import state_dict_from_jax
 from ..config.view import as_view
 from ..diffusion.discrete import DiffusionDiscretized, randn
 from ..nn.common import init_weights
@@ -36,14 +39,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another; a CUDA device on a machine without one raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
 class LION(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, device="cuda"):
         super().__init__()
         view = as_view(cfg)
         self.cfg = cfg
-        self.vae = VAE(cfg)
-        self.global_prior = build_global_prior(view)
-        self.local_prior = build_local_prior(view)
+        with resolve_device(device):
+            self.vae = VAE(cfg)
+            self.global_prior = build_global_prior(view)
+            self.local_prior = build_local_prior(view)
         self.diffusion = DiffusionDiscretized(view)
         self.mixed_prediction = bool(view.sde.mixed_prediction)
         self.num_points = view.data.tr_max_sample_points
@@ -61,10 +75,9 @@ class LION(nn.Module):
         return self
 
     def load_jax_params(self, tree) -> "LION":
-        """Load LION's JAX params ({'vae', 'global_prior', 'local_prior'}
-        nested dicts of numpy arrays); the VAE encoders are skipped."""
-        self.load_state_dict(
-            state_dict_from_jax(tree, LION_SKIPPED_PREFIXES), strict=True)
+        """Load LION's whole JAX param tree ({'vae', 'global_prior',
+        'local_prior'} nested dicts of numpy arrays), strictly."""
+        self.load_state_dict(state_dict_from_jax(tree), strict=True)
         return self
 
     @torch.no_grad()
@@ -103,6 +116,7 @@ class LION(nn.Module):
         return x
 
     def _sample(self, num_samples, generator, given_noise, chunks):
+        self.eval()
         dev = self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)

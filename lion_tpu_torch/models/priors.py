@@ -6,7 +6,9 @@
     on the global sample through AdaGN style input.
 
 Mixed prediction's `mixing_logit` is a parameter of each prior; the sampler
-applies it (diffusion.discrete.get_mixed_prediction).
+applies it (diffusion.discrete.get_mixed_prediction). Both priors train in
+train mode (`self.training`), with dropout: sde.dropout in the global
+prior's blocks, ddpm.dropout in the local prior's U-Net.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 from torch import nn
 
 from ..config.view import as_view
-from ..nn.common import TDense, compute_dtype, timestep_embedding
+from ..nn.common import Dropout, TDense, compute_dtype, timestep_embedding
 from ..nn.unet import PVCNN2Unet
 
 # local prior U-Net specs (latent_points_ada_localprior.py:17-28); the third
@@ -41,15 +43,16 @@ def _mixing_logit(n: int, init: float) -> nn.Parameter:
 class ResBlockSEDrop(nn.Module):
     """x + t -> dense -> relu -> (dropout) -> dense -> relu -> SE -> + x."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dropout: float):
         super().__init__()
+        self.drop = Dropout(dropout)
         self.conv1 = TDense(dim, dim)
         self.conv2 = TDense(dim, dim)
         self.se_fc1 = TDense(dim // 8, dim, use_bias=False)
         self.se_fc2 = TDense(dim, dim // 8, use_bias=False)
 
     def forward(self, x, t):
-        h = torch.relu(self.conv1(x + t))
+        h = self.drop(torch.relu(self.conv1(x + t)))
         h = torch.relu(self.conv2(h))
         g = self.se_fc2(torch.relu(self.se_fc1(h)))
         return x + h * torch.sigmoid(g)
@@ -62,7 +65,8 @@ class GlobalPrior(nn.Module):
     def __init__(self, num_input_channels: int, nf: int = 2048,
                  num_blocks: int = 8, embedding_dim: int = 128,
                  embedding_type: str = "positional",
-                 embedding_scale: float = 1.0, block_type: str = "se_drop",
+                 embedding_scale: float = 1.0, dropout: float = 0.2,
+                 block_type: str = "se_drop",
                  mixed_prediction: bool = False,
                  mixing_logit_init: float = -6.0):
         super().__init__()
@@ -81,7 +85,7 @@ class GlobalPrior(nn.Module):
         self.input_layer = TDense(nf, num_input_channels)
         self.num_blocks = num_blocks
         for i in range(num_blocks):
-            self.add_module(f"block{i}", ResBlockSEDrop(nf))
+            self.add_module(f"block{i}", ResBlockSEDrop(nf, dropout))
         self.output_layer = TDense(num_input_channels, nf)
 
     def forward(self, x, t):
@@ -130,7 +134,7 @@ class LocalPrior(nn.Module):
             init_scale=cfg.latent_pts.ada_mlp_init_scale,
             vres_mult=cfg.tpu.vres_mult if "tpu" in cfg else 1.0,
             ncenter_mult=cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0,
-            dtype=compute_dtype(cfg))
+            dtype=compute_dtype(cfg), dropout=cfg.ddpm.dropout)
 
     def forward(self, x, t, condition_input):
         """x (B, N*C) or (B, N, C), t (B,), condition_input (B, style) ->

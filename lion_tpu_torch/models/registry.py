@@ -25,6 +25,7 @@ def build_global_prior(cfg) -> GlobalPrior:
         embedding_dim=cfg.sde.embedding_dim,
         embedding_type=cfg.sde.embedding_type,
         embedding_scale=cfg.sde.embedding_scale,
+        dropout=cfg.sde.dropout,
         block_type=_BLOCK_TYPE[name],
         mixed_prediction=bool(cfg.sde.mixed_prediction),
         mixing_logit_init=cfg.sde.mixing_logit_init)

@@ -1,10 +1,12 @@
-"""Hierarchical VAE, decode only (port of `VAE.sample`,
-lion_tpu/models/vae.py:255-275).
+"""Hierarchical VAE: encode and decode (port of `VAE.encode` and
+`VAE.sample`, lion_tpu/models/vae.py:150-171,255-275).
 
-The port holds the decoder alone: sampling decodes latents drawn by the
-priors, and the encoders, `recont` and the losses are later work. Its
-parameters sit under `decoder.` exactly as in the JAX tree, so the JAX
-params load after dropping their encoder subtrees (ckpt/from_jax.py).
+The style encoder (`style_encoder.`), the latent-points encoder
+(`encoder.`) and the decoder (`decoder.`) sit under the names of the JAX
+tree, so the whole JAX VAE loads with a flatten (ckpt/from_jax.py).
+`encode` is what the two-prior training step runs, frozen and in eval mode;
+`recont`, the losses and the stage-1 VAE step are later work (ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ from torch import nn
 
 from ..config.view import as_view
 from ..nn.common import compute_dtype
+from .distributions import Normal
 from .encoders import (LATENT_PTS_FP_BLOCKS, LATENT_PTS_SA_BLOCKS,
-                       LatentPointDecPVC)
+                       LatentPointDecPVC, PointNetPlusEncoder, PointTransPVC)
 
 
 def _deep_tuple(x):
@@ -44,22 +47,63 @@ class VAE(nn.Module):
         cfg = as_view(cfg)
         if cfg.data.cond_on_cat:
             raise NotImplementedError("class-conditional decoding not ported")
-        if not cfg.shapelatent.decoder_type.endswith("LatentPointDecPVC"):
-            raise NotImplementedError(cfg.shapelatent.decoder_type)
+        for name, want in (
+                (cfg.latent_pts.style_encoder, "PointNetPlusEncoder"),
+                (cfg.shapelatent.encoder_type, "PointTransPVC"),
+                (cfg.shapelatent.decoder_type, "LatentPointDecPVC")):
+            if not name.endswith(want):
+                raise NotImplementedError(name)
         self.input_dim = cfg.ddpm.input_dim
         self.latent_dim = cfg.shapelatent.latent_dim
         self.num_points = cfg.data.tr_max_sample_points
         self.style_dim = cfg.latent_pts.style_dim
+        self.log_sigma_offset = cfg.shapelatent.log_sigma_offset
+        vres_mult = cfg.tpu.vres_mult if "tpu" in cfg else 1.0
+        ncenter_mult = cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0
         sa_blocks, fp_blocks = spec_overrides(cfg)
+        self.style_encoder = PointNetPlusEncoder(
+            zdim=self.style_dim, input_dim=self.input_dim,
+            dropout=cfg.ddpm.dropout, vres_mult=vres_mult,
+            ncenter_mult=ncenter_mult)
+        self.encoder = PointTransPVC(
+            zdim=self.latent_dim, input_dim=self.input_dim,
+            style_dim=self.style_dim, skip_weight=cfg.latent_pts.skip_weight,
+            pts_sigma_offset=cfg.latent_pts.pts_sigma_offset,
+            dropout=cfg.ddpm.dropout,
+            ada_mlp_init_scale=cfg.latent_pts.ada_mlp_init_scale,
+            vres_mult=vres_mult, ncenter_mult=ncenter_mult,
+            sa_blocks=sa_blocks, fp_blocks=fp_blocks,
+            dtype=compute_dtype(cfg))
         self.decoder = LatentPointDecPVC(
             point_dim=self.input_dim, context_dim=self.latent_dim,
             num_points=self.num_points, style_dim=self.style_dim,
             skip_weight=cfg.latent_pts.skip_weight,
+            dropout=cfg.ddpm.dropout,
             ada_mlp_init_scale=cfg.latent_pts.ada_mlp_init_scale,
-            vres_mult=cfg.tpu.vres_mult if "tpu" in cfg else 1.0,
-            ncenter_mult=cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0,
+            vres_mult=vres_mult, ncenter_mult=ncenter_mult,
             sa_blocks=sa_blocks, fp_blocks=fp_blocks,
             dtype=compute_dtype(cfg))
+
+    def encode(self, x, generator=None, rho=None):
+        """x (B, N, input_dim) -> (all_eps (B, style + N*(latent + input)),
+        all_log_q, latent_list), as the JAX `encode`: the style posterior is
+        sampled first and conditions the latent-points encoder. The two
+        standard normals come from `generator` unless given as
+        `rho = (rho_global, rho_local)`."""
+        if x.ndim != 3 or x.shape[2] != self.input_dim:
+            raise ValueError(f"VAE.encode: x {tuple(x.shape)}")
+        rho_g, rho_l = rho if rho is not None else (None, None)
+        dist_global = Normal(*self.style_encoder(x))
+        z_global, _ = dist_global.sample(generator, rho_g)
+        mu, sigma = self.encoder(x, z_global)
+        dist_local = Normal(mu, sigma - self.log_sigma_offset)
+        z_local, _ = dist_local.sample(generator, rho_l)
+        all_eps = torch.cat([z_global.reshape(x.shape[0], -1),
+                             z_local.reshape(x.shape[0], -1)], dim=1)
+        all_log_q = [dist_global.log_p(z_global), dist_local.log_p(z_local)]
+        latent_list = [(z_global, dist_global.mu, dist_global.log_sigma),
+                       (z_local, dist_local.mu, dist_local.log_sigma)]
+        return all_eps, all_log_q, latent_list
 
     def sample(self, num_samples: int, decomposed_eps) -> torch.Tensor:
         """Decode the latents [z_global (B, style), z_local (B, N*(latent +

@@ -9,8 +9,13 @@ load with a flatten (ckpt/from_jax.py):
 
 Parameters start empty; `init_weights(module, generator)` draws them with
 the JAX package's initializers (torch nn.Linear's default uniform for Dense
-and Conv, a fan-avg uniform for the AdaGN style projection).
-Inference only: no dropout, no gradient through the fused conv.
+and Conv, a fan-avg uniform for the AdaGN style projection) on the
+generator's device, so one generator gives the same weights on any device.
+
+Train mode is `self.training`. `Dropout` draws its masks from a generator
+that the caller sets (`set_dropout_generator`), never from the global RNG.
+`Conv3dSame` has the fused eval call (no gradient) and the modular call
+(`modular`, the training conv with its gradient).
 
 Compute dtype: modules built with `dtype=torch.bfloat16` compute in bf16
 while their parameters stay fp32, as the JAX package's `dtype` does. Dense
@@ -29,7 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.conv3d import (GN_EPS, GN_GROUPS, conv3d_3x3_fused,
-                          gn_affine_from_stats)
+                          conv3d_3x3_same, gn_affine_from_stats)
 
 
 def swish(x):
@@ -37,8 +42,9 @@ def swish(x):
 
 
 def _uniform(p: torch.Tensor, bound: float, generator) -> None:
+    draw = torch.empty(p.shape, device=generator.device)
     with torch.no_grad():
-        p.uniform_(-bound, bound, generator=generator)
+        p.copy_(draw.uniform_(-bound, bound, generator=generator))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -76,8 +82,9 @@ class TDense(nn.Module):
 
 
 class Conv3dSame(nn.Module):
-    """3x3x3 SAME conv (NDHWC) with torch nn.Conv3d's default init; only the
-    fused eval call of the JAX module (`fused=True`) is ported."""
+    """3x3x3 SAME conv (NDHWC) with torch nn.Conv3d's default init: the
+    fused eval call of the JAX module (`fused=True`, `forward`) and its
+    training call (`modular`)."""
 
     def __init__(self, features: int, fan_in_channels: int):
         super().__init__()
@@ -104,6 +111,11 @@ class Conv3dSame(nn.Module):
                                  pre_swish=pre_swish)
         return y, st, self.bias
 
+    def modular(self, x):
+        """conv3d_3x3_same(x, kernel) + bias in float32, with gradients
+        (lion_tpu/nn/common.py:129-136)."""
+        return conv3d_3x3_same(x, self.kernel) + self.bias
+
 
 class GNAffine(nn.Module):
     """Bare GroupNorm affine params: scale = 1, bias = 0 at init."""
@@ -122,12 +134,17 @@ class GNAffine(nn.Module):
 def group_norm(x, scale, bias):
     """GroupNorm(8) over (B, ..., C) as flax computes it: statistics over
     all non-batch dims of each group, var = E[x^2] - E[x]^2 clamped at 0.
-    Computed and returned in fp32 whatever x's dtype."""
+    Computed and returned in fp32 whatever x's dtype. The two means are
+    accumulated in float64: PyTorch's CPU reduction over the point axis
+    adds its up to 10^5 terms one after another, whose float32 rounding
+    reached 1e-3 of a normalized output at 1024 centers x 32 slots."""
     b, c = x.shape[0], x.shape[-1]
     xg = x.float().reshape(b, -1, GN_GROUPS, c // GN_GROUPS)
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = torch.clamp_min((xg * xg).mean(dim=(1, 3), keepdim=True)
-                          - mean * mean, 0.0)
+    mean = xg.mean(dim=(1, 3), keepdim=True, dtype=torch.float64)
+    var = torch.clamp_min(
+        (xg * xg).mean(dim=(1, 3), keepdim=True, dtype=torch.float64)
+        - mean * mean, 0.0)
+    mean, var = mean.float(), var.float()
     y = ((xg - mean) * torch.rsqrt(var + GN_EPS)).reshape(x.shape)
     return y * scale + bias
 
@@ -217,7 +234,8 @@ class Normalizer(nn.Module):
 
 class SE(nn.Module):
     """Squeeze-excite. The eval flow only needs its gate: PVConv derives the
-    pooled means from conv statistics and folds the gate into an affine."""
+    pooled means from conv statistics and folds the gate into an affine;
+    the training flow pools and applies it (`forward`)."""
 
     def __init__(self, channel: int):
         super().__init__()
@@ -227,6 +245,48 @@ class SE(nn.Module):
     def gate(self, pooled):
         """(B, C) pooled means -> (B, C) gate."""
         return torch.sigmoid(self.fc2(torch.relu(self.fc1(pooled))))
+
+    def forward(self, x):
+        """x (B, ..., C) -> x * gate(mean of x over its middle dims)."""
+        gate = self.gate(x.mean(dim=tuple(range(1, x.ndim - 1))))
+        shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+        return x * gate.reshape(shape).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator):
+    """nn.Dropout's semantics with the mask drawn from `generator` (on x's
+    device): keep each element with probability 1 - p and divide the kept
+    ones by 1 - p, as flax computes it."""
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+class Dropout(nn.Module):
+    """`dropout` in train mode with the generator in `self.generator`
+    (`set_dropout_generator`); the identity in eval mode or at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a generator "
+                               "(set_dropout_generator)")
+        return dropout(x, self.p, self.generator)
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Give every Dropout under `module` the generator its masks come from."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class LinearAttention(nn.Module):
@@ -314,5 +374,5 @@ def compute_dtype(cfg) -> Optional[torch.dtype]:
 
 __all__ = ["swish", "init_weights", "TDense", "Conv3dSame", "GNAffine",
            "group_norm", "gn_affine_from_stats", "AdaGN", "Normalizer", "SE",
-           "LinearAttention", "SharedMLP", "timestep_embedding",
-           "compute_dtype"]
+           "dropout", "Dropout", "set_dropout_generator", "LinearAttention",
+           "SharedMLP", "timestep_embedding", "compute_dtype"]

@@ -2,8 +2,11 @@
 lion_tpu/nn/pointnet.py).
 
 The SA block runs FPS, then either the fused bf16 kernel (K7, where
-`_fused_ok` holds, lion_tpu/nn/pointnet.py:103-150) or the fused
+`_fused_ok` holds: eval mode, lion_tpu/nn/pointnet.py:103-150) or the fused
 ball-query+group kernel and a SharedMLP, then a max over the neighbours.
+In train mode the second branch runs, with gradients through
+`ball_query_group`; the FP and A modules get theirs through
+`nearest_neighbor_interpolate` and plain PyTorch.
 """
 from __future__ import annotations
 
@@ -76,10 +79,11 @@ class PointNetSAModule(nn.Module):
         self.out_channels = sum(br[-1] for br in branches)
 
     def _fused_ok(self) -> bool:
-        """Single-branch bf16 with shapes the fused SA kernel takes
+        """Single-branch bf16 eval with shapes the fused SA kernel takes
         (lion_tpu/nn/pointnet.py:103-119 without its backend test; the
         kernel also bounds K to 128 and the widths to 256)."""
-        return (self.dtype == torch.bfloat16 and len(self.branches) == 1
+        return (not self.training and self.dtype == torch.bfloat16
+                and len(self.branches) == 1
                 and len(self.radius) == 1
                 and supports_sa_fused(self.num_centers, self.num_neighbors[0],
                                       self.branches[0]))

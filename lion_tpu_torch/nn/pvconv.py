@@ -1,7 +1,14 @@
-"""Point-Voxel Convolution, eval flow (port of lion_tpu/nn/pvconv.py).
+"""Point-Voxel Convolution (port of lion_tpu/nn/pvconv.py).
 
-The eval ("fused") flow of the JAX module, with its three voxel branches
-(lion_tpu/nn/pvconv.py:56-128) kept as fixed shape predicates:
+In train mode (`self.training`) the modular flow of the JAX module
+(lion_tpu/nn/pvconv.py:141-150), differentiable and in float32:
+  voxelize -> conv0 + b -> norm -> swish -> dropout -> conv1 + b -> norm
+  -> SE -> devoxelize,
+with the convs on K10 (`Conv3dSame.modular`).
+
+In eval mode the eval ("fused") flow of the JAX module, with its three
+voxel branches (lion_tpu/nn/pvconv.py:56-128) kept as fixed shape
+predicates:
 
   * bf16 at r = 8, C = 128, Cin == Cout (N % 8 == 0, N <= 4096): the whole
     branch in one kernel, voxelize -> conv pair -> devoxelize (K9,
@@ -30,7 +37,8 @@ from torch import nn
 from ..ops.conv3d import conv3d_pair
 from ..ops.pvblock import pvconv_block_pair, supports_block_pair
 from ..ops.voxel import normalize_coords, trilinear_devoxelize, voxelize
-from .common import SE, Conv3dSame, LinearAttention, Normalizer, SharedMLP
+from .common import (SE, Conv3dSame, Dropout, LinearAttention, Normalizer,
+                     SharedMLP, swish)
 
 PAIR_R, PAIR_C = 32, 64   # the conv pair's shape (conv3d_packed.py:603)
 
@@ -42,10 +50,11 @@ class PVConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, resolution: int,
                  attention: bool = False, ada: bool = False,
                  style_dim: int = 128, init_scale: float = 1.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         super().__init__()
         self.resolution = resolution
         self.dtype = dtype
+        self.drop = Dropout(dropout)
         self.vconv0 = Conv3dSame(out_channels, in_channels)
         self.vnorm0 = Normalizer(out_channels, ada, style_dim, init_scale)
         self.vconv1 = Conv3dSame(out_channels, out_channels)
@@ -62,8 +71,23 @@ class PVConv(nn.Module):
                 ca0.contiguous(), cb0.contiguous(),
                 self.vconv1.kernel.detach().to(dt))
 
+    def _voxel_branch_train(self, features, xyz, style):
+        if self.dtype is not None:
+            raise NotImplementedError(
+                "bf16 training is not ported (ROADMAP Queue 1 item 10)")
+        r = self.resolution
+        grid, norm_coords = voxelize(features.float(), xyz, r)
+        h = swish(self.vnorm0(self.vconv0.modular(grid), style))
+        h = self.vconv1.modular(self.drop(h))
+        h = self.se(self.vnorm1(h, style))
+        return trilinear_devoxelize(h, norm_coords.contiguous(), r)
+
     def forward(self, features, coords, style=None):
         """features (B, N, C_in), coords (B, N, >=3) -> (B, N, C_out)."""
+        if self.training:
+            fused = self._voxel_branch_train(features, coords[..., :3],
+                                             style)
+            return self._point_branch(fused, features, style)
         r = self.resolution
         b, n, cin = features.shape
         cout = self.vconv1.kernel.shape[-1]
@@ -95,6 +119,9 @@ class PVConv(nn.Module):
         gate = self.se.gate(sc1 * (st1[:, 0, :] / count) + bi1)
         sc1, bi1 = sc1 * gate, bi1 * gate
         fused = (pts.float() * sc1[:, None, :] + bi1[:, None, :]).to(dt)
+        return self._point_branch(fused, features, style)
+
+    def _point_branch(self, fused, features, style):
         fused = fused + self.point_features(features, style)
         if self.attn is not None:
             fused = self.attn(fused)

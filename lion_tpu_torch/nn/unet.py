@@ -24,7 +24,8 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from .common import LinearAttention, SharedMLP, TDense, timestep_embedding
+from .common import (Dropout, LinearAttention, SharedMLP, TDense,
+                     timestep_embedding)
 from .pointnet import PointNetAModule, PointNetFPModule, PointNetSAModule
 from .pvconv import PVConv
 
@@ -114,16 +115,18 @@ class PVCNN2Unet(nn.Module):
 
     `dtype` is the compute dtype of every block (None: fp32); the time
     embedding and the classifier's last dense layer stay fp32 and the
-    output is fp32 (lion_tpu/nn/unet.py:157-159,282)."""
+    output is fp32 (lion_tpu/nn/unet.py:157-159,282). `dropout` is the rate
+    of every PVConv's dropout and of the classifier head's (train mode)."""
 
     def __init__(self, num_classes: int, sa_blocks, fp_blocks,
                  embed_dim: int = 0, extra_feature_channels: int = 3,
                  input_dim: int = 3, time_emb_scales: float = 1.0,
                  style_dim: int = 128, init_scale: float = 1.0,
                  vres_mult: float = 1.0, ncenter_mult: float = 1.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         super().__init__()
         self.input_dim = input_dim
+        self.dropout = dropout
         self.embed_dim = embed_dim
         self.time_emb_scales = time_emb_scales
         kw = dict(ada=True, style_dim=style_dim, init_scale=init_scale,
@@ -170,16 +173,16 @@ class PVCNN2Unet(nn.Module):
                                 self._conv(c, spec, kw))
                 c = spec.out_channels
 
-        # classifier head: SharedMLP(128) -> (dropout) -> Dense(num_classes)
+        # classifier head: SharedMLP(128) -> dropout -> Dense(num_classes)
         self.cls_mlp = SharedMLP(c, (128,), **kw)
+        self.cls_drop = Dropout(dropout)
         self.cls_out = TDense(num_classes, 128)
 
-    @staticmethod
-    def _conv(cin, spec, kw):
+    def _conv(self, cin, spec, kw):
         if spec.resolution is None:
             return SharedMLP(cin, (spec.out_channels,), **kw)
         return PVConv(cin, spec.out_channels, spec.resolution,
-                      attention=spec.attention, **kw)
+                      attention=spec.attention, dropout=self.dropout, **kw)
 
     def _run_conv(self, name, features, coords, style):
         mod = getattr(self, name)
@@ -236,4 +239,5 @@ class PVCNN2Unet(nn.Module):
                 features = self._run_conv(f"fp{fp_idx}_conv{j}", features,
                                           coords, style)
 
-        return self.cls_out(self.cls_mlp(features, style)).float()
+        return self.cls_out(self.cls_drop(self.cls_mlp(features, style))
+                            ).float()

@@ -1,10 +1,14 @@
 """Point-cloud ops of the port, each beside its plain PyTorch version.
 
 `KERNELS` maps each kernel's name to its wrapper (see `_cuda.kernel`);
-`reset_counts()` zeroes their launch and plain-call counters.
+`reset_counts()` zeroes their launch and plain-call counters. The ops
+exported here that the training path differentiates (`conv3d_3x3_same`,
+`ball_query_group`, `avg_voxelize`, `trilinear_devoxelize`,
+`nearest_neighbor_interpolate`) are `torch.autograd.Function`s around
+their kernels.
 """
 from ._cuda import KERNELS, reset_counts
-from .conv3d import conv3d_3x3_fused, conv3d_pair
+from .conv3d import conv3d_3x3_fused, conv3d_3x3_same, conv3d_pair
 from .interpolate import nearest_neighbor_interpolate
 from .points import (ball_query, ball_query_group, fps,
                      furthest_point_sample, furthest_point_sample_idx,
@@ -15,7 +19,8 @@ from .voxel import (avg_voxelize, normalize_coords, trilinear_devoxelize,
                     voxelize)
 
 __all__ = [
-    "KERNELS", "reset_counts", "conv3d_3x3_fused", "conv3d_pair",
+    "KERNELS", "reset_counts", "conv3d_3x3_fused", "conv3d_3x3_same",
+    "conv3d_pair",
     "nearest_neighbor_interpolate", "ball_query", "ball_query_group", "fps",
     "furthest_point_sample", "furthest_point_sample_idx", "gather",
     "grouping", "pvconv_block_pair", "sa_fused", "avg_voxelize",

@@ -17,6 +17,7 @@ the wrapper), which `reset_counts` zeroes.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -40,11 +41,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lion_fps": (_P, _P, _P, _I, _I, _I, _P),
     "lion_ball_query_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "lion_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "lion_avg_voxelize": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_conv3d_3x3_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _P),
     "lion_conv3d_3x3_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _P),
+    "lion_conv3d_3x3_same": (_P, _P, _P, _I, _I, _I, _I, _P),
     "lion_conv3d_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P),
     "lion_pvconv_block_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -52,7 +55,8 @@ _SIGNATURES = {
     "lion_sa_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                       _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "lion_trilinear_devoxelize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "lion_three_nn_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lion_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _P),
 }
 
 # name -> wrapper, in registration order (one entry per kernel)
@@ -221,3 +225,19 @@ def reset_counts() -> None:
     for w in KERNELS.values():
         w.launches = 0
         w.plain_calls = 0
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full float32 for cuBLAS matmuls and cuDNN convolutions inside the
+    block (cuDNN runs float32 convolutions in TF32 by default); the previous
+    settings come back after it."""
+    mm, conv = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv

@@ -1,12 +1,18 @@
-"""Fused eval-path 3x3x3 convolutions (ports of conv3d_3x3_fused,
-lion_tpu/ops/pallas/conv3d.py:441-474, and conv3d_packed_pair,
-lion_tpu/ops/pallas/conv3d_packed.py:608).
+"""3x3x3 SAME convolutions (ports of conv3d_3x3_fused,
+lion_tpu/ops/pallas/conv3d.py:441-474, conv3d_3x3_same, :556-604, and
+conv3d_packed_pair, lion_tpu/ops/pallas/conv3d_packed.py:608).
 
 Kernels here:
   K4 `conv3d_3x3_fused` (csrc/conv3d.cu): one conv with an input prologue
      and output statistics, in float32 or bfloat16.
   K8 `conv3d_pair` (csrc/conv3d_pair.cu): conv0 -> GroupNorm fold ->
      swish -> conv1 of a PVConv whose input width equals its output width.
+  K10 `conv3d_3x3_same` (csrc/conv3d.cu): the training conv, bias-free,
+     float32, with a gradient (`conv3d_3x3_same`): dL/dx is K10 again on
+     the output gradient with flipped, channel-transposed weights, as the
+     JAX VJP computes it (conv3d.py:589-593); dL/dw is cuDNN's weight
+     gradient in full float32, where the JAX package leaves it to XLA
+     (conv3d.py:594-600).
 
 K4: y = conv3d_SAME(swish?(x * in_scale + in_bias), w), bias-free, plus the
 per-channel statistics stats[b] = (sum of y, sum of y^2) over the grid, which
@@ -16,7 +22,7 @@ bfloat16 x and w the prologue runs in float32 and is rounded to bfloat16
 (ops/pallas/conv3d.py:460-468), the products are summed in float32, y is
 rounded to bfloat16 and the statistics are taken of the rounded y, as the
 TPU kernels take them (conv3d_packed.py:466-472).
-Inference only: no gradient.
+K4 and K8 are inference only: no gradient.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
+from ._cuda import (check_cuda, check_float, kernel, launch, no_tf32, ptr,
+                    stream_of)
 
 GN_GROUPS, GN_EPS = 8, 1e-5
 
@@ -77,6 +84,60 @@ def conv3d_3x3_fused(x: torch.Tensor, w: torch.Tensor,
     launch(entry, ptr(x), ptr(w), ptr(in_scale), ptr(in_bias), ptr(y),
            ptr(stats), b, r, ci, co, int(pre_swish), stream_of(x))
     return y, stats
+
+
+def _conv3d_3x3_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
+                 padding=1)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+@kernel("conv3d_3x3_same", _conv3d_3x3_same_plain,
+        "lion_tpu_torch/csrc/conv3d.cu",
+        "lion_tpu/ops/pallas/conv3d.py:557")
+def conv3d_3x3_same_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, R, R, R, Ci), w (3, 3, 3, Ci, Co) f32 -> (B, R, R, R, Co) f32,
+    bias-free."""
+    check_cuda(x, w)
+    b, r = x.shape[0], x.shape[1]
+    ci, co = w.shape[3], w.shape[4]
+    if x.shape[1:] != (r, r, r, ci) or w.shape[:3] != (3, 3, 3):
+        raise ValueError(f"conv3d_3x3_same: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    y = torch.empty((b, r, r, r, co), device=x.device)
+    launch("lion_conv3d_3x3_same", ptr(x), ptr(w), ptr(y), b, r, ci, co,
+           stream_of(x))
+    return y
+
+
+class _Conv3dSame(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3d_3x3_same_kernel(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_flip = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+            dx = conv3d_3x3_same_kernel(g, w_flip)
+        if ctx.needs_input_grad[1]:
+            with no_tf32():
+                dw = torch.nn.grad.conv3d_weight(
+                    x.permute(0, 4, 1, 2, 3), tuple(w.permute(4, 3, 0, 1, 2)
+                                                    .shape),
+                    g.permute(0, 4, 1, 2, 3), padding=1)
+            dw = dw.permute(2, 3, 4, 1, 0)
+        return dx, dw
+
+
+def conv3d_3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The training conv with its gradient: x (B, R, R, R, Ci),
+    w (3, 3, 3, Ci, Co) f32 -> (B, R, R, R, Co) f32, bias-free."""
+    return _Conv3dSame.apply(x.contiguous(), w.contiguous())
 
 
 def gn_affine_from_stats(s1, s2, count, ca, cb, pre_bias=None):

@@ -2,7 +2,13 @@
 lion_tpu/ops/interpolate.py).
 
 Kernel here:
-  K6 `nearest_neighbor_interpolate` (csrc/three_nn.cu).
+  K6 `three_nn_interpolate` (csrc/three_nn.cu), which can also return each
+     point's neighbour indices and weights.
+
+`nearest_neighbor_interpolate` has a gradient to the centers' features
+only, as the JAX VJP (lion_tpu/ops/interpolate.py:51-81): a scatter-add of
+g * w through the (idx, w) that the forward returned, with no distance
+matrix.
 
 The plain version evaluates the distances and the weighted sum op by op in
 the order the kernel uses with unfused arithmetic, so both pick the same
@@ -58,7 +64,8 @@ def three_nn(points: torch.Tensor, centers: torch.Tensor):
     return torch.stack(dists, -1), torch.stack(idxs, -1)
 
 
-def _nearest_neighbor_interpolate_plain(points, centers, centers_features):
+def _three_nn_interpolate_plain(points, centers, centers_features,
+                                with_weights: bool = False):
     d2, idx = three_nn(points, centers)
     d2 = torch.clamp(d2, 1e-10, 1e10)
     d0, d1, d2_ = d2[..., 0], d2[..., 1], d2[..., 2]
@@ -67,21 +74,28 @@ def _nearest_neighbor_interpolate_plain(points, centers, centers_features):
     dt = centers_features.dtype
     feats = centers_features.float()
     c = feats.shape[-1]
+    ws = [w.to(dt).float() for w in (d1d2 * inv, d0d2 * inv, d0d1 * inv)]
     out = None
-    for j, w in enumerate((d1d2 * inv, d0d2 * inv, d0d1 * inv)):
+    for j, w in enumerate(ws):
         f = torch.gather(feats, 1, idx[..., j:j + 1].expand(-1, -1, c))
-        term = f * w.to(dt).float()[..., None]
+        term = f * w[..., None]
         out = term if out is None else out + term
-    return out.to(dt)
+    out = out.to(dt)
+    if not with_weights:
+        return out
+    return out, idx.to(torch.int32), torch.stack(ws, dim=-1)
 
 
-@kernel("three_nn_interpolate", _nearest_neighbor_interpolate_plain,
+@kernel("three_nn_interpolate", _three_nn_interpolate_plain,
         "lion_tpu_torch/csrc/three_nn.cu",
         "lion_tpu/ops/pallas/three_nn.py:74")
-def nearest_neighbor_interpolate(points: torch.Tensor, centers: torch.Tensor,
-                                 centers_features: torch.Tensor):
+def three_nn_interpolate(points: torch.Tensor, centers: torch.Tensor,
+                         centers_features: torch.Tensor,
+                         with_weights: bool = False):
     """points (B, N, 3), centers (B, M, 3) f32, centers_features (B, M, C)
-    f32 or bf16 -> (B, N, C) of the features' dtype."""
+    f32 or bf16 -> (B, N, C) of the features' dtype; with `with_weights`
+    also idx (B, N, 3) int32 and w (B, N, 3) f32, the three neighbours and
+    their weights as used (rounded to the features' dtype)."""
     dt = check_float(centers_features, "nearest_neighbor_interpolate")
     check_cuda(points, centers)
     check_cuda(centers_features, dtype=dt)
@@ -90,7 +104,41 @@ def nearest_neighbor_interpolate(points: torch.Tensor, centers: torch.Tensor,
     if m < 1:
         raise ValueError("nearest_neighbor_interpolate needs M >= 1")
     out = torch.empty((b, n, c), device=points.device, dtype=dt)
+    idx = w = None
+    if with_weights:
+        idx = torch.empty((b, n, 3), dtype=torch.int32, device=points.device)
+        w = torch.empty((b, n, 3), device=points.device)
     launch("lion_three_nn_interpolate", ptr(points), ptr(centers),
-           ptr(centers_features), ptr(out), b, n, m, c,
+           ptr(centers_features), ptr(out), ptr(idx), ptr(w), b, n, m, c,
            int(dt == torch.bfloat16), stream_of(points))
-    return out
+    return (out, idx, w) if with_weights else out
+
+
+class _NearestNeighborInterpolate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, centers, centers_features):
+        ctx.m, ctx.dtype = centers_features.shape[1], centers_features.dtype
+        if not ctx.needs_input_grad[2]:
+            return three_nn_interpolate(points, centers, centers_features)
+        out, idx, w = three_nn_interpolate(points, centers, centers_features,
+                                           with_weights=True)
+        ctx.save_for_backward(idx, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w = ctx.saved_tensors
+        b, n, c = g.shape
+        rows = (g.float()[:, :, None, :] * w[..., None]).reshape(b, n * 3, c)
+        flat = idx.reshape(b, n * 3).long()
+        gf = torch.zeros((b, ctx.m, c), device=g.device).scatter_add_(
+            1, flat[:, :, None].expand(-1, -1, c), rows)
+        return None, None, gf.to(ctx.dtype)
+
+
+def nearest_neighbor_interpolate(points: torch.Tensor, centers: torch.Tensor,
+                                 centers_features: torch.Tensor):
+    """points (B, N, 3), centers (B, M, 3), centers_features (B, M, C) ->
+    (B, N, C), with a gradient to the centers' features."""
+    return _NearestNeighborInterpolate.apply(points, centers,
+                                             centers_features)

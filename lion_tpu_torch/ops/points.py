@@ -6,7 +6,13 @@ Kernels here:
   K1 `fps` (csrc/fps.cu): furthest point sampling, indices and the picked
      coords in one launch.
   K2 `ball_query_group` (csrc/ball_query_group.cu): ball query fused with
-     the grouping gather, forward only.
+     the grouping gather.
+  K11 `ball_query` (csrc/ball_query.cu): the index-only ball query.
+
+`ball_query_group` has a gradient: its backward recomputes the indices
+with K11, as the JAX VJP replays `ball_query` (lion_tpu/ops/points.py:
+241-254), and scatter-adds the output gradient into the features, the
+point coordinates and (negated, summed over K) the centers.
 
 Each plain version computes squared distances op by op as
 ((dx*dx + dy*dy) + dz*dz), the order the kernels use with unfused
@@ -97,34 +103,57 @@ def gather(features: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# K2: ball query + grouping
+# K11: ball query
 # --------------------------------------------------------------------------
 def _r2(radius: float) -> float:
     """The squared radius as the JAX forms compute it: float32(r) ** 2."""
     return float(np.float32(radius) * np.float32(radius))
 
 
-def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
-               num_neighbors: int) -> torch.Tensor:
-    """centers (B, M, 3), points (B, N, 3) -> (B, M, K) int64 indices.
-
-    The first K points with d2 < r^2 in index order; partial rows repeat
-    the first hit, empty rows are all 0 (ball_query.cu semantics)."""
+def _ball_query_plain(centers: torch.Tensor, points: torch.Tensor,
+                      radius: float, num_neighbors: int) -> torch.Tensor:
+    """The top-k form: the first K keys, a point's key being its index if
+    it lies in the ball and N + its index if not (K > N pads with misses)."""
     n = points.shape[1]
     d2 = _sq_dist(centers.float(), points.float())           # (B, M, N)
     mask = d2 < _r2(radius)
     iota = torch.arange(n, device=points.device).expand_as(d2)
     key = torch.where(mask, iota, iota + n)
-    kth = torch.topk(key, num_neighbors, dim=-1, largest=False,
+    kth = torch.topk(key, min(num_neighbors, n), dim=-1, largest=False,
                      sorted=True).values
+    kth = torch.nn.functional.pad(kth, (0, num_neighbors - kth.shape[-1]),
+                                  value=n)
     valid = kth < n
     idx = torch.where(valid, kth, torch.zeros_like(kth))
-    return torch.where(valid, idx, idx[..., :1].expand_as(idx))
+    return torch.where(valid, idx, idx[..., :1].expand_as(idx)).to(
+        torch.int32)
 
 
+@kernel("ball_query", _ball_query_plain, "lion_tpu_torch/csrc/ball_query.cu",
+        "lion_tpu/ops/pallas/ball_query.py:56")
+def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
+               num_neighbors: int) -> torch.Tensor:
+    """centers (B, M, 3), points (B, N, 3) f32 -> (B, M, K) int32 indices.
+
+    The first K points with d2 < r^2 in index order; partial rows repeat
+    the first hit, empty rows are all 0 (ball_query.py:83-87)."""
+    check_cuda(centers, points)
+    b, m, _ = centers.shape
+    n = points.shape[1]
+    out = torch.empty((b, m, num_neighbors), dtype=torch.int32,
+                      device=centers.device)
+    launch("lion_ball_query", ptr(centers), ptr(points), ptr(out), b, n, m,
+           num_neighbors, _r2(radius), stream_of(centers))
+    return out
+
+
+# --------------------------------------------------------------------------
+# K2: ball query + grouping
+# --------------------------------------------------------------------------
 def _ball_query_group_plain(points_coords, centers_coords, points_features,
                             radius: float, num_neighbors: int):
-    idx = ball_query(centers_coords, points_coords, radius, num_neighbors)
+    idx = _ball_query_plain(centers_coords, points_coords, radius,
+                            num_neighbors)
     rel = grouping(points_coords.float(), idx) - centers_coords[:, :, None, :]
     feats = grouping(points_features.float(), idx)
     return torch.cat([rel, feats], dim=-1)
@@ -133,7 +162,7 @@ def _ball_query_group_plain(points_coords, centers_coords, points_features,
 @kernel("ball_query_group", _ball_query_group_plain,
         "lion_tpu_torch/csrc/ball_query_group.cu",
         "lion_tpu/ops/pallas/ball_query_group.py:283")
-def ball_query_group(points_coords: torch.Tensor,
+def ball_query_group_kernel(points_coords: torch.Tensor,
                      centers_coords: torch.Tensor,
                      points_features: torch.Tensor, radius: float,
                      num_neighbors: int) -> torch.Tensor:
@@ -149,3 +178,56 @@ def ball_query_group(points_coords: torch.Tensor,
            ptr(points_features), ptr(out), b, n, m, c, k, _r2(radius),
            stream_of(points_coords))
     return out
+
+
+def _scatter_rows(idx: torch.Tensor, rows: torch.Tensor, n: int):
+    """idx (B, R) long, rows (B, R, C) -> (B, n, C) float32 with
+    out[b, idx[b, r]] += rows[b, r] (the transpose of a row gather)."""
+    b, _, c = rows.shape
+    out = rows.new_zeros((b, n, c), dtype=torch.float32)
+    return out.scatter_add_(1, idx[:, :, None].expand(-1, -1, c),
+                            rows.float())
+
+
+class _BallQueryGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points_coords, centers_coords, points_features, radius,
+                num_neighbors):
+        ctx.save_for_backward(points_coords, centers_coords)
+        ctx.radius, ctx.k = radius, num_neighbors
+        ctx.n_feat = points_features.shape[-1]
+        ctx.dtypes = (points_coords.dtype, centers_coords.dtype,
+                      points_features.dtype)
+        return ball_query_group_kernel(points_coords, centers_coords,
+                                       points_features, radius,
+                                       num_neighbors)
+
+    @staticmethod
+    def backward(ctx, g):
+        points_coords, centers_coords = ctx.saved_tensors
+        b, n, _ = points_coords.shape
+        m, k = centers_coords.shape[1], ctx.k
+        idx = ball_query(centers_coords, points_coords, ctx.radius,
+                         k).reshape(b, m * k).long()
+        gp = gc = gf = None
+        g_xyz = g[..., :3]
+        if ctx.needs_input_grad[0]:
+            gp = _scatter_rows(idx, g_xyz.reshape(b, m * k, 3), n).to(
+                ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            gc = (-g_xyz.float().sum(dim=2)).to(ctx.dtypes[1])
+        if ctx.needs_input_grad[2]:
+            gf = _scatter_rows(idx, g[..., 3:].reshape(b, m * k, ctx.n_feat),
+                               n).to(ctx.dtypes[2])
+        return gp, gc, gf, None, None
+
+
+def ball_query_group(points_coords: torch.Tensor,
+                     centers_coords: torch.Tensor,
+                     points_features: torch.Tensor, radius: float,
+                     num_neighbors: int) -> torch.Tensor:
+    """points (B, N, 3), centers (B, M, 3), features (B, N, C) ->
+    (B, M, K, 3 + C): [center-relative xyz ++ features] per neighbour, with
+    gradients to all three inputs."""
+    return _BallQueryGroup.apply(points_coords, centers_coords,
+                                 points_features, radius, num_neighbors)

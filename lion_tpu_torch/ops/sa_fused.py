@@ -34,7 +34,7 @@ import torch
 
 from ._cuda import check_cuda, kernel, launch, ptr, stream_of
 from .conv3d import GN_EPS, GN_GROUPS
-from .points import _r2, ball_query
+from .points import _ball_query_plain, _r2
 
 ROWS = 128        # slot rows (centers x K) per block of the kernel
 MAX_WIDTH = 256
@@ -71,7 +71,8 @@ def _group_stats(z: torch.Tensor):
 def _sa_fused_plain(points, centers, a, bc, ws, bs, cas, cbs, radius, k):
     b, m = centers.shape[:2]
     c1 = a.shape[-1]
-    idx = ball_query(centers, points, radius, k).reshape(b, m * k)
+    idx = _ball_query_plain(centers, points, radius, k).reshape(
+        b, m * k).long()
     z = torch.gather(a, 1, idx[:, :, None].expand(-1, -1, c1))
     z = (z.reshape(b, m, k, c1) + bc[:, :, None, :]).to(torch.bfloat16)
     for layer, (ca, cb) in enumerate(zip(cas, cbs)):

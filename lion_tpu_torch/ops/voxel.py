@@ -10,6 +10,12 @@ Both take float32 or bfloat16 features and emit their dtype. K3 sums in
 float32 and rounds the mean once (lion_tpu/ops/voxel.py:61,92); K5 rounds
 each corner weight to the grid's dtype, as the JAX form casts its weights
 (voxel.py:249), accumulates the 8 products in float32 and rounds once.
+
+`avg_voxelize` and `trilinear_devoxelize` have gradients to the features
+and the grid, and none to the coordinates, as the JAX VJPs replay their
+XLA forms (lion_tpu/ops/voxel.py:149-161,208-218): voxelize's is a gather
+of g / count per point, devoxelize's a scatter-add of the 8 weighted
+corners into the grid's gradient.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ def _avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
 @kernel("avg_voxelize", _avg_voxelize_plain,
         "lion_tpu_torch/csrc/voxelize.cu",
         "lion_tpu/ops/pallas/voxelize.py:107")
-def avg_voxelize(features: torch.Tensor, vox_coords: torch.Tensor,
+def avg_voxelize_kernel(features: torch.Tensor, vox_coords: torch.Tensor,
                  resolution: int) -> torch.Tensor:
     """features (B, N, C) f32 or bf16, vox_coords (B, N, 3) int32 in
     [0, r) -> (B, R, R, R, C) of the features' dtype; a point outside the
@@ -73,6 +79,39 @@ def avg_voxelize(features: torch.Tensor, vox_coords: torch.Tensor,
     return out
 
 
+def _flat_cells(vox_coords: torch.Tensor, r: int) -> torch.Tensor:
+    v = vox_coords.long()
+    return (v[..., 0] * r + v[..., 1]) * r + v[..., 2]        # (B, N)
+
+
+class _AvgVoxelize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, vox_coords, resolution):
+        ctx.save_for_backward(vox_coords)
+        ctx.r, ctx.dtype = resolution, features.dtype
+        return avg_voxelize_kernel(features, vox_coords, resolution)
+
+    @staticmethod
+    def backward(ctx, g):
+        (vox_coords,) = ctx.saved_tensors
+        r = ctx.r
+        b, c = g.shape[0], g.shape[-1]
+        flat = _flat_cells(vox_coords, r)
+        count = torch.zeros((b, r ** 3), device=g.device).scatter_add_(
+            1, flat, torch.ones_like(flat, dtype=torch.float32))
+        rows = torch.gather(g.reshape(b, r ** 3, c).float(), 1,
+                            flat[:, :, None].expand(-1, -1, c))
+        gf = rows / torch.gather(count, 1, flat)[:, :, None]
+        return gf.to(ctx.dtype), None, None
+
+
+def avg_voxelize(features: torch.Tensor, vox_coords: torch.Tensor,
+                 resolution: int) -> torch.Tensor:
+    """features (B, N, C), vox_coords (B, N, 3) int32 in [0, r) ->
+    (B, R, R, R, C), with a gradient to the features."""
+    return _AvgVoxelize.apply(features, vox_coords, resolution)
+
+
 def voxelize(features: torch.Tensor, coords: torch.Tensor, resolution: int):
     """features (B, N, C), coords (B, N, 3) ->
     (grid (B, R, R, R, C), norm_coords (B, N, 3) in [0, r-1])."""
@@ -86,17 +125,16 @@ def voxelize(features: torch.Tensor, coords: torch.Tensor, resolution: int):
 # --------------------------------------------------------------------------
 # K5: trilinear devoxelization
 # --------------------------------------------------------------------------
-def _trilinear_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
-                                resolution: int) -> torch.Tensor:
-    r = resolution
-    b, c = grid.shape[0], grid.shape[-1]
-    flat_grid = grid.reshape(b, r ** 3, c)
+def _corners(norm_coords: torch.Tensor, r: int, dtype: torch.dtype):
+    """The 8 trilinear corners of each point, in the order (dx, dy, dz) =
+    (0,0,0), (0,0,1), ..., (1,1,1): flat cell indices (B, N) and weights
+    (B, N) (wx * wy) * wz rounded to `dtype`, as float32."""
     coords = norm_coords.detach().float()
     lo = torch.floor(coords)
     frac = coords - lo
     lo_i = lo.long()
     hi_i = lo_i + (frac > 0).long()  # hi collapses onto lo when frac == 0
-    out = torch.zeros((b, coords.shape[1], c), device=grid.device)
+    out = []
     for dx in (0, 1):
         wx = frac[..., 0] if dx else 1.0 - frac[..., 0]
         ix = hi_i[..., 0] if dx else lo_i[..., 0]
@@ -106,18 +144,27 @@ def _trilinear_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
             for dz in (0, 1):
                 wz = frac[..., 2] if dz else 1.0 - frac[..., 2]
                 iz = hi_i[..., 2] if dz else lo_i[..., 2]
-                idx = (ix * r + iy) * r + iz                  # (B, N)
-                corner = torch.gather(flat_grid, 1,
-                                      idx[:, :, None].expand(-1, -1, c))
-                w = (wx * wy * wz).to(grid.dtype).float()
-                out = out + corner.float() * w[:, :, None]
+                out.append(((ix * r + iy) * r + iz,
+                            (wx * wy * wz).to(dtype).float()))
+    return out
+
+
+def _trilinear_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
+                                resolution: int) -> torch.Tensor:
+    r = resolution
+    b, c = grid.shape[0], grid.shape[-1]
+    flat_grid = grid.reshape(b, r ** 3, c)
+    out = torch.zeros((b, norm_coords.shape[1], c), device=grid.device)
+    for idx, w in _corners(norm_coords, r, grid.dtype):
+        corner = torch.gather(flat_grid, 1, idx[:, :, None].expand(-1, -1, c))
+        out = out + corner.float() * w[:, :, None]
     return out.to(grid.dtype)
 
 
 @kernel("trilinear_devoxelize", _trilinear_devoxelize_plain,
         "lion_tpu_torch/csrc/devoxelize.cu",
         "lion_tpu/ops/pallas/devox.py:117")
-def trilinear_devoxelize(grid: torch.Tensor, norm_coords: torch.Tensor,
+def trilinear_devoxelize_kernel(grid: torch.Tensor, norm_coords: torch.Tensor,
                          resolution: int) -> torch.Tensor:
     """grid (B, R, R, R, C) f32 or bf16, norm_coords (B, N, 3) f32 ->
     (B, N, C) of the grid's dtype."""
@@ -130,3 +177,31 @@ def trilinear_devoxelize(grid: torch.Tensor, norm_coords: torch.Tensor,
     launch("lion_trilinear_devoxelize", ptr(grid), ptr(norm_coords), ptr(out),
            b, n, c, resolution, int(dt == torch.bfloat16), stream_of(grid))
     return out
+
+
+class _TrilinearDevoxelize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, grid, norm_coords, resolution):
+        ctx.save_for_backward(norm_coords)
+        ctx.r, ctx.dtype = resolution, grid.dtype
+        return trilinear_devoxelize_kernel(grid, norm_coords, resolution)
+
+    @staticmethod
+    def backward(ctx, g):
+        (norm_coords,) = ctx.saved_tensors
+        r = ctx.r
+        b, n, c = g.shape
+        corners = _corners(norm_coords, r, ctx.dtype)
+        idx = torch.cat([i for i, _ in corners], dim=1)       # (B, 8N)
+        w = torch.cat([w for _, w in corners], dim=1)
+        rows = g.float().repeat(1, 8, 1) * w[:, :, None]
+        grad = torch.zeros((b, r ** 3, c), device=g.device).scatter_add_(
+            1, idx[:, :, None].expand(-1, -1, c), rows)
+        return grad.reshape(b, r, r, r, c).to(ctx.dtype), None, None
+
+
+def trilinear_devoxelize(grid: torch.Tensor, norm_coords: torch.Tensor,
+                         resolution: int) -> torch.Tensor:
+    """grid (B, R, R, R, C), norm_coords (B, N, 3) -> (B, N, C), with a
+    gradient to the grid."""
+    return _TrilinearDevoxelize.apply(grid, norm_coords, resolution)

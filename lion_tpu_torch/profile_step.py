@@ -1,6 +1,8 @@
-"""Device-time breakdown of the denoise steps of both priors on one GPU.
+"""Device-time breakdown of the denoise steps of both priors, or of the
+two-prior training step, on one GPU.
 
     python -m lion_tpu_torch.profile_step [--batch 4] [--steps 5] [--bf16]
+    python -m lion_tpu_torch.profile_step --train [--batch 16] [--steps 3]
 
 Builds the flagship LION (fp32, or with `tpu.bf16 = True` under --bf16;
 random weights from a seed), warms up, then
@@ -9,6 +11,12 @@ records `--steps` ancestral steps of the local prior and of the global prior
 For each prior it prints the wall ms per step, the summed device ms per
 step, the device's busy share (device time over wall time; the step runs on
 one stream) and the device time by kernel name, largest first.
+
+With --train it profiles `--steps` calls of `make_prior_train_step` (fp32,
+dropout on) in three windows: the frozen encode alone, the loss forward
+alone, and the whole step. K10's forward time is its time in the forward
+window; K10-dx is the rest of its time in the step (the same kernel runs
+both); the encode's kernels are those of the encode window.
 """
 import argparse
 
@@ -26,25 +34,40 @@ _OURS = {"fps_kernel": "fps", "bqg_kernel": "ball_query_group",
          "sa_first_kernel": "sa_fused", "sa_stats_kernel": "sa_fused",
          "sa_dense_kernel": "sa_fused", "sa_max_kernel": "sa_fused",
          "pair_conv_kernel": "conv3d_pair",
-         "pvblock_kernel": "pvconv_block_pair"}
+         "pvblock_kernel": "pvconv_block_pair", "bq_kernel": "ball_query"}
+# K4's fp32 kernel without statistics is K10 (the training conv)
+_K10 = "conv3d_kernel<false, false, false>"
 
 
 def _group(name: str) -> str:
+    if _K10 in name:
+        return "K conv3d_3x3_same"
     for k, v in _OURS.items():
         if k in name:
             return f"K {v}"
-    if "gemm" in name or "cutlass" in name or "gemv" in name:
+    low = name.lower()
+    if "wgrad" in low:
+        return "cuDNN wgrad"
+    if "conv" in low or "xmma" in low or "cudnn" in low:
+        return "cuDNN other"
+    if "multi_tensor" in low or "foreach" in low or "adam" in low:
+        return "optimizer + EMA (foreach)"
+    if "scatter" in low or "gather" in low or "index" in low:
+        return "torch scatter/gather"
+    if "gemm" in low or "cutlass" in low or "gemv" in low:
         return "cuBLAS matmul"
-    if "reduce" in name.lower():
+    if "reduce" in low:
         return "torch reductions"
-    if "elementwise" in name.lower() or "vectorized" in name.lower():
+    if "elementwise" in low or "vectorized" in low:
         return "torch elementwise"
     return "torch other: " + name[:60]
 
 
-def profile_steps(step, steps: int, label: str) -> None:
+def _device_groups(fn, steps: int):
+    """(wall ms per call, {group: [device ms per call, ops per call]}) of
+    `steps` calls of fn under torch.profiler, after two warm-up calls."""
     for _ in range(2):
-        step()
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -52,10 +75,9 @@ def profile_steps(step, steps: int, label: str) -> None:
                              ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(steps):
-            step()
+            fn()
         end.record()
         torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / steps
     groups = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0.0)
@@ -63,6 +85,58 @@ def profile_steps(step, steps: int, label: str) -> None:
             g = groups.setdefault(_group(ev.key), [0.0, 0])
             g[0] += dev_us / 1e3 / steps
             g[1] += ev.count // steps
+    return start.elapsed_time(end) / steps, groups
+
+
+def profile_train(batch: int, steps: int) -> None:
+    from .config import flagship_cfg
+    from .models import LION
+    from .trainers import (make_prior_train_step, prior_loss,
+                           warmup_cosine_schedule)
+    lion = LION(flagship_cfg()).init_params(torch.Generator().manual_seed(0))
+    step = make_prior_train_step(
+        lion, warmup_cosine_schedule(2e-4, 2e-4, 10, 10, 1, 10))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(batch, lion.num_points, 3, generator=gen,
+                    device="cuda") * 0.3
+    print(f"[setup] {torch.cuda.get_device_name(0)}, train step, batch "
+          f"{batch}, fp32, {steps} profiled steps per window")
+
+    lion.vae.eval()   # frozen, as the step runs it
+
+    def encode():
+        with torch.no_grad():
+            lion.vae.encode(x, gen)
+
+    def forward():
+        prior_loss(lion, x, gen)
+
+    wall_e, enc = _device_groups(encode, steps)
+    wall_f, fwd = _device_groups(forward, steps)
+    wall_s, full = _device_groups(lambda: step(x, gen), steps)
+    busy = sum(v[0] for v in full.values())
+    k10 = full.get("K conv3d_3x3_same", [0.0, 0])
+    k10_fwd = fwd.get("K conv3d_3x3_same", [0.0, 0])
+    print(f"[train] step: wall {wall_s:.3f} ms, device {busy:.3f} ms, busy "
+          f"share {busy / wall_s:.3f}, "
+          f"{sum(v[1] for v in full.values())} device ops; "
+          f"{batch / wall_s * 1e3:.3f} samples/s under the profiler")
+    print(f"[train] encode window: wall {wall_e:.3f} ms, device "
+          f"{sum(v[0] for v in enc.values()):.3f} ms; forward window: wall "
+          f"{wall_f:.3f} ms, device {sum(v[0] for v in fwd.values()):.3f} ms")
+    print(f"[train]   {k10_fwd[0]:8.3f} ms  {k10_fwd[1]:5d} ops  K10 forward")
+    print(f"[train]   {k10[0] - k10_fwd[0]:8.3f} ms  "
+          f"{k10[1] - k10_fwd[1]:5d} ops  K10 dx")
+    enc_ours = {k: v for k, v in enc.items() if k.startswith("K ")}
+    print(f"[train]   {sum(v[0] for v in enc_ours.values()):8.3f} ms  "
+          f"{sum(v[1] for v in enc_ours.values()):5d} ops  the encode's "
+          f"kernels ({', '.join(sorted(enc_ours))})")
+    for name, (ms, n) in sorted(full.items(), key=lambda kv: -kv[1][0]):
+        print(f"[train]   {ms:8.3f} ms  {n:5d} ops  {name} (whole step)")
+
+
+def profile_steps(step, steps: int, label: str) -> None:
+    wall, groups = _device_groups(step, steps)
     busy = sum(v[0] for v in groups.values())
     print(f"[{label}] wall {wall:.3f} ms/step, device {busy:.3f} ms/step, "
           f"busy share {busy / wall:.3f}, "
@@ -78,17 +152,22 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--bf16", action="store_true",
                     help="the bf16 configuration (tpu.bf16 = True)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the two-prior training step (fp32)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.train:
+        profile_train(args.batch, args.steps)
+        return
 
     from .config import flagship_cfg
     from .models import LION
     cfg = flagship_cfg()
     cfg.tpu.bf16 = args.bf16
-    lion = LION(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(0)).eval()
     g = torch.Generator(device="cuda").manual_seed(0)
     b = args.batch
     z_global = torch.randn(b, lion.style_dim, generator=g, device="cuda")

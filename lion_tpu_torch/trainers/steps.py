@@ -1,0 +1,175 @@
+"""The stage-2 two-prior training step (port of `make_prior_train_step`,
+lion_tpu/trainers/steps.py:71-295, the released path).
+
+One step, on a `LION` whose VAE is frozen:
+  1. the VAE encodes x in eval mode without gradients (the fused eval flow,
+     K1-K6) into eps = [z_global, z_local];
+  2. one t ~ U{1..T} per item, shared by both priors;
+  3. each latent is noised with `sample_q`;
+  4. the global and the local prior run in train mode (dropout, the PVConv
+     modular flow on K10, gradients through K2/K11, K3, K5 and K6);
+  5. mixed prediction where `sde.mixed_prediction` is set;
+  6. loss = mean((pred - noise)^2) per latent, summed over the two;
+  7. backward; Adam on the warmup-cosine schedule; the EMA; the
+     `bound_mlogit` clamp of both mixing logits.
+
+Every random number (the encoder's posterior noise, t, the two diffusion
+noises, every dropout mask) comes from the `torch.Generator` the caller
+passes; the step hands it to the Dropout modules of both priors
+(`set_dropout_generator`). Any of the first four may be given instead, so a
+test can feed both packages the same numbers. Float32 matmuls and cuDNN
+convolutions run in full float32 inside the step (`no_tf32`), whatever the
+global flags say.
+
+Not ported, each raising NotImplementedError: continuous diffusion, the
+weighted objective with its SN / Jacobian / kinetic regularizers
+(`pvd_mse_loss = 0`), class and CLIP conditioning, bf16 training (ROADMAP
+Queue 1 items 9, 10 and 12).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from ..config.view import as_view
+from ..diffusion.discrete import get_mixed_prediction
+from ..models.lion import LION, resolve_device
+from ..nn.common import set_dropout_generator
+from ..ops._cuda import no_tf32
+from .optim import EMA, Optimizer, warmup_cosine_schedule
+
+
+def check_supported(cfg) -> None:
+    """Raise NotImplementedError for what the port's step does not run."""
+    cfg = as_view(cfg)
+    if cfg.sde.ode_sample:
+        raise NotImplementedError("continuous diffusion training is not "
+                                  "ported (ROADMAP Queue 1 item 9)")
+    if not cfg.latent_pts.pvd_mse_loss:
+        raise NotImplementedError(
+            "the weighted objective with SN / Jacobian / kinetic "
+            "regularizers (pvd_mse_loss = 0) is not ported (ROADMAP Queue 1 "
+            "item 10)")
+    if cfg.data.cond_on_cat or cfg.clipforge.enable:
+        raise NotImplementedError("class and CLIP conditioning are not "
+                                  "ported (ROADMAP Queue 1 item 12)")
+    if cfg.sde.autocast_train or ("tpu" in cfg and cfg.tpu.bf16):
+        raise NotImplementedError("bf16 training is not ported (ROADMAP "
+                                  "Queue 1 item 10)")
+
+
+def prior_loss(lion: LION, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None, *,
+               rho: Optional[Sequence[torch.Tensor]] = None,
+               timestep: Optional[torch.Tensor] = None,
+               noise: Optional[Sequence[torch.Tensor]] = None):
+    """The two-prior loss of x (B, N, 3): returns (loss, metrics) with
+    metrics {"loss", "train/p_loss_0", "train/p_loss_1"} (0-d tensors).
+
+    Draws from `generator` (on x's device) in this order: the encoder's two
+    posterior noises unless `rho = (rho_global, rho_local)` is given, t
+    unless `timestep` (B,) is given, the two diffusion noises unless
+    `noise = (noise_global, noise_local)` is given, then the dropout masks
+    of the global prior and of the local prior. Puts the VAE in eval mode
+    and the priors in train mode."""
+    check_supported(lion.cfg)
+    b, dev = x.shape[0], x.device
+    lion.vae.eval()
+    lion.global_prior.train()
+    lion.local_prior.train()
+    set_dropout_generator(lion.global_prior, generator)
+    set_dropout_generator(lion.local_prior, generator)
+    with torch.no_grad():
+        eps, _, _ = lion.vae.encode(x, generator, rho)
+    eps = eps.float()
+    eps_global, eps_local = eps[:, :lion.style_dim], eps[:, lion.style_dim:]
+    diffusion = lion.diffusion
+    t, var_t, m_t = diffusion.iw_quantities(
+        b, generator, None if timestep is None else timestep.to(dev))
+    if noise is None:
+        noise = tuple(torch.randn(e.shape, generator=generator, device=dev)
+                      for e in (eps_global, eps_local))
+    metrics: Dict[str, torch.Tensor] = {}
+    losses = []
+    for i, (prior, eps_i, noise_i) in enumerate(
+            ((lion.global_prior, eps_global, noise[0]),
+             (lion.local_prior, eps_local, noise[1]))):
+        eps_t = diffusion.sample_q(eps_i, noise_i, var_t, m_t)
+        if i == 0:
+            pred = prior(eps_t, t.float())
+        else:   # global2style is the identity
+            pred = prior(eps_t, t.float(), condition_input=eps_global)
+        pred = pred.float()
+        if lion.mixed_prediction:
+            pred = get_mixed_prediction(
+                pred, prior.mixing_logit,
+                diffusion.get_mixing_component(eps_t, t))
+        p_loss = torch.mean(torch.square(pred - noise_i))
+        metrics[f"train/p_loss_{i}"] = p_loss
+        losses.append(p_loss)
+    loss = losses[0] + losses[1]
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+class PriorTrainStep:
+    """One optimizer step of both priors per call (`__call__`), with the
+    optimizer, the EMA copy and the mixing-logit clamp of the JAX step.
+    `optimizer.count` is the JAX TrainState's `step`."""
+
+    def __init__(self, lion: LION, lr_schedule: Callable[[int], float]):
+        cfg = as_view(lion.cfg)
+        check_supported(cfg)
+        self.lion = lion
+        self.params = (list(lion.global_prior.parameters())
+                       + list(lion.local_prior.parameters()))
+        opt = cfg.trainer.opt
+        self.optimizer = Optimizer(
+            self.params, lr_schedule, opt.beta1, opt.beta2, opt.weight_decay,
+            cfg.sde.grad_clip_max_norm)
+        decay = float(cfg.sde.ema_decay)
+        self.ema = EMA(self.params, decay) if decay > 0 else None
+        self.bound_mlogit = (bool(cfg.sde.bound_mlogit)
+                             and lion.mixed_prediction)
+        self.bound_mlogit_value = float(cfg.sde.bound_mlogit_value)
+
+    def __call__(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, **draws):
+        """x (B, N, 3) on the model's device -> metrics (0-d tensors, not
+        synchronised); `draws` are `prior_loss`'s given draws."""
+        self.optimizer.zero_grad()
+        with no_tf32():
+            loss, metrics = prior_loss(self.lion, x, generator, **draws)
+            loss.backward()
+        self.optimizer.step()
+        if self.ema is not None:
+            self.ema.update()
+        if self.bound_mlogit:
+            with torch.no_grad():
+                for prior in (self.lion.global_prior, self.lion.local_prior):
+                    prior.mixing_logit.clamp_(max=self.bound_mlogit_value)
+        return {k: v.detach() for k, v in metrics.items()}
+
+
+def default_lr_schedule(cfg, steps_per_epoch: int = 1):
+    """The schedule train_2prior.py builds: warmup over sde.warmup_epochs
+    epochs, then cosine from sde.learning_rate_dae to learning_rate_min_dae
+    (lion_tpu/trainers/train_2prior.py:122-128)."""
+    cfg = as_view(cfg)
+    return warmup_cosine_schedule(
+        cfg.sde.learning_rate_dae, cfg.sde.learning_rate_min_dae,
+        steps_per_epoch * cfg.sde.warmup_epochs, cfg.sde.epochs,
+        cfg.sde.warmup_epochs, steps_per_epoch)
+
+
+def make_prior_train_step(lion: LION,
+                          lr_schedule: Optional[Callable[[int], float]] = None,
+                          device="cuda") -> PriorTrainStep:
+    """The two-prior training step of `lion`, moved to `device` (the card
+    unless the caller asks for "cpu"; without CUDA the default raises).
+    `lr_schedule` defaults to `default_lr_schedule(lion.cfg)`."""
+    lion.to(resolve_device(device))
+    if lr_schedule is None:
+        lr_schedule = default_lr_schedule(lion.cfg)
+    return PriorTrainStep(lion, lr_schedule)

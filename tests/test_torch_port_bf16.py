@@ -257,7 +257,7 @@ def test_bf16_pvconv_matches_lion_tpu(r, c, n, kernel):
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), *args)
     want = _np32(jax.jit(jm.apply)(params, *args))
     m = _load(PVConv(c, c, r, ada=True, init_scale=0.5, dtype=BF16),
-              params["params"])
+              params["params"]).eval()
     ops.reset_counts()
     with torch.no_grad():
         got = m(_t(feats, BF16), _t(xyz), _t(style))
@@ -280,7 +280,7 @@ def test_bf16_sa_module_matches_lion_tpu():
     params = jax.jit(jm.init)(jax.random.PRNGKey(1), *args)
     want_f, want_c = jax.jit(jm.apply)(params, *args)
     m = _load(PointNetSAModule(64, 0.2, 32, 24, (32, 48), ada=True,
-                               dtype=BF16), params["params"])
+                               dtype=BF16), params["params"]).eval()
     ops.reset_counts()
     with torch.no_grad():
         got_f, got_c = m(_t(feats, BF16), _t(xyz), _t(style))
@@ -303,9 +303,9 @@ def test_flagship_local_prior_bf16_matches_lion_tpu_and_fp32():
     from test_torch_port_sample import to_jax_tree
     cfg = flagship_cfg()
     cfg.tpu.bf16 = True
-    m16 = LocalPrior(cfg)
+    m16 = LocalPrior(cfg).eval()
     init_weights(m16, torch.Generator().manual_seed(0))
-    m32 = LocalPrior(flagship_cfg())
+    m32 = LocalPrior(flagship_cfg()).eval()
     m32.load_state_dict(m16.state_dict())
     jcfg = __graft_entry__._flagship_cfg()
     jcfg.tpu.bf16 = True
@@ -348,9 +348,9 @@ def test_bf16_lion_loads_jax_params_and_samples_like_lion_tpu():
     cfg.tpu.bf16 = True
     jcfg = tiny_cfg(jax_default_cfg(), N, STEPS)
     jcfg.tpu.bf16 = True
-    params = to_jax_tree(LION(cfg).init_params(
+    params = to_jax_tree(LION(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0)))
-    lion = LION(cfg).load_jax_params(params)
+    lion = LION(cfg, device="cpu").load_jax_params(params)
     assert all(p.dtype == torch.float32 for p in lion.parameters())
     jlion = JaxLION(jcfg)
     jlion.params = jax.tree_util.tree_map(jnp.asarray, params)

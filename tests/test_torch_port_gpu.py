@@ -262,3 +262,115 @@ def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(gen):
     args[4] = [w.float() for w in args[4]]
     with pytest.raises(TypeError):
         ops.sa_fused(*args)
+
+
+# ------------------------------------------------------- training slice
+def _flip(w):
+    """The dx form's weights: taps flipped, Ci and Co swapped."""
+    return w.flip(0, 1, 2).transpose(3, 4).contiguous()
+
+
+@pytest.mark.parametrize("r", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("ci,co", [(3, 4), (4, 96), (96, 192), (192, 3)])
+def test_conv3d_same_kernel(gen, r, ci, co):
+    """K10 forward, and the dx form: the output gradient through the
+    flipped, channel-transposed weights."""
+    x = _randn(gen, 2, r, r, r, ci)
+    w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+    g = _randn(gen, 2, r, r, r, co)
+    # fp32 sums of 27*Ci (27*Co) terms in another order (cuDNN, TF32 off)
+    for inp, wt in ((x, w), (g, _flip(w))):
+        got, ref = _both("conv3d_3x3_same", inp, wt)
+        assert got.shape == inp.shape[:4] + (wt.shape[-1],)
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,m,k,r", [(128, 24, 8, 0.2), (300, 37, 64, 0.5),
+                                     (2048, 1000, 32, 0.1), (50, 5, 64, 2.0),
+                                     (1024, 256, 32, 0.2)])
+def test_ball_query_kernel(gen, n, m, k, r):
+    """Empty balls, partial balls, K above the cloud's size, M not a
+    multiple of the block's 8 centers."""
+    pts = _randn(gen, 2, n, 3, scale=0.3)
+    ctr = pts[:, :m].clone()
+    ctr[:, 0] = 5.0                                # an empty ball
+    got, ref = _both("ball_query", ctr, pts, r, k)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert (got[:, 0] == 0).all()
+
+
+def test_three_nn_kernel_weights_output(gen):
+    p = _randn(gen, 2, 2048, 3, scale=0.3)
+    ctr = _randn(gen, 2, 1024, 3, scale=0.3)
+    f = _randn(gen, 2, 1024, 64)
+    got, ref = _both("three_nn_interpolate", p, ctr, f, with_weights=True)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _grads_on_card_and_cpu(fn, *inputs, grad_out):
+    """fn's outputs and the gradients of its float inputs that require
+    one, on the card and on the CPU (plain versions), with one cotangent."""
+    runs = []
+    for dev in ("cuda", "cpu"):
+        xs = [t.detach().to(dev).requires_grad_(t.requires_grad)
+              if t.is_floating_point() else t.to(dev) for t in inputs]
+        out = fn(*xs)
+        out.backward(grad_out.to(dev))
+        runs.append((out.detach().cpu(),
+                     [t.grad.cpu() for t in xs if t.grad is not None]))
+    return runs
+
+
+def test_training_ops_backward_on_card_matches_cpu(gen):
+    """Every autograd.Function of the training path, forward and backward,
+    on the card against the CPU."""
+    ops.reset_counts()
+    # K10: dx by K10, dw by cuDNN's weight gradient
+    x = _randn(gen, 2, 8, 8, 8, 4).requires_grad_(True)
+    w = _randn(gen, 3, 3, 3, 4, 32, scale=(27 * 4) ** -0.5).requires_grad_(
+        True)
+    (y, gs), (yr, gr) = _grads_on_card_and_cpu(
+        ops.conv3d_3x3_same, x, w, grad_out=_randn(gen, 2, 8, 8, 8, 32))
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    for a, b in zip(gs, gr):   # sums over 2 * 8^3 voxels for dw
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    # K2 forward, K11 in the backward; gradients to all three inputs
+    pts = _randn(gen, 2, 512, 3, scale=0.3).requires_grad_(True)
+    ctr = (pts[:, :64].detach() + 0.01).requires_grad_(True)
+    feats = _randn(gen, 2, 512, 16).requires_grad_(True)
+    (o, gs), (orf, gr) = _grads_on_card_and_cpu(
+        lambda p, c, f: ops.ball_query_group(p, c, f, 0.2, 32), pts, ctr,
+        feats, grad_out=_randn(gen, 2, 64, 32, 19))
+    assert torch.equal(o, orf) and len(gs) == 3
+    for a, b in zip(gs, gr):   # scatter-adds with atomics in any order
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    # K3 and K5 with their transposes
+    nc = voxel.normalize_coords(pts.detach(), 16).contiguous()
+    vox = torch.round(nc).to(torch.int32)
+    (o, gs), (orf, gr) = _grads_on_card_and_cpu(
+        lambda f: ops.avg_voxelize(f, vox.to(f.device), 16), feats,
+        grad_out=_randn(gen, 2, 16, 16, 16, 16))
+    torch.testing.assert_close(o, orf, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gs[0], gr[0], rtol=1e-6, atol=1e-6)
+    grid = _randn(gen, 2, 16, 16, 16, 8).requires_grad_(True)
+    (o, gs), (orf, gr) = _grads_on_card_and_cpu(
+        lambda gg: ops.trilinear_devoxelize(gg, nc.to(gg.device), 16), grid,
+        grad_out=_randn(gen, 2, 512, 8))
+    assert torch.equal(o, orf)
+    torch.testing.assert_close(gs[0], gr[0], rtol=1e-5, atol=1e-5)
+    # K6 with its (idx, w) output; the backward needs no distance matrix
+    cf = _randn(gen, 2, 64, 24).requires_grad_(True)
+    (o, gs), (orf, gr) = _grads_on_card_and_cpu(
+        lambda f: ops.nearest_neighbor_interpolate(
+            pts.detach().to(f.device), ctr.detach().to(f.device), f), cf,
+        grad_out=_randn(gen, 2, 512, 24))
+    assert torch.equal(o, orf)
+    torch.testing.assert_close(gs[0], gr[0], rtol=1e-5, atol=1e-5)
+    for name in ("conv3d_3x3_same", "ball_query_group", "ball_query",
+                 "avg_voxelize", "trilinear_devoxelize",
+                 "three_nn_interpolate"):
+        w_ = ops.KERNELS[name]
+        # the card's runs launched the kernels; the plain calls are the
+        # CPU runs', one per launch
+        assert w_.launches > 0 and w_.launches == w_.plain_calls, name

@@ -65,7 +65,7 @@ def test_pvconv_eval_flow_matches_jax(ada, attention):
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), *args)
     want = jax.jit(jm.apply)(params, *args)
     m = _load(PVConv(cin, cout, r, attention=attention, ada=ada,
-                     init_scale=0.5), params["params"])
+                     init_scale=0.5), params["params"]).eval()
     f, x, s = _t(feats, xyz, style)
     with torch.no_grad():
         got = m(f, x, s if ada else None)
@@ -102,7 +102,7 @@ def test_sa_module_matches_jax():
     params = jax.jit(jm.init)(jax.random.PRNGKey(1), *args)
     want_f, want_c = jax.jit(jm.apply)(params, *args)
     m = _load(PointNetSAModule(m_centers, 0.3, k, cin, (16, 24), ada=True),
-              params["params"])
+              params["params"]).eval()
     with torch.no_grad():
         got_f, got_c = m(*_t(feats, xyz, style))
     np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
@@ -153,7 +153,7 @@ def test_unet_matches_jax():
     jm = JUnet(**spec, use_att=True, ada=True)
     args = (jnp.asarray(x), jnp.asarray(t), jnp.asarray(style))
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), *args))
-    m = PVCNN2Unet(**spec)
+    m = PVCNN2Unet(**spec).eval()
     init_weights(m, torch.Generator().manual_seed(1))
     assert_same_params(m, shapes["params"])
     want = jax.jit(jm.apply)({"params": to_jax_tree(m)}, *args)
@@ -172,7 +172,7 @@ def test_global_prior_matches_jax(mixed):
                               jnp.asarray(t))
     want = jax.jit(jm.apply)(params, jnp.asarray(x), jnp.asarray(t))
     m = _load(GlobalPrior(STYLE, nf=64, num_blocks=2, embedding_dim=16,
-                          mixed_prediction=mixed), params["params"])
+                          mixed_prediction=mixed), params["params"]).eval()
     assert (m.mixing_logit is not None) == mixed
     with torch.no_grad():
         got = m(*_t(x, t))
@@ -188,7 +188,7 @@ def test_local_prior_matches_jax():
     args = (jnp.asarray(x), jnp.asarray(t))
     shapes = jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), *args, condition_input=jnp.asarray(cond)))
-    m = LocalPrior(cfg)
+    m = LocalPrior(cfg).eval()
     init_weights(m, torch.Generator().manual_seed(2))
     assert_same_params(m, shapes["params"])
     want = jax.jit(lambda p, a, b, c: jm.apply(p, a, b, condition_input=c))(

@@ -19,7 +19,6 @@ import jax.numpy as jnp
 
 from lion_tpu.config import get_default_cfg as jax_default_cfg
 from lion_tpu.models import LION as JaxLION
-from lion_tpu.models.vae import VAE as JaxVAE
 
 from lion_tpu_torch.config import flagship_cfg, get_default_cfg
 from lion_tpu_torch.diffusion import DiffusionDiscretized
@@ -80,8 +79,8 @@ def assert_same_params(module: torch.nn.Module, jax_tree) -> None:
 
 
 def jax_param_shapes(lion):
-    """Abstract (traced, not compiled) params of what sampling runs: the
-    priors and the VAE decoder."""
+    """Abstract (traced, not compiled) params of the whole JAX LION: the
+    priors and the VAE with its encoders and decoder."""
     def init_all():
         k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
         t = jnp.ones((1,))
@@ -89,8 +88,8 @@ def jax_param_shapes(lion):
         lp = lion.local_prior.init(
             k2, jnp.zeros((1, lion.local_dim)), t,
             condition_input=jnp.zeros((1, lion.style_dim)))
-        vae = lion.vae.init({"params": k3, "sample": k3}, 1,
-                            method=JaxVAE.sample)
+        x = jnp.zeros((1, lion.num_points, lion.cfg.ddpm.input_dim))
+        vae = lion.vae.init({"params": k3, "sample": k3}, x)
         return {"vae": vae["params"], "global_prior": gp["params"],
                 "local_prior": lp["params"]}
     return jax.eval_shape(init_all)
@@ -124,14 +123,14 @@ def test_sample_matches_lion_tpu_with_shared_noise():
     """Port-initialized weights cross to the JAX package as a flax tree
     (whose names and shapes must be the JAX init's) and back through
     load_jax_params."""
-    lion = LION(tiny_cfg(get_default_cfg(), N, STEPS)).init_params(
-        torch.Generator().manual_seed(0))
+    lion = LION(tiny_cfg(get_default_cfg(), N, STEPS),
+                device="cpu").init_params(torch.Generator().manual_seed(0))
     params = to_jax_tree(lion)
     jlion = JaxLION(tiny_cfg(jax_default_cfg(), N, STEPS))
     assert_same_params(lion, jax_param_shapes(jlion))
     jlion.params = jax.tree_util.tree_map(jnp.asarray, params)
-    lion = LION(tiny_cfg(get_default_cfg(), N, STEPS)).load_jax_params(
-        params)
+    lion = LION(tiny_cfg(get_default_cfg(), N, STEPS),
+                device="cpu").load_jax_params(params)
 
     rs = np.random.RandomState(11)
     b = 2
@@ -167,7 +166,8 @@ def test_flagship_sample_matches_lion_tpu():
     cfg = flagship_cfg()
     cfg.ddpm.num_steps = 2
     assert cfg.to_dict() == jcfg.to_dict()
-    lion = LION(cfg).init_params(torch.Generator().manual_seed(0))
+    lion = LION(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
     jlion = JaxLION(jcfg)
     jlion.params = jax.tree_util.tree_map(jnp.asarray, to_jax_tree(lion))
 
@@ -219,7 +219,8 @@ def test_ancestral_chain_matches_lion_tpu(mixed):
 
 def test_sample_chunked_equals_sample():
     cfg = tiny_cfg(get_default_cfg(), N, STEPS)
-    lion = LION(cfg).init_params(torch.Generator().manual_seed(3))
+    lion = LION(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(3))
     a = lion.sample(2, generator=torch.Generator().manual_seed(5))
     c = lion.sample_chunked(2, generator=torch.Generator().manual_seed(5),
                             chunks=5)
@@ -231,7 +232,8 @@ def test_sample_chunked_equals_sample():
 
 def test_import_leaves_jax_out():
     code = ("import sys, lion_tpu_torch, lion_tpu_torch.models, "
-            "lion_tpu_torch.ops, lion_tpu_torch.ckpt;"
+            "lion_tpu_torch.ops, lion_tpu_torch.ckpt, "
+            "lion_tpu_torch.trainers;"
             "bad = [m for m in ('jax', 'flax', 'lion_tpu') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
