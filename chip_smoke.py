@@ -1,15 +1,18 @@
 """Smoke test of the PyTorch/CUDA port (lion_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps 100]
+    python3 chip_smoke.py [--steps 100] [--eval-n 0]
 
 Phases, each printing its results; any failure raises and the script exits
 non-zero:
   1. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off for matmuls and cuDNN.
-  2. build: compiles the eleven CUDA kernels from lion_tpu_torch/csrc.
+  2. build: compiles the thirteen CUDA kernels from lion_tpu_torch/csrc.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main paths' shapes (batch 16), fp32 and bf16, with times
-     from CUDA events (and cuDNN's bf16 conv beside K4's bf16 variant).
+     from CUDA events (and cuDNN's bf16 conv beside K4's bf16 variant);
+     K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
+     2048-point clouds, N != M both ways and a permuted copy; K13's
+     backward against K2's backward of the permuted gradient.
   4. forward parity: one full-width local-prior forward (batch 2) on the
      card against the same module on the CPU (plain versions), in fp32 and
      in bf16, and the card's bf16 forward against its fp32 one.
@@ -28,10 +31,27 @@ non-zero:
      warm-up and 5 timed steps of `make_prior_train_step` at batch 16; the
      losses, parameters and EMA must stay finite and change, every kernel
      of the training path must have launched and no plain version run.
+  9. channel-first grouping path: `ops.ball_query_group_cf` (K13) at the
+     three SA shapes of scripts/profile_bqg_cf.py, its only caller in the
+     JAX package, and one backward.
+ 10. evaluation main path: the bf16 flagship samples 64 shapes with DDIM
+     (50 steps of the `--steps` schedule, 4 batches of 16; with random
+     weights the 1000-step schedule's x_0 estimates grow the samples to
+     ~1e5), writes them and 64 reference clouds made
+     from a seed to .pt files, and scores them through `compute_score`
+     (MMD / COV / 1-NNA under CD and EMD, and JSD) on the card; every
+     kernel of the path, K12 included, must have launched and no plain
+     version run. One 16 x 16 block of the EMD matrix is checked against
+     the plain version on the card, and its diagonal (the paired CD and
+     EMD) against the CPU plain version.
+ 11. with `--eval-n N`: N generated against N reference clouds scored
+     without sampling (662 is the chair test set, the counterpart of
+     scripts/bench_eval.py).
 Beside each kernel the JSON line gives its bound on the card (the larger of
 its bytes over 3.35 TB/s and its operations over 67 TFLOP/s fp32 or 989
-TFLOP/s bf16, H100 SXM peaks, counted from this run's inputs) and, where one
-PyTorch call computes the same function, that call's time (TF32 off).
+TFLOP/s bf16, H100 SXM peaks, with exps at the special-function units' 16
+per SM per clock, counted from this run's inputs) and, where one PyTorch
+call computes the same function, that call's time (TF32 off).
 The card's name and power limit are printed as nvidia-smi gives them, on a
 line of their own. The line before the last is a JSON object describing the
 kernels; the last line is {"ok": true, "device": {...}}.
@@ -39,10 +59,13 @@ kernels; the last line is {"ok": true, "device": {...}}.
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 BATCH_KERNELS = 16
@@ -59,13 +82,24 @@ BF16_PATH = ("fps", "avg_voxelize", "conv3d_3x3_fused",
 # the two-prior step: the frozen encode's eval flow (K1-K6), the priors'
 # train flow (K10 forward and dx) and the SA blocks' backward (K11)
 TRAIN_PATH = FP32_PATH + ("conv3d_3x3_same", "ball_query")
+# the channel-first grouping op (K13) has no model caller; its path is the
+# op at scripts/profile_bqg_cf.py's shapes. Evaluation samples on the bf16
+# path and scores with K12.
+CF_PATH = ("ball_query_group_cf",)
+EVAL_PATH = BF16_PATH + ("emd_cost",)
 REPORT_ORDER = FP32_PATH + ("sa_fused", "conv3d_pair", "pvconv_block_pair",
-                            "conv3d_3x3_same", "ball_query")
+                            "conv3d_3x3_same", "ball_query",
+                            "ball_query_group_cf", "emd_cost")
 BATCH_TRAIN = 16   # scripts/profile_train_step.py's batch
 WARMUP_STEPS, TRAIN_STEPS = 2, 5
+# (N, M, C, radius) of SA0-SA2, K = 32, batch 16 (scripts/profile_bqg_cf.py)
+CF_SHAPES = ((2048, 1024, 32, 0.1), (1024, 256, 64, 0.2), (256, 64, 128, 0.4))
+EVAL_SHAPES, EVAL_BATCH, EVAL_DDIM_STEPS = 64, 16, 50
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the tensor
-# cores, bf16 on them, device memory
+# cores, bf16 on them, device memory; the special-function units (exp)
+# give 16 results per SM per clock against the fp32 lanes' 256 operations
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+PEAK_MUFU = PEAK_FP32 / 16
 
 
 def log(*args):
@@ -126,11 +160,14 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound(moved_bytes, fp32_ops=0.0, bf16_ops=0.0):
+def bound(moved_bytes, fp32_ops=0.0, bf16_ops=0.0, exps=0.0):
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate of their type."""
+    memory rate and the operations over the peak rate of their type. The
+    special-function units run beside the fp32 lanes, so the exps bound the
+    time on their own."""
     t_bytes = moved_bytes / PEAK_BYTES * 1e3
-    t_ops = (fp32_ops / PEAK_FP32 + bf16_ops / PEAK_BF16) * 1e3
+    t_ops = max(fp32_ops / PEAK_FP32 + bf16_ops / PEAK_BF16,
+                exps / PEAK_MUFU) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -304,25 +341,37 @@ def _conv_same_check(randn, case, b, r, ci, co, iters):
         lambda: F.conv3d(xc, wc, padding=1))
 
 
-def log_unported_bounds(b):
-    """The bounds of the TPU kernels not ported yet, at the shapes their
-    callers would give them: the channel-first ball query + grouping at
-    SA0's shape (the same bytes as K2's output) and the approximate-EMD
-    cost of one pair of 2048-point clouds (10 auction levels, ~10 fp32
-    operations per (n, m) entry each, plus the distances)."""
-    n, m, k, c = 2048, 1024, 32, 32
-    cf = bound(b * (n * (3 + c) + m * 3) * 4 + b * m * k * (3 + c) * 4,
-               fp32_ops=8.0 * b * m * n)
-    emd = bound(2 * 2048 * 3 * 4, fp32_ops=(10 * 10 + 8.0) * 2048 * 2048)
-    log(f"[kernels] unported: ball_query_group_cf B{b} N{n} M{m} K{k} C{c} "
-        f"bound {cf['bound_ms']:.4f} ms ({cf['bound_by']}, no early stop "
-        f"counted); emd_approx one 2048x2048 pair bound "
-        f"{emd['bound_ms']:.4f} ms ({emd['bound_by']})")
+def _emd_work(sample, ref, pairs):
+    """K12's bound: each cloud and the pair list read once, one cost per
+    pair written; per (n, m) entry of a pair the matmul-form distance (8
+    operations) and, at each of the 10 levels, about 10 fp32 operations and
+    (at the 9 levels below 0) one exp."""
+    entries = float(pairs.shape[0]) * sample.shape[1] * ref.shape[1]
+    return bound(nbytes(sample, ref, pairs) + pairs.shape[0] * 4,
+                 fp32_ops=(10 * 10 + 8) * entries, exps=9 * entries)
+
+
+def check_cf_backward(cloud, centers, feats, g):
+    """K13's backward against K2's backward of the permuted gradient: both
+    scatter-add with atomics, so they agree to fp32 rounding."""
+    from lion_tpu_torch import ops
+    xs = [t.detach().clone().requires_grad_(True)
+          for t in (cloud, centers, feats)]
+    cf = torch.autograd.grad(ops.ball_query_group_cf(*xs, 0.1, 32), xs, g)
+    rows = torch.autograd.grad(ops.ball_query_group(*xs, 0.1, 32), xs,
+                               g.permute(0, 3, 1, 2))
+    err = 0.0
+    for a, b in zip(cf, rows):
+        err = max(err, max_abs(a, b))
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    log(f"[kernels] ball_query_group_cf backward vs K2's backward of the "
+        f"permuted gradient: max_abs_err {err:.3e}")
 
 
 def phase_kernels():
     import torch.nn.functional as F
     from lion_tpu_torch import ops
+    from lion_tpu_torch.eval.metrics import block_pairs
     from lion_tpu_torch.ops._cuda import no_tf32
     from lion_tpu_torch.ops.voxel import normalize_coords
     dev = torch.device("cuda")
@@ -371,7 +420,14 @@ def phase_kernels():
                   w128b, 8)
     gx = randn(b, 32, 32, 32, 64)
     w64_flip = w64.flip(0, 1, 2).transpose(3, 4).contiguous()
-    gxc, w64c = _ncdhw(gx), _oidhw(w64)
+    gxc, w64c, w128c = _ncdhw(gx), _oidhw(w64), _oidhw(w128)
+    # K12 on one EMD block of the metrics (16 x 33 pairs of 2048-point
+    # clouds, two waves of two CTAs per SM), and N != M both ways
+    emd_s, emd_r = randn(16, 2048, 3, scale=0.3), randn(33, 2048, 3,
+                                                        scale=0.3)
+    emd_block = (emd_s, emd_r, block_pairs(0, 0, 16, 33, dev))
+    half = randn(4, 1024, 3, scale=0.3)
+    pairs4 = block_pairs(0, 0, 4, 4, dev)
     checks = [
         # K1, K2, K5, K6, K11 evaluate the same unfused arithmetic in the
         # same order as their plain versions, so they must agree bit for bit
@@ -414,7 +470,9 @@ def phase_kernels():
                                 fp32_ops=_conv_ops(b, 32, 64, 64)),
                     lambda: F.conv3d(_ncdhw(x64), w64c, padding=1)),
         KernelCheck("conv3d_3x3_fused", "B16 r16 C128->64",
-                    (x128, w128), {}, _conv_compare, 10, 10),
+                    (x128, w128), {}, _conv_compare, 10, 10,
+                    library=lambda: F.conv3d(_ncdhw(x128), w128c,
+                                             padding=1)),
         KernelCheck("conv3d_3x3_fused", "bf16 B16 r32 C32->32 affine+swish",
                     (randn(b, 32, 32, 32, 32).to(bf), w32b,
                      1.0 + randn(b, 32, scale=0.1), randn(b, 32, scale=0.1)),
@@ -466,6 +524,25 @@ def phase_kernels():
                           fp32_ops=8 * _scan_pairs(centers, cloud, 0.1, 32))),
         KernelCheck("ball_query", "B16 N1024 M256 K32 r0.2",
                     (centers256, centers, 0.2, 32), {}, _exact, 20, 3),
+        # K13: K2's indices and fp32 subtraction in the channel-first
+        # layout, the features copied as they are
+        KernelCheck("ball_query_group_cf", "B16 N2048 M1024 K32 r0.1 C32",
+                    (cloud, centers, f32c, 0.1, 32), {}, _exact, 20, 3,
+                    bound(nbytes(cloud, centers, f32c)
+                          + b * 1024 * 32 * 35 * 4,
+                          fp32_ops=8 * _scan_pairs(centers, cloud, 0.1, 32))),
+        KernelCheck("ball_query_group_cf", "bf16 B16 N2048 M1024 K32 r0.1 C32",
+                    (cloud, centers, f32c.to(bf), 0.1, 32), {}, _exact, 20,
+                    3),
+        # K12: the JAX package's gate between its EMD kernel and its XLA
+        # form (tests/test_ops.py:291); exp(level * d2) at |level| up to
+        # 16384 amplifies fp32 rounding of sums taken in another order
+        KernelCheck("emd_cost", "16 x 33 pairs N2048 M2048", emd_block, {},
+                    _close(2e-3, 1e-5), 3, 1, _emd_work(*emd_block)),
+        KernelCheck("emd_cost", "4 x 4 pairs N2048 M1024",
+                    (emd_s, half, pairs4), {}, _close(2e-3, 1e-5), 5, 1),
+        KernelCheck("emd_cost", "4 x 4 pairs N1024 M2048",
+                    (half, emd_r, pairs4), {}, _close(2e-3, 1e-5), 5, 1),
     ]
     results = {}
     with no_tf32():
@@ -496,7 +573,21 @@ def phase_kernels():
             xc, wc = _ncdhw(x.to(bf)), _oidhw(w)
             ms = cuda_time_ms(lambda: F.conv3d(xc, wc, padding=1), 10)
             log(f"[kernels] cudnn bf16 conv3d B16 {case}: {ms:.4f} ms")
-    log_unported_bounds(b)
+        emd = results["emd_cost"]
+        emd["ms_per_pair"] = emd["ms"] / emd_block[2].shape[0]
+        log(f"[kernels] emd_cost: {emd['ms_per_pair']:.5f} ms per pair, "
+            f"bound {emd['bound_ms'] / emd_block[2].shape[0]:.5f} ms per "
+            f"pair")
+        # a permuted copy of a cloud is the same set: its cost is ~0
+        perm = torch.randperm(2048, generator=g, device=dev)
+        own = ops.emd_cost(emd_s[:4], emd_s[:4, perm].contiguous(),
+                           torch.stack([torch.arange(4, dtype=torch.int32,
+                                                     device=dev)] * 2, 1))
+        log(f"[kernels] emd_cost of 4 permuted copies: "
+            f"{own.tolist()} (limit 1e-3)")
+        if not float(own.max()) < 1e-3:
+            raise AssertionError(f"EMD of a permuted copy: {own.tolist()}")
+        check_cf_backward(cloud, centers, f32c, randn(b, 32, 35, 1024))
     return results
 
 
@@ -570,6 +661,20 @@ def phase_forward_parity(cfg):
     return {"fp32_max_abs_err": err, "bf16_rel_l2": rel, "bf16_drift": drift}
 
 
+def _path_counts(path, label):
+    """The launch and plain-call counts since the last reset; raise unless
+    every kernel of `path` launched and no plain version ran."""
+    from lion_tpu_torch import ops
+    counts = {n: (w.launches, w.plain_calls) for n, w in ops.KERNELS.items()}
+    log(f"[{label}] launches (kernel, plain): {counts}")
+    missing = [n for n in path if counts[n][0] == 0]
+    plain = [n for n, (_, p) in counts.items() if p != 0]
+    if missing or plain:
+        raise AssertionError(f"kernels not launched: {missing}; "
+                             f"plain versions run: {plain}")
+    return {n: k for n, (k, _) in counts.items()}
+
+
 def phase_main_path(cfg, steps, batch, requests, path, label):
     """Serve `requests` sampling requests through LION.sample; the launch
     counters are zeroed just before and read just after."""
@@ -600,14 +705,7 @@ def phase_main_path(cfg, steps, batch, requests, path, label):
             f"{s['global']:.3f}, local {s['local']:.3f}, decode "
             f"{s['decode']:.3f} s); points |max| "
             f"{float(pts.abs().max()):.3f}, std {float(pts.std()):.4f}")
-    counts = {n: (w.launches, w.plain_calls) for n, w in ops.KERNELS.items()}
-    log(f"[main {label}] launches (kernel, plain) during the requests: "
-        f"{counts}")
-    missing = [n for n in path if counts[n][0] == 0]
-    plain = [n for n, (_, p) in counts.items() if p != 0]
-    if missing or plain:
-        raise AssertionError(f"kernels not launched: {missing}; "
-                             f"plain versions run: {plain}")
+    counts = _path_counts(path, f"main {label}")
     steady = runs[1:] or runs
     wall = sum(r[0] for r in steady) / len(steady)
     g_ms = 1e3 * sum(r[1]["global"] for r in steady) / len(steady) / steps
@@ -615,7 +713,7 @@ def phase_main_path(cfg, steps, batch, requests, path, label):
     log(f"[main {label}] steady ({len(steady)} requests): "
         f"{batch / wall:.4f} shapes/s, global-prior step {g_ms:.3f} ms, "
         f"local-prior step {l_ms:.3f} ms (batch {batch})")
-    return {n: k for n, (k, _) in counts.items()}
+    return counts
 
 
 def _to(draws, dev):
@@ -715,7 +813,7 @@ def phase_train(cfg, batch, warmup, steps):
         metrics.append(step(x, gen))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: (w.launches, w.plain_calls) for n, w in ops.KERNELS.items()}
+    counts = _path_counts(TRAIN_PATH, "train")
     losses = [{k: float(v) for k, v in m.items()} for m in metrics]
     log(f"[train] losses: {[round(m['loss'], 4) for m in losses]}")
     if not all(torch.isfinite(torch.tensor(list(m.values()))).all()
@@ -732,19 +830,202 @@ def phase_train(cfg, batch, warmup, steps):
     log(f"[train] {wall / steps * 1e3:.3f} ms/step, "
         f"{batch * steps / wall:.3f} samples/s at batch {batch}; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
-    log(f"[train] launches (kernel, plain) during the steps: {counts}")
-    missing = [n for n in TRAIN_PATH if counts[n][0] == 0]
-    plain = [n for n, (_, p) in counts.items() if p != 0]
-    if missing or plain:
-        raise AssertionError(f"kernels not launched: {missing}; "
-                             f"plain versions run: {plain}")
-    return {n: k for n, (k, _) in counts.items()}
+    return counts
+
+
+def phase_cf_op(batch):
+    """`ops.ball_query_group_cf` at the SA shapes of scripts/profile_bqg_cf.py
+    (bf16 features, K = 32) and one fp32 backward at SA0's shape; the
+    counters are zeroed just before and read just after."""
+    from lion_tpu_torch import ops
+    g = torch.Generator(device="cuda").manual_seed(31)
+    shapes = []
+    for n, m, c, r in CF_SHAPES:
+        pts = torch.randn(batch, n, 3, generator=g, device="cuda") * 0.3
+        feats = torch.randn(batch, n, c, generator=g, device="cuda")
+        shapes.append((pts, pts[:, :m].contiguous(), feats, r))
+    ops.reset_counts()
+    for pts, ctr, feats, r in shapes:
+        out = ops.ball_query_group_cf(pts, ctr, feats.to(torch.bfloat16), r,
+                                      32)
+        if out.shape != (batch, 32, 3 + feats.shape[-1], ctr.shape[1]) \
+                or out.dtype != torch.bfloat16:
+            raise AssertionError(f"ball_query_group_cf {tuple(out.shape)} "
+                                 f"{out.dtype}")
+    pts, ctr, feats, r = shapes[0]
+    xs = [t.clone().requires_grad_(True) for t in (pts, ctr, feats)]
+    grads = torch.autograd.grad(ops.ball_query_group_cf(*xs, r, 32).sum(),
+                                xs)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in grads):
+        raise AssertionError("non-finite ball_query_group_cf gradients")
+    log(f"[cf op] {len(CF_SHAPES)} shapes forward (bf16) and one backward "
+        f"(fp32) at batch {batch}")
+    return _path_counts(CF_PATH, "cf op")
+
+
+def _reference_set(n, seed):
+    """n reference clouds of 2048 points with per-cloud normalization stats
+    in the layout of the released ref_val_<cat>.pt files: "ref" (n, 2048, 3),
+    "mean" (n, 1, 3), "std" (n, 1, 1)."""
+    rs = np.random.RandomState(seed)
+    ref = rs.randn(n, 2048, 3).astype(np.float32) * 0.2
+    mean = rs.randn(n, 1, 3).astype(np.float32) * 0.05
+    std = (1.0 + 0.1 * np.abs(rs.randn(n, 1, 1))).astype(np.float32)
+    return {"ref": torch.from_numpy(ref), "mean": torch.from_numpy(mean),
+            "std": torch.from_numpy(std)}
+
+
+def _score(samples, ref_set, seed, label):
+    """Write the samples and the reference set to .pt files in a temporary
+    directory and score them through compute_score on the card; returns
+    the results and the seconds."""
+    from lion_tpu_torch.eval import compute_score
+    with tempfile.TemporaryDirectory() as tmp:
+        s_path = os.path.join(tmp, "samples.pt")
+        r_path = os.path.join(tmp, "ref.pt")
+        torch.save(samples, s_path)
+        torch.save(ref_set, r_path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = compute_score(s_path, r_path, device="cuda",
+                                results_dir=tmp, dataset=label,
+                                rng=np.random.RandomState(seed))
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(tmp, "eval_out.csv")) as f:
+            tsv = f.read()
+    want = {f"{s}-{m}" for s in ("lgan_mmd", "lgan_cov", "lgan_mmd_smp")
+            for m in ("CD", "EMD")} | {
+        f"1-NN-{m}-{a}" for m in ("CD", "EMD")
+        for a in ("acc", "acc_t", "acc_f")} | {"jsd"}
+    if set(results) != want:
+        raise AssertionError(f"result keys {sorted(results)}")
+    if not all(np.isfinite(v) and v >= 0 for v in results.values()):
+        raise AssertionError(f"results {results}")
+    if not all(0 <= results[k] <= 1 for k in want if "cov" in k
+               or "acc" in k):
+        raise AssertionError(f"COV / 1-NNA outside [0, 1]: {results}")
+    if len(tsv.splitlines()) != 2 or label not in tsv:
+        raise AssertionError(f"eval_out.csv: {tsv!r}")
+    return results, seconds
+
+
+def _emd_pairs(ns, nr):
+    """The (sample, ref) pairs K12 computes for an ns x nr EMD matrix, the
+    blocks' padding included."""
+    from lion_tpu_torch.eval.metrics import EMD_BLOCK
+    bs, br = EMD_BLOCK
+    return (-(-ns // bs) * bs) * (-(-nr // br) * br)
+
+
+def phase_eval(cfg, n_shapes, batch, ddim_step, seed=0):
+    """The evaluation main path: DDIM sampling of `n_shapes` shapes in
+    batches, then compute_score against a reference set made from the seed;
+    the counters are zeroed just before sampling and read after scoring."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.eval.metrics import block_pairs, pairwise_emd
+    from lion_tpu_torch.models import LION
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(seed))
+    ref_set = _reference_set(n_shapes, seed)
+    log(f"[eval] LION flagship bf16: {n_shapes} shapes by DDIM "
+        f"({ddim_step} steps, {cfg.sde.ddim_skip_type}, kappa "
+        f"{cfg.sde.ddim_kappa}) in batches of {batch}, scored against "
+        f"{n_shapes} reference clouds")
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    points = []
+    for i in range(n_shapes // batch):
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        points.append(lion.sample(batch, generator=gen,
+                                  ddim_step=ddim_step)["points"])
+    samples = torch.cat(points).float().cpu()
+    t_sample = time.perf_counter() - t0
+    if tuple(samples.shape) != (n_shapes, 2048, 3) or \
+            not bool(torch.isfinite(samples).all()):
+        raise AssertionError(f"samples {tuple(samples.shape)}, finite "
+                             f"{bool(torch.isfinite(samples).all())}")
+    results, t_score = _score(samples, ref_set, seed, "smoke")
+    counts = _path_counts(EVAL_PATH, "eval")
+    pairs = 3 * _emd_pairs(n_shapes, n_shapes)
+    log(f"[eval] sampling {t_sample:.3f} s ({n_shapes / t_sample:.4f} "
+        f"shapes/s), scoring {t_score:.3f} s; K12 launches "
+        f"{counts['emd_cost']} over {pairs} pairs; results "
+        f"{ {k: round(v, 6) for k, v in sorted(results.items())} }")
+    # after the counters: EMD pairs per second of one n x n matrix alone;
+    # its first 16 x 16 block against the plain version on the card, and
+    # the block's diagonal (with the paired CD) against the CPU, where the
+    # plain version takes ~0.4 s per pair
+    from lion_tpu_torch.eval.metrics import emd_cd_paired
+    gen_pcs = (samples * ref_set["std"] + ref_set["mean"]).cuda()
+    ref_pcs = (ref_set["ref"] * ref_set["std"] + ref_set["mean"]).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = pairwise_emd(gen_pcs, ref_pcs)
+    t_emd = time.perf_counter() - t0
+    log(f"[eval] pairwise_emd {n_shapes} x {n_shapes}: {t_emd:.3f} s, "
+        f"{n_shapes * n_shapes / t_emd:.1f} pairs/s "
+        f"({_emd_pairs(n_shapes, n_shapes)} pairs launched)")
+    plain = ops.KERNELS["emd_cost"].plain(
+        gen_pcs, ref_pcs, block_pairs(0, 0, 16, 16, "cuda")).reshape(16, 16)
+    err = float(np.abs(card[:16, :16] - plain.cpu().numpy()).max())
+    log(f"[eval] EMD block 16 x 16, K12 vs the plain version on the card: "
+        f"max_abs_err {err:.3e} (rtol 2e-3, atol 1e-5; max |EMD| "
+        f"{float(plain.abs().max()):.4e})")
+    np.testing.assert_allclose(card[:16, :16], plain.cpu().numpy(),
+                               rtol=2e-3, atol=1e-5)
+    on_card = emd_cd_paired(gen_pcs[:16], ref_pcs[:16], reduced=False)
+    t0 = time.perf_counter()
+    on_cpu = emd_cd_paired(gen_pcs[:16].cpu(), ref_pcs[:16].cpu(),
+                           reduced=False, device="cpu")
+    log(f"[eval] paired CD / EMD of the block's diagonal, card vs CPU plain: "
+        f"max_abs_err {np.abs(on_card['MMD-CD'] - on_cpu['MMD-CD']).max():.3e}"
+        f" / {np.abs(on_card['MMD-EMD'] - on_cpu['MMD-EMD']).max():.3e}; "
+        f"cpu {time.perf_counter() - t0:.1f} s")
+    # the same K12 costs whatever the pair list around them
+    if not np.array_equal(on_card["MMD-EMD"], np.diag(card[:16, :16])):
+        raise AssertionError("paired EMD differs from the matrix diagonal")
+    # CD: minima of matmul-form distances, cuBLAS against the CPU's GEMM
+    np.testing.assert_allclose(on_card["MMD-CD"], on_cpu["MMD-CD"],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(on_card["MMD-EMD"], on_cpu["MMD-EMD"],
+                               rtol=2e-3, atol=1e-5)
+    return counts
+
+
+def phase_eval_scale(n, seed=0):
+    """N generated against N reference clouds of 2048 points, scored
+    through compute_score on the card without sampling (scripts/
+    bench_eval.py's setting at the chair test set's N = 662); then one
+    n x n CD matrix and one EMD matrix alone, of the three each that the
+    suite computes."""
+    from lion_tpu_torch.eval.metrics import pairwise_cd, pairwise_emd
+    ref_set = _reference_set(n, seed)
+    samples = torch.from_numpy(
+        np.random.RandomState(seed + 1).randn(n, 2048, 3).astype(np.float32)
+        * 0.2)
+    results, seconds = _score(samples, ref_set, seed, f"scale{n}")
+    log(f"[eval scale] {n} x {n}: compute_score {seconds:.3f} s "
+        f"({3 * n * n} pairs per metric, {3 * _emd_pairs(n, n)} EMD pairs "
+        f"launched); results "
+        f"{ {k: round(v, 6) for k, v in sorted(results.items())} }")
+    gen_pcs = (samples * ref_set["std"] + ref_set["mean"]).cuda()
+    ref_pcs = (ref_set["ref"] * ref_set["std"] + ref_set["mean"]).cuda()
+    for name, fn in (("CD", pairwise_cd), ("EMD", pairwise_emd)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(gen_pcs, ref_pcs)
+        log(f"[eval scale] one {n} x {n} {name} matrix: "
+            f"{time.perf_counter() - t0:.3f} s")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=100,
                     help="DDPM steps per prior (1000: the released chain)")
+    ap.add_argument("--eval-n", type=int, default=0,
+                    help="also score N against N clouds without sampling "
+                    "(662: the chair test set)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -763,16 +1044,25 @@ def main(argv=None):
     phase_grad_parity(flagship_cfg())
     train = phase_train(flagship_cfg(), BATCH_TRAIN, WARMUP_STEPS,
                         TRAIN_STEPS)
+    cf = phase_cf_op(BATCH_KERNELS)
+    cfg_eval = flagship_cfg()
+    cfg_eval.tpu.bf16 = True
+    cfg_eval.ddpm.num_steps = args.steps
+    evaluation = phase_eval(cfg_eval, EVAL_SHAPES, EVAL_BATCH,
+                            EVAL_DDIM_STEPS)
+    if args.eval_n:
+        phase_eval_scale(args.eval_n)
 
+    paths = {"fp32": fp32, "bf16": bf16, "train": train, "cf_op": cf,
+             "eval": evaluation}
     report = []
     for name in REPORT_ORDER:
         w = KERNELS[name]
         report.append({"name": name, "route": "cuda", "source": w.source,
                        "replaces": w.replaces,
-                       "launches": fp32[name] + bf16[name] + train[name],
-                       "launches_fp32_path": fp32[name],
-                       "launches_bf16_path": bf16[name],
-                       "launches_train_path": train[name], **results[name]})
+                       "launches": sum(p[name] for p in paths.values()),
+                       **{f"launches_{k}_path": p[name]
+                          for k, p in paths.items()}, **results[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Discrete DDPM (port of lion_tpu/diffusion/discrete.py: the constants,
-the training quantities `iw_quantities`, `iw_quantities_t`, `sample_q` and
-`get_mixing_component`, and the ancestral sampler `_ancestral_step`,
-`run_denoising_diffusion` and `_denoise_ts`).
+"""Discrete DDPM / DDIM (port of lion_tpu/diffusion/discrete.py: the
+constants, the training quantities `iw_quantities`, `iw_quantities_t`,
+`sample_q` and `get_mixing_component`, the ancestral sampler
+`_ancestral_step`, `run_denoising_diffusion` and `_denoise_ts`, and the
+DDIM sampler `ddim_tau_schedule` and `run_ddim`).
 
 The JAX package scans the chain inside one program; here it is a Python
 loop over the steps (a CUDA graph of the step is later work).
@@ -11,6 +12,7 @@ Conventions kept (utils/diffusion_pvd.py):
   * fixed 'beta' log-scales: std = exp(0.5 * log(betas[t]));
   * the t == 0 step emits the posterior mean with the 1/sqrt(alpha_bar[0])
     convention and no noise;
+  * DDIM: kappa is eta, with uniform or quad skips of the T steps;
   * mixed prediction: eps = (1-sigmoid(logit)) * sqrt(1-ab_t) * x
     + sigmoid(logit) * pred.
 
@@ -150,3 +152,74 @@ class DiffusionDiscretized:
             x = x.to(device)
         return self._denoise_ts(model_fn, x, range(self.num_steps - 1, -1, -1),
                                 generator, mixing_logit, given_noise)
+
+    # ---------------------------------------------------------- DDIM
+    def ddim_tau_schedule(self, ddim_step: int, skip_type: str = "uniform"):
+        """The step indices DDIM visits, descending, ending at 0."""
+        s = ddim_step
+        if skip_type == "uniform":
+            c = (self.num_steps - 1.0) / (s - 1.0)
+            taus = [int(np.floor(i * c)) for i in range(s)]
+        elif skip_type == "quad":
+            seq = np.linspace(0, np.sqrt(self.num_steps * 0.8), s) ** 2
+            taus = [int(x) for x in seq]
+        else:
+            raise NotImplementedError(skip_type)
+        return sorted(taus, reverse=True)
+
+    def ddim_constants(self, ddim_step: int, skip_type: str = "uniform",
+                       kappa: float = 1.0):
+        """(taus, alpha_next, sigma): per DDIM step its index t, the
+        alpha_bar of the next index (1 at the end) and the noise scale
+        kappa * sqrt((1 - a_next) / (1 - ab_t) * (1 - ab_t / a_next)) (0
+        at the end), in float32 as the JAX package stores them."""
+        taus = self.ddim_tau_schedule(ddim_step, skip_type)
+        ab = self.alpha_bars
+        alpha_next, sigma = [], []
+        for i, t in enumerate(taus):
+            if i == len(taus) - 1:
+                assert t == 0
+                alpha_next.append(1.0)
+                sigma.append(0.0)
+            else:
+                a_next = ab[taus[i + 1]]
+                alpha_next.append(a_next)
+                sigma.append(kappa * np.sqrt(
+                    (1 - a_next) / (1 - ab[t]) * (1 - ab[t] / a_next)))
+        return (taus, np.asarray(alpha_next, np.float32),
+                np.asarray(sigma, np.float32))
+
+    def run_ddim(self, model_fn: Callable, num_samples: int, shape,
+                 ddim_step: int, skip_type: str = "uniform",
+                 kappa: float = 1.0, generator=None, device=None,
+                 mixing_logit=None, x_noisy=None):
+        """The DDIM sampler over the tau schedule: x <- sqrt(a_next / a_t)
+        * x + c * eps + sigma * noise, c = sqrt(max(1 - a_next - sigma^2,
+        0)) - sqrt(1 - a_t) * sqrt(a_next / a_t). The initial x and every
+        noise draw come from `generator`; a step whose sigma is 0 draws
+        none. Returns x_0 of shape (num_samples, *shape)."""
+        x_shape = (num_samples,) + tuple(shape)
+        if x_noisy is None:
+            x_noisy = randn(x_shape, generator, device)
+        x = x_noisy.reshape(x_shape)
+        if device is not None:
+            x = x.to(device)
+        taus, alpha_next, sigma = self.ddim_constants(ddim_step, skip_type,
+                                                      kappa)
+        one = np.float32(1.0)
+        for t, a_next, sig in zip(taus, alpha_next, sigma):
+            a_tau = self.alpha_bars[t]
+            timestep = torch.full((num_samples,), t + 1,
+                                  dtype=torch.float32, device=x.device)
+            pred = model_fn(x, timestep)
+            if mixing_logit is not None:
+                mix = float(np.sqrt(one - a_tau)) * x
+                pred = get_mixed_prediction(
+                    pred, mixing_logit.reshape(x_shape[1:]), mix)
+            scale = np.sqrt(a_next / a_tau)
+            c = np.sqrt(np.maximum(one - a_next - sig * sig, np.float32(0))) \
+                - np.sqrt(one - a_tau) * scale
+            x = float(scale) * x + float(c) * pred
+            if sig != 0:
+                x = x + float(sig) * randn(x_shape, generator, x.device)
+        return x

@@ -13,10 +13,12 @@ hierarchy:
                   the global sample; the latent is carried as (B, N, C)
     decode:       one U-Net forward of the VAE decoder
 
-With `cfg.tpu.bf16 = True` the local prior's and the decoder's U-Nets
-compute in bf16; the global prior, the parameters and the DDPM chain stay
-fp32. DDIM, the PF-ODE, class and CLIP conditioning and released .pt
-checkpoints are not ported yet.
+With `ddim_step > 0` both chains take the DDIM sampler's `ddim_step`
+steps instead (`cfg.sde.ddim_skip_type`, `cfg.sde.ddim_kappa`), as the
+evaluation samples (`cfg.eval_ddim_step`). With `cfg.tpu.bf16 = True` the
+local prior's and the decoder's U-Nets compute in bf16; the global prior,
+the parameters and the chains stay fp32. The PF-ODE, class and CLIP
+conditioning and released .pt checkpoints are not ported yet.
 """
 from __future__ import annotations
 
@@ -83,15 +85,21 @@ class LION(nn.Module):
     @torch.no_grad()
     def sample(self, num_samples: int = 10,
                generator: Optional[torch.Generator] = None,
-               given_noise=None) -> dict:
-        """Hierarchical ancestral DDPM sampling.
+               given_noise=None, ddim_step: int = 0) -> dict:
+        """Hierarchical sampling: ancestral DDPM, or DDIM with `ddim_step`
+        steps when it is above 0.
 
-        `given_noise`: optional ((init_g, steps_g), (init_l, steps_l)) with
-        init (B, D) and steps (T, B, D) tensors replacing every Gaussian
-        draw of the two chains (lion_tpu's given_noise). Returns z_global
-        (B, style), z_local (B, N*C), points (B, N, 3) and the wall seconds
-        of each stage (`stage_seconds`, after a device sync)."""
-        return self._sample(num_samples, generator, given_noise, chunks=1)
+        `given_noise` (ancestral only): optional ((init_g, steps_g),
+        (init_l, steps_l)) with init (B, D) and steps (T, B, D) tensors
+        replacing every Gaussian draw of the two chains (lion_tpu's
+        given_noise). Returns z_global (B, style), z_local (B, N*C), points
+        (B, N, 3) and the wall seconds of each stage (`stage_seconds`,
+        after a device sync)."""
+        if ddim_step > 0 and given_noise is not None:
+            raise ValueError("given_noise is only defined for the ancestral "
+                             "DDPM branch (ddim_step = 0)")
+        return self._sample(num_samples, generator, given_noise, chunks=1,
+                            ddim_step=ddim_step)
 
     @torch.no_grad()
     def sample_chunked(self, num_samples: int,
@@ -106,7 +114,13 @@ class LION(nn.Module):
         return self._sample(num_samples, generator, None, chunks)
 
     def _chain(self, model_fn, x, generator, mixing_logit, given_noise,
-               chunks: int):
+               chunks: int, ddim_step: int = 0):
+        if ddim_step > 0:
+            sde = self.cfg.sde
+            return self.diffusion.run_ddim(
+                model_fn, x.shape[0], x.shape[1:], ddim_step,
+                skip_type=sde.ddim_skip_type, kappa=float(sde.ddim_kappa),
+                generator=generator, mixing_logit=mixing_logit, x_noisy=x)
         ts = range(self.diffusion.num_steps - 1, -1, -1)
         seg = len(ts) // chunks
         for i in range(chunks):
@@ -115,7 +129,8 @@ class LION(nn.Module):
                 mixing_logit=mixing_logit, given_noise=given_noise)
         return x
 
-    def _sample(self, num_samples, generator, given_noise, chunks):
+    def _sample(self, num_samples, generator, given_noise, chunks,
+                ddim_step=0):
         self.eval()
         dev = self.device
         if generator is None:
@@ -133,7 +148,7 @@ class LION(nn.Module):
         x = randn(shape_g, generator, dev) if x_g is None \
             else x_g.reshape(shape_g).to(dev)
         z_global = self._chain(self.global_prior, x, generator, mix_g,
-                               noise_g, chunks)
+                               noise_g, chunks, ddim_step)
         _sync(dev)
         t1 = time.perf_counter()
         seconds["global"] = t1 - t0
@@ -143,7 +158,7 @@ class LION(nn.Module):
             else x_l.reshape(shape_l).to(dev)
         z_local = self._chain(
             lambda xx, t: self.local_prior(xx, t, condition_input=z_global),
-            x, generator, mix_l, noise_l, chunks)
+            x, generator, mix_l, noise_l, chunks, ddim_step)
         z_local = z_local.reshape(num_samples, self.local_dim)
         _sync(dev)
         t2 = time.perf_counter()

@@ -4,13 +4,16 @@
 `reset_counts()` zeroes their launch and plain-call counters. The ops
 exported here that the training path differentiates (`conv3d_3x3_same`,
 `ball_query_group`, `avg_voxelize`, `trilinear_devoxelize`,
-`nearest_neighbor_interpolate`) are `torch.autograd.Function`s around
-their kernels.
+`nearest_neighbor_interpolate`, and `ball_query_group_cf`) are
+`torch.autograd.Function`s around their kernels; `emd_cost` has no
+gradient (`emd_approx` is the differentiable form).
 """
 from ._cuda import KERNELS, reset_counts
+from .chamfer import chamfer, chamfer_dist, chamfer_l1
 from .conv3d import conv3d_3x3_fused, conv3d_3x3_same, conv3d_pair
+from .emd import approx_match, emd_approx, emd_cost
 from .interpolate import nearest_neighbor_interpolate
-from .points import (ball_query, ball_query_group, fps,
+from .points import (ball_query, ball_query_group, ball_query_group_cf, fps,
                      furthest_point_sample, furthest_point_sample_idx,
                      gather, grouping)
 from .pvblock import pvconv_block_pair
@@ -19,9 +22,10 @@ from .voxel import (avg_voxelize, normalize_coords, trilinear_devoxelize,
                     voxelize)
 
 __all__ = [
-    "KERNELS", "reset_counts", "conv3d_3x3_fused", "conv3d_3x3_same",
-    "conv3d_pair",
-    "nearest_neighbor_interpolate", "ball_query", "ball_query_group", "fps",
+    "KERNELS", "reset_counts", "chamfer", "chamfer_dist", "chamfer_l1",
+    "conv3d_3x3_fused", "conv3d_3x3_same", "conv3d_pair", "approx_match",
+    "emd_approx", "emd_cost", "nearest_neighbor_interpolate", "ball_query",
+    "ball_query_group", "ball_query_group_cf", "fps",
     "furthest_point_sample", "furthest_point_sample_idx", "gather",
     "grouping", "pvconv_block_pair", "sa_fused", "avg_voxelize",
     "normalize_coords", "trilinear_devoxelize", "voxelize",

@@ -8,11 +8,15 @@ Kernels here:
   K2 `ball_query_group` (csrc/ball_query_group.cu): ball query fused with
      the grouping gather.
   K11 `ball_query` (csrc/ball_query.cu): the index-only ball query.
+  K13 `ball_query_group_cf` (csrc/ball_query_group_cf.cu): K2 with the
+     channel-first (B, K, 3 + C, M) output, fp32 or bf16 features.
 
 `ball_query_group` has a gradient: its backward recomputes the indices
 with K11, as the JAX VJP replays `ball_query` (lion_tpu/ops/points.py:
 241-254), and scatter-adds the output gradient into the features, the
 point coordinates and (negated, summed over K) the centers.
+`ball_query_group_cf` permutes its gradient to the row layout and runs the
+same backward.
 
 Each plain version computes squared distances op by op as
 ((dx*dx + dy*dy) + dz*dz), the order the kernels use with unfused
@@ -23,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._cuda import check_cuda, kernel, launch, ptr, stream_of
+from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -231,3 +235,78 @@ def ball_query_group(points_coords: torch.Tensor,
     gradients to all three inputs."""
     return _BallQueryGroup.apply(points_coords, centers_coords,
                                  points_features, radius, num_neighbors)
+
+
+# --------------------------------------------------------------------------
+# K13: ball query + grouping, channel-first
+# --------------------------------------------------------------------------
+_CF_TILE = 32   # centers per block (csrc/ball_query_group_cf.cu)
+
+
+def _ball_query_group_cf_plain(points_coords, centers_coords,
+                               points_features, radius: float,
+                               num_neighbors: int):
+    """The row layout's plain version in the features' dtype, permuted to
+    (B, K, 3 + C, M)."""
+    rows = _ball_query_group_plain(points_coords, centers_coords,
+                                   points_features, radius, num_neighbors)
+    return rows.to(points_features.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+@kernel("ball_query_group_cf", _ball_query_group_cf_plain,
+        "lion_tpu_torch/csrc/ball_query_group_cf.cu",
+        "lion_tpu/ops/pallas/ball_query_group.py:250")
+def ball_query_group_cf_kernel(points_coords: torch.Tensor,
+                               centers_coords: torch.Tensor,
+                               points_features: torch.Tensor, radius: float,
+                               num_neighbors: int) -> torch.Tensor:
+    """points (B, N, 3), centers (B, M, 3) f32, features (B, N, C) f32 or
+    bf16 -> (B, K, 3 + C, M) of the features' dtype."""
+    dt = check_float(points_features, "ball_query_group_cf")
+    check_cuda(points_coords, centers_coords)
+    check_cuda(points_features, dtype=dt, device=points_coords.device)
+    b, n, _ = points_coords.shape
+    m = centers_coords.shape[1]
+    c = points_features.shape[-1]
+    k = num_neighbors
+    if k < 1 or _CF_TILE * (k | 1) * 4 > 48 * 1024:
+        raise ValueError(f"ball_query_group_cf: unsupported K={k}")
+    out = torch.empty((b, k, 3 + c, m), dtype=dt, device=points_coords.device)
+    launch("lion_ball_query_group_cf", ptr(points_coords), ptr(centers_coords),
+           ptr(points_features), ptr(out), b, n, m, c, k, _r2(radius),
+           int(dt == torch.bfloat16), stream_of(points_coords))
+    return out
+
+
+class _BallQueryGroupCF(torch.autograd.Function):
+    """Forward by K13; the backward permutes the gradient to the row layout
+    and runs K2's backward (lion_tpu/ops/points.py:301-308)."""
+
+    @staticmethod
+    def forward(ctx, points_coords, centers_coords, points_features, radius,
+                num_neighbors):
+        ctx.save_for_backward(points_coords, centers_coords)
+        ctx.radius, ctx.k = radius, num_neighbors
+        ctx.n_feat = points_features.shape[-1]
+        ctx.dtypes = (points_coords.dtype, centers_coords.dtype,
+                      points_features.dtype)
+        return ball_query_group_cf_kernel(points_coords, centers_coords,
+                                          points_features, radius,
+                                          num_neighbors)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _BallQueryGroup.backward(ctx, g.permute(0, 3, 1, 2))
+
+
+def ball_query_group_cf(points_coords: torch.Tensor,
+                        centers_coords: torch.Tensor,
+                        points_features: torch.Tensor, radius: float,
+                        num_neighbors: int) -> torch.Tensor:
+    """Channel-first ball_query_group: points (B, N, 3), centers (B, M, 3),
+    features (B, N, C) (required) -> (B, K, 3 + C, M), rows = [center-
+    relative xyz ++ features], with gradients to all three inputs."""
+    if points_features is None:
+        raise ValueError("ball_query_group_cf requires features")
+    return _BallQueryGroupCF.apply(points_coords, centers_coords,
+                                   points_features, radius, num_neighbors)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path does not reach (empty balls, fewer than three
 centers, grids whose voxel count is not a multiple of the conv tile, odd
-channel counts), in fp32 and in bf16.
+channel counts, clouds of unequal sizes for the EMD), in fp32 and in bf16.
 
 Needs an NVIDIA GPU: every test is marked `gpu` and skips without CUDA.
 This file imports no JAX, so it runs on a machine without it:
@@ -374,3 +374,94 @@ def test_training_ops_backward_on_card_matches_cpu(gen):
         # the card's runs launched the kernels; the plain calls are the
         # CPU runs', one per launch
         assert w_.launches > 0 and w_.launches == w_.plain_calls, name
+
+
+# ------------------------------------------------------- evaluation slice
+# K12 against its plain version: the JAX package's gate between its EMD
+# kernel and its XLA form (tests/test_ops.py:291); exp(level * d2) at |level|
+# up to 16384 amplifies the rounding of sums taken in another order
+EMD_RTOL, EMD_ATOL = 2e-3, 1e-5
+
+
+@pytest.mark.parametrize("s,n,r,m", [(3, 2000, 2, 77), (2, 77, 3, 2000),
+                                     (2, 256, 2, 512), (2, 512, 3, 256),
+                                     (2, 2048, 2, 2048), (1, 1, 1, 5)])
+def test_emd_cost_kernel(gen, s, n, r, m):
+    """N and M off any block multiple, N != M both ways (integer capacity
+    ratios), and the pair list in any order with repeats."""
+    a = _randn(gen, s, n, 3, scale=0.3)
+    b = _randn(gen, r, m, 3, scale=0.3)
+    pairs = torch.tensor([[i, j] for i in range(s) for j in range(r)]
+                         + [[s - 1, 0], [0, r - 1]], dtype=torch.int32,
+                         device="cuda")
+    got, ref = _both("emd_cost", a, b, pairs)
+    assert got.shape == (pairs.shape[0],) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=EMD_RTOL, atol=EMD_ATOL)
+    # a repeated pair gives the same cost bit for bit (fixed-order sums)
+    assert got[-2] == got[(s - 1) * r] and got[-1] == got[r - 1]
+
+
+def test_emd_cost_kernel_identical_and_permuted_clouds(gen):
+    """A cloud against itself and against a permuted copy costs ~0."""
+    a = _randn(gen, 2, 2048, 3, scale=0.3)
+    perm = torch.randperm(2048, generator=gen, device="cuda")
+    b = torch.cat([a[:1], a[1:, perm]]).contiguous()
+    pairs = torch.tensor([[0, 0], [1, 1]], dtype=torch.int32, device="cuda")
+    got, ref = _both("emd_cost", a, b, pairs)
+    torch.testing.assert_close(got, ref, rtol=EMD_RTOL, atol=EMD_ATOL)
+    assert float(got.max()) < 1e-3
+
+
+def test_emd_cost_kernel_refuses_what_it_does_not_take(gen):
+    a = _randn(gen, 1, 64, 3)
+    pairs = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        ops.emd_cost(a, a, pairs.long())
+    with pytest.raises(ValueError, match="emd_cost"):   # beyond shared memory
+        big = _randn(gen, 1, 5000, 3)
+        ops.emd_cost(big, big, pairs)
+    # indices out of range give NaN, not a stray read
+    bad = torch.tensor([[0, 0], [1, 0], [0, -1]], dtype=torch.int32,
+                       device="cuda")
+    out = ops.emd_cost(a, a, bad)
+    assert torch.isfinite(out[0]) and torch.isnan(out[1:]).all()
+
+
+@pytest.mark.parametrize("n,m,k,c,r,dt", [
+    (128, 24, 8, 5, 0.2, torch.float32),        # partial balls, M < tile
+    (300, 50, 64, 3, 0.5, torch.float32),       # K above the hit count
+    (2048, 1000, 32, 32, 0.1, torch.float32),   # M off the 32-center tile
+    (50, 5, 64, 2, 2.0, torch.float32),         # K above N
+    (2048, 1024, 32, 32, 0.1, BF16),
+    (500, 77, 16, 131, 0.3, BF16)])
+def test_ball_query_group_cf_kernel(gen, n, m, k, c, r, dt):
+    pts = _randn(gen, 2, n, 3, scale=0.3)
+    ctr = pts[:, :m].clone()
+    ctr[:, 0] = 5.0                                # an empty ball
+    feats = _randn(gen, 2, n, c).to(dt)
+    got, ref = _both("ball_query_group_cf", pts, ctr, feats, r, k)
+    assert got.dtype == dt and got.shape == (2, k, 3 + c, m)
+    # the same indices and the same fp32 subtraction, rounded once
+    assert torch.equal(got, ref)
+    # the empty ball takes point 0 in every slot
+    assert torch.equal(got[:, :, 3:, 0],
+                       feats[:, None, 0].expand(-1, k, -1))
+
+
+def test_ball_query_group_cf_backward_is_k2s(gen):
+    """K13's backward is K2's backward of the permuted gradient, on the
+    card, and matches the CPU."""
+    pts = _randn(gen, 2, 512, 3, scale=0.3).requires_grad_(True)
+    ctr = (pts[:, :64].detach() + 0.01).requires_grad_(True)
+    feats = _randn(gen, 2, 512, 16).requires_grad_(True)
+    g = _randn(gen, 2, 32, 19, 64)
+    (o, gs), (orf, gr) = _grads_on_card_and_cpu(
+        lambda p, c, f: ops.ball_query_group_cf(p, c, f, 0.2, 32), pts, ctr,
+        feats, grad_out=g)
+    assert torch.equal(o, orf) and len(gs) == 3
+    (_, g2), _ = _grads_on_card_and_cpu(
+        lambda p, c, f: ops.ball_query_group(p, c, f, 0.2, 32), pts, ctr,
+        feats, grad_out=g.permute(0, 3, 1, 2))
+    for a, b, c in zip(gs, gr, g2):   # scatter-adds with atomics
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)

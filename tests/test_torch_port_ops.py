@@ -171,7 +171,8 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
     assert set(ops.KERNELS) == {
         "fps", "ball_query_group", "avg_voxelize", "conv3d_3x3_fused",
         "trilinear_devoxelize", "three_nn_interpolate", "sa_fused",
-        "conv3d_pair", "pvconv_block_pair", "conv3d_3x3_same", "ball_query"}
+        "conv3d_pair", "pvconv_block_pair", "conv3d_3x3_same", "ball_query",
+        "ball_query_group_cf", "emd_cost"}
     for k in ops.KERNELS.values():
         assert k.source.startswith("lion_tpu_torch/csrc/")
         assert k.replaces.startswith("lion_tpu/ops/pallas/")
