@@ -9,7 +9,8 @@ non-zero:
   2. build: compiles the thirteen CUDA kernels from lion_tpu_torch/csrc.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main paths' shapes (batch 16), fp32 and bf16, with times
-     from CUDA events (and cuDNN's bf16 conv beside K4's bf16 variant);
+     from CUDA events; every K4 and K10 case with its bound and cuDNN's
+     conv beside it (bf16 in channels-last, fp32 with TF32 off);
      K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
      2048-point clouds, N != M both ways and a permuted copy; K13's
      backward against K2's backward of the permuted gradient.
@@ -174,9 +175,9 @@ def bound(moved_bytes, fp32_ops=0.0, bf16_ops=0.0, exps=0.0):
 
 class KernelCheck:
     """One kernel-vs-plain comparison at one shape. `work` is the case's
-    bound (`bound(...)`), given for the case the report keeps (each
-    kernel's first); `library` a single PyTorch call computing the same
-    function, timed beside the kernel, or None."""
+    bound (`bound(...)`) or None; `library` a single PyTorch call computing
+    the same function, timed beside the kernel, or None. The report keeps
+    each kernel's first case."""
 
     def __init__(self, name, case, args, kwargs, compare, iters, plain_iters,
                  work=None, library=None):
@@ -328,6 +329,30 @@ def _oidhw(w):
         memory_format=torch.channels_last_3d)
 
 
+def _conv_fused_check(randn, b, r, ci, co, dtype, pro):
+    """K4 at one shape (`pro`: the affine + swish prologue), with its bound
+    and cuDNN's conv alone beside it (in channels-last, the layout K4
+    reads; TF32 off for fp32): no PyTorch call has K4's prologue and
+    statistics."""
+    import torch.nn.functional as F
+    x = randn(b, r, r, r, ci).to(dtype)
+    w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(dtype)
+    s = 1.0 + randn(b, ci, scale=0.1) if pro else None
+    h = randn(b, ci, scale=0.1) if pro else None
+    bf = dtype == torch.bfloat16
+    iters = 5 if r == 32 and not bf else 10 if r * ci >= 2048 else 20
+    xc, wc = _ncdhw(x), _oidhw(w)
+    flops = _conv_ops(b, r, ci, co)
+    return KernelCheck(
+        "conv3d_3x3_fused", f"{'bf16 ' if bf else ''}B{b} r{r} C{ci}->{co}"
+        f"{' affine+swish' if pro else ''}",
+        (x, w, s, h), {"pre_swish": pro},
+        _bf16_close(1e-2) if bf else _conv_compare, iters, max(2, iters // 2),
+        bound(nbytes(x, w, s, h) + b * r ** 3 * co * x.element_size()
+              + b * 2 * co * 4, **{"bf16_ops" if bf else "fp32_ops": flops}),
+        lambda: F.conv3d(xc, wc, padding=1))
+
+
 def _conv_same_check(randn, case, b, r, ci, co, iters):
     """K10 forward at one shape, with cuDNN's fp32 conv beside it."""
     import torch.nn.functional as F
@@ -374,6 +399,7 @@ def phase_kernels():
     from lion_tpu_torch.eval.metrics import block_pairs
     from lion_tpu_torch.ops._cuda import no_tf32
     from lion_tpu_torch.ops.voxel import normalize_coords
+    from lion_tpu_torch.profile_step import K4_CASES
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     b = BATCH_KERNELS
@@ -393,8 +419,6 @@ def phase_kernels():
     nc8 = normalize_coords(cloud256, 8).contiguous()
     vox8 = torch.round(nc8).to(torch.int32)
     w64 = randn(3, 3, 3, 64, 64, scale=(27 * 64) ** -0.5)
-    w128 = randn(3, 3, 3, 128, 64, scale=(27 * 128) ** -0.5)
-    w32b = randn(3, 3, 3, 32, 32, scale=(27 * 32) ** -0.5).to(bf)
     w128b = randn(3, 3, 3, 128, 128, scale=(27 * 128) ** -0.5).to(bf)
     w64b = w64.to(bf)
     f32c = randn(b, 2048, 32)
@@ -405,9 +429,6 @@ def phase_kernels():
     # grid_sample reads (x, y, z) as (W, H, D) in [-1, 1]: the port's grid
     # is indexed (ix, iy, iz) = (D, H, W)
     gs_grid = (nc32 / 31 * 2 - 1).flip(-1).reshape(b, 1, 1, 2048, 3)
-    x64 = randn(b, 32, 32, 32, 64)
-    s64, h64 = 1.0 + randn(b, 64, scale=0.1), randn(b, 64, scale=0.1)
-    x128 = randn(b, 16, 16, 16, 128)
     f192 = randn(b, 1024, 192)
     sa0 = _sa_case(randn, cloud, centers, (32, 64), 0.1)
     sa3 = _sa_case(randn, cloud64, centers16, (128, 128, 128), 0.8)
@@ -420,7 +441,7 @@ def phase_kernels():
                   w128b, 8)
     gx = randn(b, 32, 32, 32, 64)
     w64_flip = w64.flip(0, 1, 2).transpose(3, 4).contiguous()
-    gxc, w64c, w128c = _ncdhw(gx), _oidhw(w64), _oidhw(w128)
+    gxc, w64c = _ncdhw(gx), _oidhw(w64)
     # K12 on one EMD block of the metrics (16 x 33 pairs of 2048-point
     # clouds, two waves of two CTAs per SM), and N != M both ways
     emd_s, emd_r = randn(16, 2048, 3, scale=0.3), randn(33, 2048, 3,
@@ -461,25 +482,10 @@ def phase_kernels():
         KernelCheck("trilinear_devoxelize", "bf16 B16 N2048 r32 C64",
                     (randn(b, 32, 32, 32, 64).to(bf), nc32, 32), {}, _exact,
                     20, 5),
-        # the library call is cuDNN's conv alone (TF32 off): no PyTorch
-        # call has K4's prologue and statistics
-        KernelCheck("conv3d_3x3_fused", "B16 r32 C64->64 affine+swish",
-                    (x64, w64, s64, h64), {"pre_swish": True}, _conv_compare,
-                    5, 5, bound(nbytes(x64, w64, s64, h64, x64)
-                                + b * 2 * 64 * 4,
-                                fp32_ops=_conv_ops(b, 32, 64, 64)),
-                    lambda: F.conv3d(_ncdhw(x64), w64c, padding=1)),
-        KernelCheck("conv3d_3x3_fused", "B16 r16 C128->64",
-                    (x128, w128), {}, _conv_compare, 10, 10,
-                    library=lambda: F.conv3d(_ncdhw(x128), w128c,
-                                             padding=1)),
-        KernelCheck("conv3d_3x3_fused", "bf16 B16 r32 C32->32 affine+swish",
-                    (randn(b, 32, 32, 32, 32).to(bf), w32b,
-                     1.0 + randn(b, 32, scale=0.1), randn(b, 32, scale=0.1)),
-                    {"pre_swish": True}, _bf16_close(1e-2), 10, 5),
-        KernelCheck("conv3d_3x3_fused", "bf16 B16 r16 C128->128",
-                    (randn(b, 16, 16, 16, 128).to(bf), w128b), {},
-                    _bf16_close(1e-2), 10, 5),
+        # K4 at the main paths' shapes (the bf16 path's twelve K4 calls
+        # per local step and the fp32 path's widest ones; the first is the
+        # report's)
+        *(_conv_fused_check(randn, b, *case) for case in K4_CASES),
         KernelCheck("three_nn_interpolate", "B16 N2048 M1024 C192",
                     (cloud, centers, f192), {}, _exact, 20, 5,
                     bound(nbytes(cloud, centers, f192) + b * 2048 * 192 * 4,
@@ -565,14 +571,13 @@ def phase_kernels():
                              ops.trilinear_devoxelize(grid64, nc32, 32))
         log(f"[kernels] library vs kernel: scatter_reduce mean "
             f"{err_mean:.3e}, grid_sample {err_sample:.3e}")
-        # cuDNN's own bf16 conv beside K4's bf16 variant (channels-last, the
-        # layout K4 reads)
-        for case, x, w in (("r32 C32->32", randn(b, 32, 32, 32, 32), w32b),
-                           ("r16 C128->128", randn(b, 16, 16, 16, 128),
-                            w128b)):
-            xc, wc = _ncdhw(x.to(bf)), _oidhw(w)
-            ms = cuda_time_ms(lambda: F.conv3d(xc, wc, padding=1), 10)
-            log(f"[kernels] cudnn bf16 conv3d B16 {case}: {ms:.4f} ms")
+        # K8's yardstick, for information only (no single PyTorch call
+        # computes the pair): two cuDNN bf16 convs at its shape
+        xc, wc = _ncdhw(xp), _oidhw(w64b)
+        ms = cuda_time_ms(lambda: (F.conv3d(xc, wc, padding=1),
+                                   F.conv3d(xc, wc, padding=1)), 5)
+        log(f"[kernels] conv3d_pair yardstick: two cuDNN bf16 convs B16 "
+            f"r32 C64->64 {ms:.4f} ms (not its library call)")
         emd = results["emd_cost"]
         emd["ms_per_pair"] = emd["ms"] / emd_block[2].shape[0]
         log(f"[kernels] emd_cost: {emd['ms_per_pair']:.5f} ms per pair, "

@@ -1,5 +1,8 @@
-// Device code shared by the bf16 3x3x3 convolutions: K4 in bf16
-// (conv3d.cu), K8 (conv3d_pair.cu) and K9 (pvblock.cu).
+// Device code shared by the bf16 3x3x3 convolutions of K8 (conv3d_pair.cu)
+// and K9 (pvblock.cu). A new 3x3x3 conv starts from the halo-brick design
+// of conv_brick.cuh (K4 and K10: the brick staged once per chunk of
+// channels, the taps as address offsets, wgmma from shared memory); this
+// file's per-tap gather is the older design, 4-8x slower than cuDNN.
 //
 // conv_tile_mma computes one BM x BN tile of y = conv3d_SAME(pro(x), w) of
 // one item as an implicit GEMM over (voxels) x (Co) x (27 taps * Ci) on the

@@ -46,11 +46,7 @@ _SIGNATURES = {
                                  _P),
     "lion_emd_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_avg_voxelize": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "lion_conv3d_3x3_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _P),
-    "lion_conv3d_3x3_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _P),
-    "lion_conv3d_3x3_same": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "lion_conv3d_brick": (_P,) * 6 + (_I,) * 18 + (_P,),
     "lion_conv3d_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P),
     "lion_pvconv_block_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

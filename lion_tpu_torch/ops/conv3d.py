@@ -26,7 +26,10 @@ K4 and K8 are inference only: no gradient.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import itertools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +38,136 @@ from ._cuda import (check_cuda, check_float, kernel, launch, no_tf32, ptr,
                     stream_of)
 
 GN_GROUPS, GN_EPS = 8, 1e-5
+
+# The halo-brick kernels of K4 and K10 (csrc/conv_brick.cuh): shared memory
+# a block may use on the H100 and an SM holds (1 KB of it reserved per
+# block), its SM count, and the (bn, tile) pairs the kernels are compiled
+# for, all on 256 threads. bf16 (wgmma): 64 channels (wgmma's M), tile =
+# planes of 8 x 8 voxels per warpgroup, a brick of 2 tile x 8 x 8 voxels.
+# fp32: tile = voxels per thread (a run along w), 8 channels each,
+# tile * 2048 / bn voxels. (The plan never chose wider tiles at any shape.)
+SMEM_BYTES, SMEM_SM = 232448, 233472
+SMS = 132
+_BF16_TILES = ((64, 4), (64, 2), (64, 1))
+_FP32_TILES = ((64, 2), (32, 8), (32, 4), (32, 2))
+
+
+class ConvPlan(NamedTuple):
+    """How the brick kernel covers one conv: blocks of `brick` (d, h, w)
+    output voxels of one item by `bn` output channels (grid: bricks, output
+    channel tiles, items) on `threads` threads, registers kept for
+    `min_blocks` such blocks of 256 threads per SM, `kc` input channels per
+    staged chunk (padded in shared memory), `taps` taps per weight stage,
+    the shared-memory row pitches in elements and the dynamic shared-memory
+    bytes; `ldw` is the weights' row length, Co padded to 16 bytes."""
+    brick: Tuple[int, int, int]
+    bn: int
+    tile: int
+    threads: int
+    min_blocks: int
+    kc: int
+    taps: int
+    hpitch: int
+    wpitch: int
+    ldw: int
+    smem: int
+    grid: Tuple[int, int, int]
+
+
+def _odd_units(n: int, vec: int) -> int:
+    """n elements rounded up to an odd number of 16-byte units of `vec`
+    elements: 8 consecutive rows then start in 8 different bank groups."""
+    return ((-(-n // vec)) | 1) * vec
+
+
+@functools.lru_cache(maxsize=None)
+def _brick(bm: int, r: int, run: int):
+    """The fp32 kernel's (d, h, w) brick of bm voxels (powers of two, w a
+    multiple of a thread's `run`) that wastes the fewest products on voxels
+    outside the grid, then has w = 8 (the runs of a warp's lanes start on
+    distinct banks), then stages the fewest halo cells."""
+    sizes = [1 << i for i in range(bm.bit_length())]
+
+    def cost(br):
+        nb = math.prod(-(-r // s) for s in br)
+        return (nb * bm, br[2] != 8, nb * math.prod(s + 2 for s in br),
+                -br[2])
+    return min((br for br in itertools.product(sizes, repeat=3)
+                if math.prod(br) == bm and br[2] % run == 0), key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, r: int, ci: int, co: int,
+              dtype: torch.dtype) -> ConvPlan:
+    """The brick kernel's plan for a (b, r, ci, co) conv in `dtype`.
+
+    Chunks: bf16 stages 16 channels when ci <= 16 (the fragment depth) and
+    32 otherwise; fp32 stages 4 channels when ci <= 4 (so a weight stage of
+    27 taps x 4 channels is one K run, not 3/4 zeros), 8 when ci <= 8 and 16
+    otherwise: a power of two, as the kernel's index shifts need. A weight
+    stage holds 27, 9 or 3 taps, the most that fit in 288 rows and in shared
+    memory. A bf16 conv of one chunk keeps registers for two blocks per SM
+    where its accumulators allow, so that one block's staging overlaps
+    another's products.
+
+    Among the compiled tiles, the plan takes the one that gives at least a
+    block per two SMs, then two blocks per SM, then the fewest staged
+    elements (halo cells and weights) per output: the order that picked
+    the fastest tile at every main-path shape on the H100. Cached: the
+    wrapper asks at every call."""
+    bf = dtype == torch.bfloat16
+    esize = 2 if bf else 4
+    vec = 16 // esize
+    if bf:
+        kc = 16 if ci <= 16 else 32
+    else:
+        kc = next(k for k in (4, 8, 16) if ci <= k or k == 16)
+    chunks = -(-ci // kc)
+    # bf16: the halo in K-major core matrices, no row padding
+    hpitch = kc if bf else _odd_units(kc, vec)
+    ldw = -(-co // vec) * vec
+    best = None
+    for bn, tile in (_BF16_TILES if bf else _FP32_TILES):
+        if not bf and bn == 64 and ldw <= 32:
+            continue                       # a narrower tile covers co
+        if bf:
+            bm, brick, wpitch = 128 * tile, (2 * tile, 8, 8), bn
+            # two blocks per SM fit in registers up to 64 accumulators
+            min_blocks = 2 if chunks == 1 and tile <= 2 else 1
+        else:
+            bm = tile * 2048 // bn
+            brick, wpitch, min_blocks = _brick(bm, r, tile), bn, 1
+        cells = math.prod(s + 2 for s in brick)
+        limit = min(SMEM_BYTES, SMEM_SM // min_blocks - 1024) - 8 * bn
+        for taps in (27, 9, 3):
+            steps = chunks * 27 // taps
+            smem = esize * (min(2, chunks) * cells * hpitch
+                            + min(2, steps) * taps * kc * wpitch) + 4 * cells
+            if taps * kc <= 288 and smem <= limit:
+                break
+        else:
+            continue
+        grid = (math.prod(-(-r // s) for s in brick), -(-co // bn), b)
+        staged = chunks * kc * (27 * bn + cells) / (bm * bn)
+        key = (min(math.prod(grid), SMS // 2), min_blocks, -staged)
+        if best is None or key > best[0]:
+            best = (key, ConvPlan(brick, bn, tile, 256, min_blocks, kc, taps,
+                                  hpitch, wpitch, ldw, smem, grid))
+    return best[1]
+
+
+def _launch_brick(x, w, scale, shift, y, stats, pre_swish):
+    """Launch the brick kernel (csrc/conv3d.cu) on its plan."""
+    b, r, ci, co = x.shape[0], x.shape[1], w.shape[3], w.shape[4]
+    p = conv_plan(b, r, ci, co, x.dtype)
+    w = w.reshape(27, ci, co)
+    if p.ldw != co:                        # rows of 16 bytes
+        w = F.pad(w, (0, p.ldw - co)).contiguous()
+    launch("lion_conv3d_brick", ptr(x), ptr(w), ptr(scale), ptr(shift),
+           ptr(y), ptr(stats), b, r, ci, co, p.ldw,
+           int(x.dtype == torch.bfloat16), int(pre_swish), *p.brick, p.bn,
+           p.tile, p.min_blocks, p.kc, p.taps, p.hpitch, p.wpitch, p.smem,
+           stream_of(x))
 
 
 def _conv3d_3x3_fused_plain(x: torch.Tensor, w: torch.Tensor,
@@ -79,10 +212,7 @@ def conv3d_3x3_fused(x: torch.Tensor, w: torch.Tensor,
                          f"w {tuple(w.shape)}")
     y = torch.empty((b, r, r, r, co), device=x.device, dtype=dt)
     stats = torch.zeros((b, 2, co), device=x.device)
-    entry = ("lion_conv3d_3x3_fused" if dt == torch.float32
-             else "lion_conv3d_3x3_bf16")
-    launch(entry, ptr(x), ptr(w), ptr(in_scale), ptr(in_bias), ptr(y),
-           ptr(stats), b, r, ci, co, int(pre_swish), stream_of(x))
+    _launch_brick(x, w, in_scale, in_bias, y, stats, pre_swish)
     return y, stats
 
 
@@ -105,8 +235,7 @@ def conv3d_3x3_same_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3d_3x3_same: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
     y = torch.empty((b, r, r, r, co), device=x.device)
-    launch("lion_conv3d_3x3_same", ptr(x), ptr(w), ptr(y), b, r, ci, co,
-           stream_of(x))
+    _launch_brick(x, w, None, None, y, None, False)
     return y
 
 

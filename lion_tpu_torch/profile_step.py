@@ -3,6 +3,7 @@ two-prior training step, on one GPU.
 
     python -m lion_tpu_torch.profile_step [--batch 4] [--steps 5] [--bf16]
     python -m lion_tpu_torch.profile_step --train [--batch 16] [--steps 3]
+    python -m lion_tpu_torch.profile_step --convs [--batch 16]
 
 Builds the flagship LION (fp32, or with `tpu.bf16 = True` under --bf16;
 random weights from a seed), warms up, then
@@ -17,8 +18,14 @@ dropout on) in three windows: the frozen encode alone, the loss forward
 alone, and the whole step. K10's forward time is its time in the forward
 window; K10-dx is the rest of its time in the step (the same kernel runs
 both); the encode's kernels are those of the encode window.
+
+With --convs it prints the device ms per call of every K4 and K10 case of
+`chip_smoke.py` phase 3 and of cuDNN's conv on the same inputs (bf16 in
+channels-last, fp32 with TF32 off; dx against `conv3d_input`): the kernels
+alone, without the wrapper's host time that CUDA events include.
 """
 import argparse
+import functools
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -27,20 +34,35 @@ from torch.profiler import ProfilerActivity, profile
 _OURS = {"fps_kernel": "fps", "bqg_kernel": "ball_query_group",
          "vox_scatter_kernel": "avg_voxelize",
          "vox_divide_kernel": "avg_voxelize",
-         "conv3d_kernel": "conv3d_3x3_fused",
-         "conv3d_bf16_kernel": "conv3d_3x3_fused",
+         "conv3d_brick": "conv3d_3x3_fused",
          "devox_kernel": "trilinear_devoxelize",
          "three_nn_kernel": "three_nn_interpolate",
          "sa_first_kernel": "sa_fused", "sa_stats_kernel": "sa_fused",
          "sa_dense_kernel": "sa_fused", "sa_max_kernel": "sa_fused",
          "pair_conv_kernel": "conv3d_pair",
          "pvblock_kernel": "pvconv_block_pair", "bq_kernel": "ball_query"}
+# K4's cases (r, ci, co, dtype, affine + swish prologue): fp32, the encode's
+# and the fp32 path's widest convs; bf16, every (r, ci, co) of the bf16
+# local step's twelve K4 calls. K10's: (r, ci, co), its dx at r32 C64.
+K4_CASES = (
+    (32, 64, 64, torch.float32, True),
+    (16, 128, 64, torch.float32, False),
+    (8, 128, 128, torch.float32, True),
+    (32, 4, 32, torch.bfloat16, False),
+    (32, 32, 32, torch.bfloat16, True),
+    (16, 64, 64, torch.bfloat16, True),
+    (16, 128, 64, torch.bfloat16, False),
+    (16, 128, 128, torch.bfloat16, False),
+    (8, 192, 128, torch.bfloat16, False),
+    (8, 128, 128, torch.bfloat16, True),
+)
+K10_CASES = ((32, 64, 64), (32, 4, 32), (16, 128, 64), (8, 192, 128))
 # K4's fp32 kernel without statistics is K10 (the training conv)
-_K10 = "conv3d_kernel<false, false, false>"
+_K10 = ("conv3d_brick_f32<", ", false>")
 
 
 def _group(name: str) -> str:
-    if _K10 in name:
+    if all(part in name for part in _K10):
         return "K conv3d_3x3_same"
     for k, v in _OURS.items():
         if k in name:
@@ -135,6 +157,58 @@ def profile_train(batch: int, steps: int) -> None:
         print(f"[train]   {ms:8.3f} ms  {n:5d} ops  {name} (whole step)")
 
 
+def _ncdhw(x):
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def _oidhw(w):
+    return w.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+
+
+def profile_convs(batch: int, steps: int) -> None:
+    import torch.nn.functional as F
+    from . import ops
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def device_ms(fn):
+        return sum(v[0] for v in _device_groups(fn, steps)[1].values())
+
+    print(f"[setup] {torch.cuda.get_device_name(0)}, batch {batch}, "
+          f"{steps} profiled calls per case")
+    cases = []
+    for r, ci, co, dt, pro in K4_CASES:
+        x = randn(batch, r, r, r, ci).to(dt)
+        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(dt)
+        sc = 1.0 + randn(batch, ci, scale=0.1) if pro else None
+        sh = randn(batch, ci, scale=0.1) if pro else None
+        label = (f"K4 {'bf16' if dt == torch.bfloat16 else 'fp32'} r{r} "
+                 f"C{ci}->{co}{' affine+swish' if pro else ''}")
+        cases.append((label, functools.partial(
+            ops.conv3d_3x3_fused, x, w, sc, sh, pre_swish=pro),
+            functools.partial(F.conv3d, _ncdhw(x), _oidhw(w), padding=1)))
+    for r, ci, co in K10_CASES:
+        x = randn(batch, r, r, r, ci)
+        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+        cases.append((f"K10 r{r} C{ci}->{co}", functools.partial(
+            ops.KERNELS["conv3d_3x3_same"], x, w),
+            functools.partial(F.conv3d, _ncdhw(x), _oidhw(w), padding=1)))
+    gy = randn(batch, 32, 32, 32, 64)
+    w = randn(3, 3, 3, 64, 64, scale=(27 * 64) ** -0.5)
+    cases.append(("K10 dx r32 C64", functools.partial(
+        ops.KERNELS["conv3d_3x3_same"], gy,
+        w.flip(0, 1, 2).transpose(3, 4).contiguous()),
+        functools.partial(torch.nn.grad.conv3d_input, _ncdhw(gy).shape,
+                          _oidhw(w), _ncdhw(gy), padding=1)))
+    for label, ours, cudnn in cases:
+        k, c = device_ms(ours), device_ms(cudnn)
+        print(f"[convs] {label} B{batch}: kernel {k:.4f} ms, cuDNN {c:.4f} "
+              f"ms (device), ratio {k / c:.2f}")
+
+
 def profile_steps(step, steps: int, label: str) -> None:
     wall, groups = _device_groups(step, steps)
     busy = sum(v[0] for v in groups.values())
@@ -154,6 +228,8 @@ def main(argv=None):
                     help="the bf16 configuration (tpu.bf16 = True)")
     ap.add_argument("--train", action="store_true",
                     help="profile the two-prior training step (fp32)")
+    ap.add_argument("--convs", action="store_true",
+                    help="device ms of every K4 / K10 case and cuDNN's conv")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -161,6 +237,9 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     if args.train:
         profile_train(args.batch, args.steps)
+        return
+    if args.convs:
+        profile_convs(args.batch, args.steps)
         return
 
     from .config import flagship_cfg

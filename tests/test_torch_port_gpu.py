@@ -75,14 +75,34 @@ def test_voxelize_kernels(gen, r, c):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("r,ci,co,affine,swish", [
+# K4's cases: (r, ci, co, affine, swish). affine 3.0 shifts the prologue's
+# input by ~3, so that pro(0) = swish(3) != 0 and a kernel that ran the
+# prologue over the zero halo would fail. The main-path shapes, partial
+# bricks (r = 2, 3, 5, 7), Co off a multiple of 16 and Ci below a fragment
+CONV_CASES = [
     (5, 4, 32, False, False), (8, 192, 128, True, True),
-    (16, 128, 64, False, False), (4, 7, 9, True, False), (3, 16, 70, False, True)])
-def test_conv3d_kernel(gen, r, ci, co, affine, swish):
-    x = _randn(gen, 2, r, r, r, ci)
-    w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+    (16, 128, 64, False, False), (4, 7, 9, True, False),
+    (3, 16, 70, False, True),
+    (32, 64, 64, True, True), (32, 4, 32, False, False),
+    (32, 32, 32, True, True), (16, 64, 64, True, True),
+    (16, 128, 128, False, False), (8, 128, 128, True, True),
+    (2, 3, 4, True, True), (7, 12, 24, True, True), (5, 12, 24, False, False),
+    (3, 7, 70, True, False), (7, 32, 9, 3.0, True), (5, 64, 24, 3.0, True),
+    (8, 4, 32, 3.0, True), (16, 12, 70, 3.0, True)]
+
+
+def _conv_inputs(gen, r, ci, co, affine, dtype=torch.float32):
+    x = _randn(gen, 2, r, r, r, ci).to(dtype)
+    w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(dtype)
     s = 1.0 + _randn(gen, 2, ci, scale=0.1) if affine else None
-    bb = _randn(gen, 2, ci, scale=0.1) if affine else None
+    shift = 0.0 if affine is True else float(affine)
+    bb = shift + _randn(gen, 2, ci, scale=0.1) if affine else None
+    return x, w, s, bb
+
+
+@pytest.mark.parametrize("r,ci,co,affine,swish", CONV_CASES)
+def test_conv3d_kernel(gen, r, ci, co, affine, swish):
+    x, w, s, bb = _conv_inputs(gen, r, ci, co, affine)
     (y, st), (yr, sr) = _both("conv3d_3x3_fused", x, w, s, bb,
                               pre_swish=swish)
     # fp32 sums of 27*Ci terms in another order (cuDNN, TF32 off)
@@ -149,12 +169,9 @@ def test_three_nn_kernel_bf16(gen, n, m, c):
 @pytest.mark.parametrize("r,ci,co,affine,swish", [
     (32, 4, 32, False, False), (32, 32, 32, True, True),
     (16, 128, 64, False, False), (8, 192, 128, True, True),
-    (5, 12, 24, True, False), (3, 16, 70, False, True)])
+    (5, 12, 24, True, False), (3, 16, 70, False, True)] + CONV_CASES[5:])
 def test_conv3d_kernel_bf16(gen, r, ci, co, affine, swish):
-    x = _randn(gen, 2, r, r, r, ci).to(BF16)
-    w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(BF16)
-    s = 1.0 + _randn(gen, 2, ci, scale=0.1) if affine else None
-    bb = _randn(gen, 2, ci, scale=0.1) if affine else None
+    x, w, s, bb = _conv_inputs(gen, r, ci, co, affine, BF16)
     (y, st), (yr, sr) = _both("conv3d_3x3_fused", x, w, s, bb,
                               pre_swish=swish)
     assert y.dtype == BF16
@@ -270,8 +287,10 @@ def _flip(w):
     return w.flip(0, 1, 2).transpose(3, 4).contiguous()
 
 
-@pytest.mark.parametrize("r", [2, 4, 8, 16, 32])
-@pytest.mark.parametrize("ci,co", [(3, 4), (4, 96), (96, 192), (192, 3)])
+@pytest.mark.parametrize("r", [2, 3, 4, 5, 7, 8, 16, 32])
+@pytest.mark.parametrize("ci,co", [(3, 4), (4, 96), (96, 192), (192, 3),
+                                   (4, 32), (64, 64), (128, 64), (192, 128),
+                                   (7, 9), (12, 24), (32, 70)])
 def test_conv3d_same_kernel(gen, r, ci, co):
     """K10 forward, and the dx form: the output gradient through the
     flipped, channel-transposed weights."""
