@@ -10,7 +10,8 @@ non-zero:
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main paths' shapes (batch 16), fp32 and bf16, with times
      from CUDA events; every K4 and K10 case with its bound and cuDNN's
-     conv beside it (bf16 in channels-last, fp32 with TF32 off);
+     conv beside it (bf16 in channels-last, fp32 with TF32 off); K8 beside
+     two cuDNN convs and with its fold in every conv1 block;
      K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
      2048-point clouds, N != M both ways and a permuted copy; K13's
      backward against K2's backward of the permuted gradient.

@@ -43,17 +43,6 @@ namespace {
 using lion::bf16;
 using lion::BrickConv;
 
-// The block's (sum, sumsq) per channel into stats[b] (one atomic each).
-__device__ void flush_stats(const BrickConv& p, const lion::Brick& k, int bn,
-                            const float* sstat) {
-  __syncthreads();
-  float* st = p.stats + static_cast<size_t>(k.b) * 2 * p.co;
-  for (int c = threadIdx.x; c < bn && k.n0 + c < p.co; c += blockDim.x) {
-    atomicAdd(st + k.n0 + c, sstat[c]);
-    atomicAdd(st + p.co + k.n0 + c, sstat[bn + c]);
-  }
-}
-
 __device__ lion::BrickPrologue prologue_of(const BrickConv& p, int b) {
   const size_t o = static_cast<size_t>(b) * p.ci;
   return {p.scale ? p.scale + o : nullptr, p.shift ? p.shift + o : nullptr,
@@ -66,20 +55,8 @@ __device__ lion::BrickPrologue prologue_of(const BrickConv& p, int b) {
 template <int PD, int kMinBlocks>
 __global__ void __launch_bounds__(256, kMinBlocks)
 conv3d_brick_bf16(const BrickConv p) {
-  using Tile = lion::BrickTileWgmma<PD>;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float sstat[2 * Tile::kBn];
-  const lion::Brick k(p, Tile::kBn);
-  Tile tile;
-  for (int i = threadIdx.x; i < 2 * Tile::kBn; i += blockDim.x)
-    sstat[i] = 0.0f;
-  lion::brick_pipeline<true>(
-      p, k, Tile::kBn, prologue_of(p, k.b), reinterpret_cast<bf16*>(smem),
-      [&](const bf16* h, const bf16* w, int tap0) {
-        tile.step(p, k, h, w, tap0);
-      });
-  tile.store(p, k, sstat, sstat + Tile::kBn, p.stats != nullptr);
-  if (p.stats != nullptr) flush_stats(p, k, Tile::kBn, sstat);
+  lion::brick_conv_bf16<PD>(p, prologue_of(p, blockIdx.z), smem);
 }
 
 // fp32: 256 threads, 2048 TV / BN voxels x BN channels; kStats false is K10.
@@ -97,17 +74,7 @@ __global__ void __launch_bounds__(256) conv3d_brick_f32(const BrickConv p) {
         tile.step(p, k, h, w, tap0);
       });
   tile.store(p, k, sstat, sstat + BN, kStats);
-  if (kStats) flush_stats(p, k, BN, sstat);
-}
-
-template <class Kernel>
-int launch(Kernel kernel, const BrickConv& p, dim3 grid, int threads,
-           int smem, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, threads, smem, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (kStats) lion::flush_stats(p, k, BN, sstat);
 }
 
 template <bool kStats>
@@ -115,33 +82,17 @@ int launch_f32(const BrickConv& p, dim3 grid, int bn, int tile, int smem,
                cudaStream_t s) {
   switch (bn * 16 + tile) {
     case 64 * 16 + 2:
-      return launch(conv3d_brick_f32<64, 2, kStats>, p, grid, 256, smem, s);
+      return lion::launch_smem(conv3d_brick_f32<64, 2, kStats>, grid, 256,
+                               smem, s, p);
     case 32 * 16 + 8:
-      return launch(conv3d_brick_f32<32, 8, kStats>, p, grid, 256, smem, s);
+      return lion::launch_smem(conv3d_brick_f32<32, 8, kStats>, grid, 256,
+                               smem, s, p);
     case 32 * 16 + 4:
-      return launch(conv3d_brick_f32<32, 4, kStats>, p, grid, 256, smem, s);
+      return lion::launch_smem(conv3d_brick_f32<32, 4, kStats>, grid, 256,
+                               smem, s, p);
     case 32 * 16 + 2:
-      return launch(conv3d_brick_f32<32, 2, kStats>, p, grid, 256, smem, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Two blocks per SM only where the accumulators (32 PD a thread) fit in
-// 128 registers.
-int launch_bf16(const BrickConv& p, dim3 grid, int bn, int tile,
-                int min_blocks, int smem, cudaStream_t s) {
-  if (bn != 64) return static_cast<int>(cudaErrorInvalidValue);
-  switch (tile * 4 + min_blocks) {
-    case 4 * 4 + 1:
-      return launch(conv3d_brick_bf16<4, 1>, p, grid, 256, smem, s);
-    case 2 * 4 + 1:
-      return launch(conv3d_brick_bf16<2, 1>, p, grid, 256, smem, s);
-    case 2 * 4 + 2:
-      return launch(conv3d_brick_bf16<2, 2>, p, grid, 256, smem, s);
-    case 1 * 4 + 1:
-      return launch(conv3d_brick_bf16<1, 1>, p, grid, 256, smem, s);
-    case 1 * 4 + 2:
-      return launch(conv3d_brick_bf16<1, 2>, p, grid, 256, smem, s);
+      return lion::launch_smem(conv3d_brick_f32<32, 2, kStats>, grid, 256,
+                               smem, s, p);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -172,7 +123,12 @@ LION_EXPORT int lion_conv3d_brick(const void* x, const void* w,
                     wpitch, pre_swish};
   const dim3 grid(nbd * nbh * nbw, lion::ceil_div(co, bn), b);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_bf16(p, grid, bn, tile, min_blocks, smem, s);
+  if (is_bf16)
+    return lion::dispatch_bf16(bn, tile, min_blocks, [&](auto pd, auto mb) {
+      return lion::launch_smem(
+          conv3d_brick_bf16<decltype(pd)::value, decltype(mb)::value>, grid,
+          256, smem, s, p);
+    });
   return stats ? launch_f32<true>(p, grid, bn, tile, smem, s)
                : launch_f32<false>(p, grid, bn, tile, smem, s);
 }

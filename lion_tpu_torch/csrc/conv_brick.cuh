@@ -1,9 +1,10 @@
 // Device code of the halo-brick 3x3x3 convolutions: K4 (fp32 and bf16) and
-// K10 (csrc/conv3d.cu). The first design a new 3x3x3 conv should build on;
-// K8 and K9 still run the older per-tap gather of conv_tile.cuh. The bf16
-// tile (BrickTileWgmma) takes a prologue (BrickPrologue, applied as the
-// brick lands) and hands its accumulators to an epilogue (store), the shape
-// of conv_tile_mma's interface.
+// K10 (csrc/conv3d.cu), K8 (csrc/conv3d_pair.cu) and K9 (csrc/pvblock.cu),
+// the port's only 3x3x3 conv design. The bf16 tile (BrickTileWgmma) takes a
+// prologue (BrickPrologue, applied as the brick lands; its scale and shift
+// may lie in global or shared memory) and hands its accumulators to a store
+// that takes the statistics; fold_gn turns a conv's statistics into the
+// next conv's prologue (K8, K9).
 //
 // A block owns a brick of BD x BH x BW output voxels of one item and BN
 // output channels. For each chunk of KC input channels it stages the brick's
@@ -24,6 +25,8 @@
 // bf16 operands lie in 8 x 8 core matrices of 128 contiguous bytes, the
 // layout wgmma reads without conflicts.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -73,36 +76,70 @@ __device__ __forceinline__ void fence_async_proxy() {
 
 // swish?(v * scale[ch] + shift[ch]) (scale == nullptr: no affine), swish
 // by the fast exp and divide (a few ulp of float32; v / inf gives 0).
+// scale and shift are generic pointers: global (K4, K8's fold) or shared
+// (K9's fold).
 struct BrickPrologue {
   const float* scale;
   const float* shift;
   bool swish;
   __device__ bool active() const { return scale != nullptr || swish; }
   __device__ float operator()(int ch, float v) const {
-    if (scale != nullptr) v = v * __ldg(scale + ch) + __ldg(shift + ch);
+    if (scale != nullptr) v = v * scale[ch] + shift[ch];
     return swish ? __fdividef(v, 1.0f + __expf(-v)) : v;
   }
 };
+
+// The GroupNorm fold of the TPU conv pair (conv3d_packed.py:537-562), the
+// same as ops/conv3d.py: gn_affine_from_stats: from the (sum, sumsq) s1/s2
+// of conv0's rounded output over `count` voxels, with conv0's bias b0 added
+// before the norm and the post-norm channel affine (ca, cb), the
+// per-channel (sc, bi) with which conv1 reads swish(y0 * sc + bi). Groups of
+// 8, var = E[x^2] - mean^2 clamped at 0, eps 1e-5. Each thread folds its
+// channels on its own (no shared scratch); the caller publishes sc / bi
+// with a barrier.
+__device__ __forceinline__ void fold_gn(const float* s1, const float* s2,
+                                        const float* b0, const float* ca,
+                                        const float* cb, int c, float count,
+                                        float* sc, float* bi) {
+  const int cg = c / 8;
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    const int g0 = (ch / cg) * cg;
+    float mu = 0.0f, ex2 = 0.0f;
+    for (int j = g0; j < g0 + cg; ++j) {
+      const float m1 = s1[j] / count;
+      mu += m1 + b0[j];
+      ex2 += s2[j] / count + 2.0f * b0[j] * m1 + b0[j] * b0[j];
+    }
+    mu /= cg;
+    ex2 /= cg;
+    const float rs = __frsqrt_rn(fmaxf(ex2 - mu * mu, 0.0f) + 1e-5f);
+    sc[ch] = rs * ca[ch];
+    bi[ch] = (b0[ch] - mu) * rs * ca[ch] + cb[ch];
+  }
+}
 
 // The block's brick: its item, origin and first output channel.
 struct Brick {
   int b, d0, h0, w0, n0;
   int hh, hw, cells;  // halo extents along h and w, halo cells
-  __device__ Brick(const BrickConv& p, int bn) {
-    int bx = blockIdx.x;
+  // brick `bx` (d-major) of item `item`, output channels from n0
+  __device__ Brick(const BrickConv& p, int bx, int n0_, int item) {
     const int iw = bx % p.nbw;
     bx /= p.nbw;
     const int ih = bx % p.nbh;
     const int id = bx / p.nbh;
-    b = blockIdx.z;
+    b = item;
     d0 = id * p.bd;
     h0 = ih * p.bh;
     w0 = iw * p.bw;
-    n0 = blockIdx.y * bn;
+    n0 = n0_;
     hh = p.bh + 2;
     hw = p.bw + 2;
     cells = (p.bd + 2) * hh * hw;
   }
+  // the grid's block: (bricks, output-channel tiles of bn, items)
+  __device__ Brick(const BrickConv& p, int bn)
+      : Brick(p, blockIdx.x, blockIdx.y * bn, blockIdx.z) {}
   // grid coordinates of halo cell `cell`; true if inside the grid
   __device__ bool cell_in_grid(int cell, int r, int& gd, int& gh,
                                int& gw) const {
@@ -443,6 +480,81 @@ struct BrickTileWgmma {
     }
   }
 };
+
+// The block's (sum, sumsq) per channel into stats[b] (one atomic each).
+__device__ __forceinline__ void flush_stats(const BrickConv& p,
+                                            const Brick& k, int bn,
+                                            const float* sstat) {
+  __syncthreads();
+  float* st = p.stats + static_cast<size_t>(k.b) * 2 * p.co;
+  for (int c = threadIdx.x; c < bn && k.n0 + c < p.co; c += blockDim.x) {
+    atomicAdd(st + k.n0 + c, sstat[c]);
+    atomicAdd(st + p.co + k.n0 + c, sstat[bn + c]);
+  }
+}
+
+// One bf16 block of a brick conv: stage, multiply, store y and add each
+// channel's (sum, sumsq) of the rounded y to ssum / ssq (shared) if `stats`.
+// The core of K4's and K8's kernels (brick_conv_bf16) and of K9's two convs.
+template <int PD>
+__device__ __forceinline__ void brick_conv_block(const BrickConv& p,
+                                                 const Brick& k,
+                                                 const BrickPrologue& pro,
+                                                 bf16* smem, float* ssum,
+                                                 float* ssq, bool stats) {
+  BrickTileWgmma<PD> tile;
+  brick_pipeline<true>(p, k, BrickTileWgmma<PD>::kBn, pro, smem,
+                       [&](const bf16* h, const bf16* w, int tap0) {
+                         tile.step(p, k, h, w, tap0);
+                       });
+  tile.store(p, k, ssum, ssq, stats);
+}
+
+// One bf16 block of a brick conv on the grid (bricks, channel tiles,
+// items): brick_conv_block, then the statistics into p.stats (if not
+// null). The body of K4's bf16 kernel and of K8's two.
+template <int PD>
+__device__ __forceinline__ void brick_conv_bf16(const BrickConv& p,
+                                                const BrickPrologue& pro,
+                                                void* smem) {
+  constexpr int kBn = BrickTileWgmma<PD>::kBn;
+  __shared__ float sstat[2 * kBn];
+  const Brick k(p, kBn);
+  for (int i = threadIdx.x; i < 2 * kBn; i += blockDim.x) sstat[i] = 0.0f;
+  brick_conv_block<PD>(p, k, pro, static_cast<bf16*>(smem), sstat,
+                       sstat + kBn, p.stats != nullptr);
+  if (p.stats != nullptr) flush_stats(p, k, kBn, sstat);
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory.
+template <class Kernel, class... Args>
+int launch_smem(Kernel kernel, dim3 grid, int threads, int smem,
+                cudaStream_t s, const Args&... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// go(Int<PD>, Int<min blocks per SM>) for the plan's bf16 tile (the
+// compiled pairs of ops/conv3d.py: _BF16_TILES; two blocks per SM only
+// where the accumulators, 32 PD a thread, fit in 128 registers).
+template <class Go>
+int dispatch_bf16(int bn, int tile, int min_blocks, Go&& go) {
+  if (bn != 64) return static_cast<int>(cudaErrorInvalidValue);
+  switch (tile * 4 + min_blocks) {
+    case 4 * 4 + 1: return go(Int<4>{}, Int<1>{});
+    case 2 * 4 + 1: return go(Int<2>{}, Int<1>{});
+    case 2 * 4 + 2: return go(Int<2>{}, Int<2>{});
+    case 1 * 4 + 1: return go(Int<1>{}, Int<1>{});
+    case 1 * 4 + 2: return go(Int<1>{}, Int<2>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // ------------------------------------------------------------------ fp32
 // Exact fp32 FFMA. 256 threads: BN / 8 along the channels, 2048 / BN along

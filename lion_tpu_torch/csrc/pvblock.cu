@@ -6,7 +6,7 @@
 //
 // Semantics: those of the K3 -> K8 -> K5 chain in bf16 (see
 // ops/pvblock.py): grid = bf16(float32 mean of the features per cell);
-// y0 = bf16(conv0(grid)); the fold of st0 (conv_tile.cuh fold_gn);
+// y0 = bf16(conv0(grid)); the fold of st0 (conv_brick.cuh: fold_gn);
 // y1 = bf16(conv1(bf16(swish(y0 * sc + bi)))); st1 = (sum, sumsq) of the
 // rounded y1; points = bf16(sum over the 8 corners of y1 * bf16(weight)).
 //
@@ -16,172 +16,205 @@
 // the zero-padded 10^3 grid would be 256 KB, more than one block's shared
 // memory.
 // Design: one thread-block cluster of 8 blocks per item, one launch. Block
-// `rank` owns the 64 cells [64 rank, 64 rank + 64): it voxelizes them
-// (scatter-adds in shared memory), computes their rows of conv0 and conv1
-// (conv_tile.cuh, 8 warps, 64 x 128 tiles) and devoxelizes N / 8 of the
-// points. The grids (grid, y0, y1) live in a per-item global scratch that
-// stays in L2 and is read with __ldcg; each stage ends with a fence and a
-// cluster barrier. The statistics of each block stay in its shared memory;
-// the fold sums the 8 blocks' partial statistics through distributed
-// shared memory.
+// `rank` = 2 pp + half owns output planes d in [2 pp, 2 pp + 2) and output
+// channels [64 half, 64 half + 64): the brick of K4's bf16 tile
+// (BrickTileWgmma<1>, two warpgroups of one 8 x 8 plane by 64 channels),
+// with conv_plan's brick, tiles and chunk for (b, 8, 128, 128, bf16)
+// (ops/conv3d.py): the 8 blocks are its grid of 4 bricks x 2 channel
+// tiles. A weight stage holds 3 taps, not the plan's 9, so that two blocks
+// fit an SM (79 KB of shared memory each) and a batch of 16 clusters fits
+// the card at once. The block voxelizes its 128 cells x 64 channels, stages
+// each conv's (2+2) x 10 x 10 halo brick from the item's grid with
+// cp.async.cg (through L2, which holds what the other blocks wrote once
+// they passed a fence and a cluster barrier), runs the wgmma products over
+// 4 chunks of 32 channels x 9 stages of 3 taps, stores its piece of y0 / y1
+// and keeps its partial statistics in shared memory, and devoxelizes N / 8
+// of the points. The grids (grid, y0, y1) live in a
+// global scratch that stays in L2. Each block folds the item's st0 from the
+// 8 partials, read through distributed shared memory and summed in rank
+// order, so the statistics do not depend on the order of the blocks; the
+// voxelize still adds features with shared-memory atomics.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
-#include "conv_tile.cuh"
+#include "conv_brick.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using lion::bf16;
+
 constexpr int kR = 8;
 constexpr int kC = 128;
 constexpr int kR3 = kR * kR * kR;
 constexpr int kCluster = 8;
-constexpr int kCells = kR3 / kCluster;  // cells per block, = Tile::kBM
 constexpr int kMaxN = 4096;
-using Tile = lion::ConvTile<2, 4>;      // 64 voxels x 128 channels
-static_assert(kCells == Tile::kBM && kC == Tile::kBN, "one tile per block");
+constexpr int kPlanes = 2;                // output planes per block
+constexpr int kBn = 64;                   // output channels per block
+constexpr int kCells = kPlanes * kR * kR;  // output cells a block owns
+constexpr int kKc = 32;                   // input channels per chunk
+constexpr int kTaps = 3;                  // taps per weight stage
+constexpr int kHalo = (kPlanes + 2) * (kR + 2) * (kR + 2);
+// two blocks per SM: 16 clusters of 8 fit the H100 at once (at one
+// block per SM its GPCs hold 14, and batch 16 takes two waves)
+constexpr int kBlocksPerSm = 2;
+constexpr int kTilePd = kPlanes / 2;      // planes per warpgroup
+static_assert(lion::BrickTileWgmma<kTilePd>::kBn == kBn &&
+                  (kR / kPlanes) * (kC / kBn) == kCluster,
+              "the cluster is the plan's grid of one item");
+
+// brick_pipeline's buffers: two halo chunks, two weight stages, the cells
+struct ConvSmem {
+  bf16 halo[2][kHalo * kKc];
+  bf16 w[2][kTaps * kKc * kBn];
+  int cell[kHalo];
+};
 
 struct VoxSmem {
-  float sums[kCells * kC];
+  float sums[kCells * kBn];
   int count[kCells];
   int cell[kMaxN];
 };
 
-struct ConvSmem {
-  Tile::Smem tile;
-  float st0[2 * kC];
-  float st1[2 * kC];
-  float tot[2 * kC];
-  float sc[kC];
-  float bi[kC];
-  float tmp[2 * kC];
-};
-
-union BlockSmem {
-  VoxSmem vox;
-  ConvSmem conv;
-};
+constexpr int kSmem = sizeof(ConvSmem) > sizeof(VoxSmem) ? sizeof(ConvSmem)
+                                                         : sizeof(VoxSmem);
 
 __device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster) {
   __threadfence();  // this block's global writes, visible to the cluster
   cluster.sync();
 }
 
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(
-    Tile::kThreads)
-pvblock_kernel(const lion::bf16* __restrict__ feats,
-               const int* __restrict__ vox, const float* __restrict__ coords,
-               const lion::bf16* __restrict__ w0,
-               const float* __restrict__ b0, const float* __restrict__ ca,
-               const float* __restrict__ cb,
-               const lion::bf16* __restrict__ w1, int n,
-               lion::bf16* scratch, lion::bf16* __restrict__ out,
-               float* __restrict__ st1_out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  BlockSmem& sm = *reinterpret_cast<BlockSmem*>(smem_raw);
+__device__ __forceinline__ float load_l2(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// The sum over the 4 plane pairs of channel half `half`'s partial (sum,
+// sumsq) i (i < 2 kBn), in rank order.
+__device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
+                                             float* part, int half, int i) {
+  float s = 0.0f;
+  for (int pp = 0; pp < kCluster / 2; ++pp)
+    s += cluster.map_shared_rank(part, 2 * pp + half)[i];
+  return s;
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(256, kBlocksPerSm)
+    pvblock_brick(const bf16* __restrict__ feats,
+                  const int* __restrict__ vox,
+                  const float* __restrict__ coords,
+                  const bf16* __restrict__ w0, const float* __restrict__ b0,
+                  const float* __restrict__ ca, const float* __restrict__ cb,
+                  const bf16* __restrict__ w1, int n, bf16* scratch,
+                  bf16* __restrict__ out, float* __restrict__ st1_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // partial statistics (sum, sumsq) of this block's channels, the item's
+  // st0 and the fold
+  __shared__ float st0[2 * kBn], st1[2 * kBn], tot[2 * kC], sc[kC], bi[kC];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
+  const int pp = rank >> 1, half = rank & 1;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int v0 = rank * kCells;
-  lion::bf16* grid = scratch + static_cast<size_t>(b) * 2 * kR3 * kC;
-  lion::bf16* y0 = grid + kR3 * kC;
-  lion::bf16* y1 = grid;  // the grid is dead once conv0 is done
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // scratch (2, B, r^3, C): the grids, then y0; y1 goes over the grid,
+  // which is dead once conv0 is done
+  bf16* grids = scratch;
+  bf16* y0s = scratch + static_cast<size_t>(gridDim.y) * kR3 * kC;
+  bf16* grid = grids + static_cast<size_t>(b) * kR3 * kC;
+  for (int i = tid; i < 2 * kBn; i += nt) st0[i] = st1[i] = 0.0f;
 
-  // ---- voxelize this block's cells ----
+  // ---- voxelize this block's cells and channels ----
   {
-    VoxSmem& vs = sm.vox;
+    VoxSmem& vs = *reinterpret_cast<VoxSmem*>(smem);
     const int* vb = vox + static_cast<size_t>(b) * n * 3;
-    for (int i = tid; i < kCells * kC; i += nt) vs.sums[i] = 0.0f;
+    const int cell0 = pp * kCells;
+    for (int i = tid; i < kCells * kBn; i += nt) vs.sums[i] = 0.0f;
     for (int i = tid; i < kCells; i += nt) vs.count[i] = 0;
     for (int p = tid; p < n; p += nt) {
       const int x = vb[3 * p], y = vb[3 * p + 1], z = vb[3 * p + 2];
       const bool in = x >= 0 && x < kR && y >= 0 && y < kR && z >= 0 &&
                       z < kR;
-      const int c = in ? (x * kR + y) * kR + z - v0 : -1;
+      const int c = in ? (x * kR + y) * kR + z - cell0 : -1;
       vs.cell[p] = (c >= 0 && c < kCells) ? c : -1;
     }
     __syncthreads();
     for (int p = tid; p < n; p += nt)
       if (vs.cell[p] >= 0) atomicAdd(&vs.count[vs.cell[p]], 1);
-    const lion::bf16* fb = feats + static_cast<size_t>(b) * n * kC;
-    for (int e = tid; e < n * kC; e += nt) {
-      const int c = vs.cell[e / kC];
+    const bf16* fb = feats + static_cast<size_t>(b) * n * kC + half * kBn;
+    for (int e = tid; e < n * kBn; e += nt) {
+      const int c = vs.cell[e / kBn];
       if (c >= 0)
-        atomicAdd(&vs.sums[c * kC + e % kC], __bfloat162float(fb[e]));
+        atomicAdd(&vs.sums[c * kBn + e % kBn],
+                  __bfloat162float(fb[static_cast<size_t>(e / kBn) * kC +
+                                      e % kBn]));
     }
     __syncthreads();
-    for (int i = tid; i < kCells * kC; i += nt) {
-      const int k = vs.count[i / kC];
-      grid[static_cast<size_t>(v0) * kC + i] =
+    for (int i = tid; i < kCells * kBn; i += nt) {
+      const int k = vs.count[i / kBn];
+      grid[static_cast<size_t>(cell0 + i / kBn) * kC + half * kBn +
+           i % kBn] =
           __float2bfloat16_rn(k > 0 ? vs.sums[i] / static_cast<float>(k)
                                     : 0.0f);
     }
   }
   cluster_barrier(cluster);
 
-  // ---- conv0 of this block's cells ----
-  ConvSmem& cs = sm.conv;
-  for (int i = tid; i < 2 * kC; i += nt) {
-    cs.st0[i] = 0.0f;
-    cs.st1[i] = 0.0f;
-  }
-  __syncthreads();
-  lion::conv_tile_mma<2, 4, true>(grid, w0, kR, kC, kC, v0, 0,
-                                  lion::NoPrologue{}, cs.tile);
-  lion::conv_tile_store<2, 4>(cs.tile, y0, kR3, kC, v0, 0, cs.st0,
-                              cs.st0 + kC);
+  // ---- conv0 of this block's brick ----
+  lion::BrickConv p{grids, w0,  nullptr, nullptr, y0s,   nullptr, kR,
+                    kC,    kC,  kC,      kPlanes, kR,    kR,      1,
+                    1,     kKc, kTaps,   kKc,     kBn,   0};
+  const lion::Brick k(p, pp, half * kBn, b);
+  bf16* const buf = reinterpret_cast<bf16*>(smem);
+  lion::brick_conv_block<kTilePd>(
+      p, k, lion::BrickPrologue{nullptr, nullptr, false}, buf, st0,
+      st0 + kBn, true);
   cluster_barrier(cluster);
 
-  // ---- fold: the item's st0 is the sum of the 8 blocks' ----
+  // ---- fold: the item's st0 is the sum of the 4 plane pairs' ----
   for (int i = tid; i < 2 * kC; i += nt) {
-    float s = 0.0f;
-    for (int q = 0; q < kCluster; ++q)
-      s += cluster.map_shared_rank(cs.st0, q)[i];
-    cs.tot[i] = s;
+    const int c = i % kC;
+    tot[i] = cluster_sum(cluster, st0, c / kBn, (i / kC) * kBn + c % kBn);
   }
   __syncthreads();
-  lion::fold_gn(cs.tot, cs.tot + kC, b0, ca + static_cast<size_t>(b) * kC,
-                cb + static_cast<size_t>(b) * kC, kC,
-                static_cast<float>(kR3), cs.sc, cs.bi, cs.tmp);
+  const size_t o = static_cast<size_t>(b) * kC;
+  lion::fold_gn(tot, tot + kC, b0, ca + o, cb + o, kC,
+                static_cast<float>(kR3), sc, bi);
 
-  // ---- conv1 of this block's cells ----
-  lion::conv_tile_mma<2, 4, true>(y0, w1, kR, kC, kC, v0, 0,
-                                  lion::FoldPrologue{cs.sc, cs.bi}, cs.tile);
-  lion::conv_tile_store<2, 4>(cs.tile, y1, kR3, kC, v0, 0, cs.st1,
-                              cs.st1 + kC);
+  // ---- conv1 of this block's brick (the pipeline's first barrier
+  // publishes sc / bi) ----
+  p.x = y0s;
+  p.w = w1;
+  p.y = grids;
+  lion::brick_conv_block<kTilePd>(p, k, lion::BrickPrologue{sc, bi, true},
+                                  buf, st1, st1 + kBn, true);
   cluster_barrier(cluster);
 
-  if (rank == 0) {
-    for (int i = tid; i < 2 * kC; i += nt) {
-      float s = 0.0f;
-      for (int q = 0; q < kCluster; ++q)
-        s += cluster.map_shared_rank(cs.st1, q)[i];
-      st1_out[static_cast<size_t>(b) * 2 * kC + i] = s;
-    }
+  if (pp == 0) {  // one block per channel half writes the item's st1
+    for (int i = tid; i < 2 * kBn; i += nt)
+      st1_out[o * 2 + (i / kBn) * kC + half * kBn + i % kBn] =
+          cluster_sum(cluster, st1, half, i);
   }
-  // no block may leave while rank 0 reads its shared memory
-  cluster.sync();
 
   // ---- devoxelize this block's share of the points ----
   const int per = n / kCluster;
   const float* cb3 = coords + (static_cast<size_t>(b) * n + rank * per) * 3;
-  lion::bf16* ob = out + (static_cast<size_t>(b) * n + rank * per) * kC;
+  bf16* ob = out + (static_cast<size_t>(b) * n + rank * per) * kC;
   for (int e = tid; e < per * kC; e += nt) {
-    const lion::bf16* g = y1 + e % kC;
-    ob[e] = __float2bfloat16_rn(lion::trilinear<lion::bf16>(
+    const bf16* g = grid + e % kC;
+    ob[e] = __float2bfloat16_rn(lion::trilinear<bf16>(
         cb3 + (e / kC) * 3, kR,
-        [&](size_t cell) { return lion::load1(g + cell * kC, true); }));
+        [&](size_t cell) { return load_l2(g + cell * kC); }));
   }
+  // no block may leave while another reads its shared memory
+  cluster.sync();
 }
 
 }  // namespace
 
 // feats (B, N, 128) bf16, vox (B, N, 3) i32, coords (B, N, 3) f32 in [0, 7];
 // w0/w1 (3, 3, 3, 128, 128) bf16; b0 (128,) f32; ca/cb (B, 128) f32;
-// scratch (B, 2, 512, 128) bf16 -> out (B, N, 128) bf16, st1 (B, 2, 128)
+// scratch (2, B, 512, 128) bf16 -> out (B, N, 128) bf16, st1 (B, 2, 128)
 // f32. r must be 8, C 128, N a multiple of 8 and at most 4096.
 LION_EXPORT int lion_pvconv_block_pair(const void* feats, const void* vox,
                                        const void* coords, const void* w0,
@@ -192,17 +225,12 @@ LION_EXPORT int lion_pvconv_block_pair(const void* feats, const void* vox,
                                        void* stream) {
   if (r != kR || c != kC || n % kCluster || n > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(BlockSmem));
-  cudaError_t err = cudaFuncSetAttribute(
-      pvblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pvblock_kernel<<<dim3(kCluster, b), Tile::kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const lion::bf16*>(feats), static_cast<const int*>(vox),
-      static_cast<const float*>(coords), static_cast<const lion::bf16*>(w0),
-      static_cast<const float*>(b0), static_cast<const float*>(ca),
-      static_cast<const float*>(cb), static_cast<const lion::bf16*>(w1), n,
-      static_cast<lion::bf16*>(scratch), static_cast<lion::bf16*>(out),
-      static_cast<float*>(st1));
-  return static_cast<int>(cudaGetLastError());
+  return lion::launch_smem(
+      pvblock_brick, dim3(kCluster, b), 256, kSmem,
+      static_cast<cudaStream_t>(stream), static_cast<const bf16*>(feats),
+      static_cast<const int*>(vox), static_cast<const float*>(coords),
+      static_cast<const bf16*>(w0), static_cast<const float*>(b0),
+      static_cast<const float*>(ca), static_cast<const float*>(cb),
+      static_cast<const bf16*>(w1), n, static_cast<bf16*>(scratch),
+      static_cast<bf16*>(out), static_cast<float*>(st1));
 }

@@ -131,6 +131,10 @@ class LION(nn.Module):
 
     def _sample(self, num_samples, generator, given_noise, chunks,
                 ddim_step=0):
+        if self.cfg.sde.ode_sample:
+            raise NotImplementedError(
+                "PF-ODE sampling (sde.ode_sample) is not ported (ROADMAP "
+                "Queue 1 item D, continuous diffusion)")
         self.eval()
         dev = self.device
         if generator is None:

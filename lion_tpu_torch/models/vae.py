@@ -53,6 +53,9 @@ class VAE(nn.Module):
                 (cfg.shapelatent.decoder_type, "LatentPointDecPVC")):
             if not name.endswith(want):
                 raise NotImplementedError(name)
+        if cfg.latent_pts.style_mlp != "":
+            raise NotImplementedError(
+                "style_mlp variants not implemented; released configs use ''")
         self.input_dim = cfg.ddpm.input_dim
         self.latent_dim = cfg.shapelatent.latent_dim
         self.num_points = cfg.data.tr_max_sample_points

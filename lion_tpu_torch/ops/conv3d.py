@@ -48,6 +48,8 @@ GN_GROUPS, GN_EPS = 8, 1e-5
 # tile * 2048 / bn voxels. (The plan never chose wider tiles at any shape.)
 SMEM_BYTES, SMEM_SM = 232448, 233472
 SMS = 132
+# the widest K8 takes (its wrapper's contract)
+PAIR_MAX_C = 256
 _BF16_TILES = ((64, 4), (64, 2), (64, 1))
 _FP32_TILES = ((64, 2), (32, 8), (32, 4), (32, 2))
 
@@ -317,20 +319,24 @@ def conv3d_pair(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     x (B, R, R, R, C) bf16; w0, w1 (3, 3, 3, C, C) bf16; b0 (C,) f32 the
     conv0 bias; ca, cb (B, C) f32 the post-norm channel affine. Returns
     (y1 (B, R, R, R, C) bf16 without conv1's bias, st1 (B, 2, C) f32 the
-    (sum, sumsq) of the rounded y1). Two launches: conv0 (+ its stats),
-    then conv1 with the fold computed from those stats in every block."""
+    (sum, sumsq) of the rounded y1). Three launches: the brick conv0 (+ its
+    stats), a fold kernel (one block per item), the brick conv1 with the
+    fold and swish as its prologue."""
     check_cuda(x, w0, w1, dtype=torch.bfloat16)
     check_cuda(b0, ca, cb, device=x.device)
     b, r, c = x.shape[0], x.shape[1], x.shape[-1]
     if (x.shape[1:] != (r, r, r, c) or w0.shape != (3, 3, 3, c, c)
-            or w1.shape != w0.shape or c % 8 or c > 256):
+            or w1.shape != w0.shape or c % 8 or c > PAIR_MAX_C):
         raise ValueError(f"conv3d_pair: x {tuple(x.shape)}, w0 "
                          f"{tuple(w0.shape)}, w1 {tuple(w1.shape)} (needs "
-                         "Ci == Co, a multiple of 8, at most 256)")
+                         f"Ci == Co, a multiple of 8, at most {PAIR_MAX_C})")
+    p = conv_plan(b, r, c, c, torch.bfloat16)
     y0 = torch.empty_like(x)
     y1 = torch.empty_like(x)
     st = torch.zeros((2, b, 2, c), device=x.device)
+    fold = torch.empty((2, b, c), device=x.device)
     launch("lion_conv3d_pair", ptr(x), ptr(w0), ptr(b0), ptr(ca), ptr(cb),
-           ptr(w1), ptr(y0), ptr(st[0]), ptr(y1), ptr(st[1]), b, r, c,
-           stream_of(x))
+           ptr(w1), ptr(y0), ptr(st[0]), ptr(y1), ptr(st[1]), ptr(fold), b,
+           r, c, *p.brick, p.tile, p.min_blocks, p.kc, p.taps, p.hpitch,
+           p.wpitch, p.smem, stream_of(x))
     return y1, st[1]

@@ -12,6 +12,11 @@ values with float32 sums and round to bf16; the fold takes the statistics
 of the rounded conv0 output (conv3d.gn_affine_from_stats); the devoxelized
 points are bf16. Returns the points and the (sum, sumsq) of the rounded conv1
 output, which the caller folds with the next norm, as after K8.
+
+The kernel is a cluster of 8 blocks per item on K4's bf16 brick tile: the
+8 blocks are conv_plan's grid for (b, 8, 128, 128, bf16), 4 bricks of two
+8 x 8 planes by 2 tiles of 64 output channels, and the item's statistics
+are the sum of the 4 bricks' partials in rank order.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ def pvconv_block_pair(features: torch.Tensor, vox_coords: torch.Tensor,
     if w0.shape != (3, 3, 3, c, c) or w1.shape != w0.shape:
         raise ValueError(f"pvconv_block_pair: w0 {tuple(w0.shape)}, "
                          f"w1 {tuple(w1.shape)}")
-    scratch = torch.empty((b, 2, r ** 3, c), dtype=torch.bfloat16,
+    scratch = torch.empty((2, b, r ** 3, c), dtype=torch.bfloat16,
                           device=dev)
     out = torch.empty_like(features)
     st1 = torch.empty((b, 2, c), device=dev)

@@ -22,7 +22,10 @@ both); the encode's kernels are those of the encode window.
 With --convs it prints the device ms per call of every K4 and K10 case of
 `chip_smoke.py` phase 3 and of cuDNN's conv on the same inputs (bf16 in
 channels-last, fp32 with TF32 off; dx against `conv3d_input`): the kernels
-alone, without the wrapper's host time that CUDA events include.
+alone, without the wrapper's host time that CUDA events include. Then K8
+at r32 C64 beside two cuDNN bf16 convs (its yardstick; no PyTorch call
+computes the pair), and K9 at r8 C128 N256 at the batch and at batch 1
+(one cluster of 8 blocks alone).
 """
 import argparse
 import functools
@@ -39,8 +42,9 @@ _OURS = {"fps_kernel": "fps", "bqg_kernel": "ball_query_group",
          "three_nn_kernel": "three_nn_interpolate",
          "sa_first_kernel": "sa_fused", "sa_stats_kernel": "sa_fused",
          "sa_dense_kernel": "sa_fused", "sa_max_kernel": "sa_fused",
-         "pair_conv_kernel": "conv3d_pair",
-         "pvblock_kernel": "pvconv_block_pair", "bq_kernel": "ball_query"}
+         "pair_conv0_brick": "conv3d_pair",
+         "pair_conv1_brick": "conv3d_pair", "pair_fold_kernel": "conv3d_pair",
+         "pvblock_brick": "pvconv_block_pair", "bq_kernel": "ball_query"}
 # K4's cases (r, ci, co, dtype, affine + swish prologue): fp32, the encode's
 # and the fp32 path's widest convs; bf16, every (r, ci, co) of the bf16
 # local step's twelve K4 calls. K10's: (r, ci, co), its dx at r32 C64.
@@ -207,6 +211,36 @@ def profile_convs(batch: int, steps: int) -> None:
         k, c = device_ms(ours), device_ms(cudnn)
         print(f"[convs] {label} B{batch}: kernel {k:.4f} ms, cuDNN {c:.4f} "
               f"ms (device), ratio {k / c:.2f}")
+    profile_pair(batch, device_ms, randn)
+
+
+def profile_pair(batch, device_ms, randn) -> None:
+    """K8 beside two cuDNN convs, and K9."""
+    import torch.nn.functional as F
+    from . import ops
+    from .ops.voxel import normalize_coords
+    bf = torch.bfloat16
+    c = 64
+    x = randn(batch, 32, 32, 32, c).to(bf)
+    w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(bf)
+    pair = (x, w, randn(c, scale=0.1), 1.0 + randn(batch, c, scale=0.1),
+            randn(batch, c, scale=0.1), w)
+    xc, wc = _ncdhw(x), _oidhw(w)
+    two = device_ms(lambda: (F.conv3d(xc, wc, padding=1),
+                             F.conv3d(xc, wc, padding=1)))
+    k = device_ms(functools.partial(ops.conv3d_pair, *pair))
+    print(f"[convs] K8 bf16 r32 C64 B{batch}: kernel {k:.4f} ms, two cuDNN "
+          f"convs {two:.4f} ms (device), ratio {k / two:.2f}")
+    c = 128
+    w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(bf)
+    for b in (batch, 1):   # batch 1: one cluster's latency
+        nc = normalize_coords(randn(b, 256, 3, scale=0.3), 8).contiguous()
+        block = (randn(b, 256, c).to(bf), torch.round(nc).to(torch.int32),
+                 nc, w, randn(c, scale=0.1), 1.0 + randn(b, c, scale=0.1),
+                 randn(b, c, scale=0.1), w, 8)
+        k = device_ms(functools.partial(ops.pvconv_block_pair, *block))
+        print(f"[convs] K9 bf16 r8 C128 N256 B{b}: kernel {k:.4f} ms "
+              f"(device)")
 
 
 def profile_steps(step, steps: int, label: str) -> None:

@@ -1,7 +1,9 @@
-"""The plan of the halo-brick convolutions (K4 and K10, csrc/conv_brick.cuh)
-on the CPU: `conv_plan` at every main-path and GPU-edge shape, and a PyTorch
-walk of each plan's bricks, with the kernel's index and halo logic, against
-the plain versions.
+"""The plan of the halo-brick convolutions (K4, K8, K9 and K10,
+csrc/conv_brick.cuh) on the CPU: `conv_plan` at every main-path and GPU-edge
+shape, and a PyTorch walk of each plan's bricks, with the kernel's index and
+halo logic, against the plain versions: K4 and K10 alone, K8's two brick
+convs with the fold between them, and K9's cluster of 4 bricks x 2 channel
+tiles per item with its per-block voxelize, statistics and devoxelize.
 
 The kernel itself runs only on the card (tests/test_torch_port_gpu.py); this
 file holds what surrounds it: the grid covers every output voxel and channel
@@ -10,15 +12,20 @@ chunks of input channels and the output-channel tiles put every product in
 its place.
 """
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from lion_tpu_torch.ops.conv3d import (SMEM_BYTES, SMEM_SM, _BF16_TILES,
-                                       _FP32_TILES,
+from lion_tpu_torch.ops.conv3d import (GN_EPS, GN_GROUPS, SMEM_BYTES,
+                                       SMEM_SM, _BF16_TILES, _FP32_TILES,
                                        _conv3d_3x3_fused_plain,
+                                       _conv3d_pair_plain,
                                        _conv3d_3x3_same_plain, conv_plan)
+from lion_tpu_torch.ops.pvblock import _pvconv_block_pair_plain
+from lion_tpu_torch.ops.voxel import _trilinear_devoxelize_plain
 
 BF16, F32 = torch.bfloat16, torch.float32
 # (b, r, ci, co): the local step's K4 / K10 shapes at batch 16 and the GPU
@@ -74,12 +81,15 @@ def test_plan_covers_the_output_once_and_fits(b, r, ci, co, dtype):
     assert (count == 1).all()
 
 
-def _walk(x, w, scale, shift, swish, p):
+def _walk(x, w, scale, shift, swish, p, rounded=False, parts=None):
     """y = conv3d_SAME(pro(x), w) and its statistics, computed brick by
     brick as the kernel computes them (float32): block (bx, by, item)
     gathers each chunk's halo brick by the kernel's cell decode, applies the
     prologue to the in-grid cells only, leaves the halo and the channels
-    past ci at 0, and adds the 27 taps as row offsets into the brick."""
+    past ci at 0, and adds the 27 taps as row offsets into the brick.
+    `rounded`: the bf16 kernel's roundings (the prologue's output and y to
+    bf16, the statistics of the rounded y). `parts`: a dict that receives
+    each block's partial (sum, sumsq) of its channels, (2, m)."""
     b, r = x.shape[:2]
     ci, co = w.shape[3], w.shape[4]
     bd, bh, bw = p.brick
@@ -118,16 +128,24 @@ def _walk(x, w, scale, shift, swish, p):
                             + shift[item, c0:c0 + n]
                     if swish:
                         vals = vals * torch.sigmoid(vals)
+                    if rounded and (scale is not None or swish):
+                        vals = _bf16(vals)
                     halo[inside, :n] = vals
                     for t, off in enumerate(taps):
                         acc += halo[rows + off] @ wp[t, c0:c0 + p.kc,
                                                      n0:n0 + p.bn]
                 m = min(p.bn, co - n0)
-                got = acc[out, :m]
+                got = _bf16(acc[out, :m]) if rounded else acc[out, :m]
                 y[item, od[out], oh[out], ow[out], n0:n0 + m] = got
-                stats[item, 0, n0:n0 + m] += got.sum(0)
-                stats[item, 1, n0:n0 + m] += (got * got).sum(0)
+                part = torch.stack([got.sum(0), (got * got).sum(0)])
+                stats[item, :, n0:n0 + m] += part
+                if parts is not None:
+                    parts[bx, by, item] = part
     return y, stats
+
+
+def _bf16(t):
+    return t.to(BF16).float()
 
 
 # (plan dtype, b, r, ci, co): partial bricks, several chunks and output
@@ -179,3 +197,179 @@ def test_brick_walk_matches_the_same_conv(dtype, b, r, ci, co):
     dxr = _conv3d_3x3_same_plain(g, wt)
     torch.testing.assert_close(dx, dxr, rtol=1e-5,
                                atol=1e-5 * float(dxr.abs().max()))
+
+
+# ------------------------------------------------- K8 and K9 (the pair)
+def _fold(st, b0, ca, cb, count):
+    """conv_brick.cuh: fold_gn, channel by channel as the kernel folds:
+    per-channel moments with the pre-bias b0, their means over each group
+    of C / 8 channels, var clamped at 0, (sc, bi)."""
+    s1, s2 = st[:, 0], st[:, 1]
+    m1 = s1 / count
+    mu_c = m1 + b0
+    ex2_c = s2 / count + 2.0 * b0 * m1 + b0 * b0
+    b, c = s1.shape
+    mu = mu_c.reshape(b, GN_GROUPS, -1).mean(2).repeat_interleave(
+        c // GN_GROUPS, 1)
+    ex2 = ex2_c.reshape(b, GN_GROUPS, -1).mean(2).repeat_interleave(
+        c // GN_GROUPS, 1)
+    rs = torch.rsqrt(torch.clamp_min(ex2 - mu * mu, 0.0) + GN_EPS)
+    return rs * ca, (b0 - mu) * rs * ca + cb
+
+
+def _pair_walk(x, w0, b0, ca, cb, w1, rounded):
+    """K8: conv0 on the pair's plan, the fold of its statistics, conv1 with
+    the fold and swish as its prologue on the same plan."""
+    b, r, c = x.shape[0], x.shape[1], x.shape[-1]
+    p = conv_plan(b, r, c, c, BF16)
+    y0, st0 = _walk(x, w0, None, None, False, p, rounded)
+    sc, bi = _fold(st0, b0, ca, cb, float(r ** 3))
+    return _walk(y0, w1, sc, bi, True, p, rounded)
+
+
+def _pair_inputs(b, r, c, seed):
+    rs = np.random.RandomState(seed)
+    t = lambda *shape, s=1.0: torch.from_numpy(   # noqa: E731
+        (s * rs.randn(*shape)).astype(np.float32))
+    return (t(b, r, r, r, c), t(3, 3, 3, c, c, s=(27 * c) ** -0.5),
+            t(c, s=0.1), 1.0 + t(b, c, s=0.1), t(b, c, s=0.1),
+            t(3, 3, 3, c, c, s=(27 * c) ** -0.5))
+
+
+def _assert_bf16_close(got, ref, rel=2e-2):
+    """chip_smoke.py's _bf16_close(2e-2): bf16 outputs whose float32 sums
+    were taken in another order land a rounding one bf16 ulp (2^-8) apart
+    here and there, and GroupNorm carries a flip on; every output is held
+    to 2e-2 of its size."""
+    for g, r in zip(got, ref):
+        scale = float(r.float().abs().max())
+        torch.testing.assert_close(g.float(), r.float(), rtol=rel,
+                                   atol=rel * scale)
+
+
+def _assert_fp32_close(got, ref):
+    """fp32 sums of 27 * C terms in another order: 1e-5 of the size."""
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("b,r,c", [(1, 32, 64), (2, 8, 128), (2, 4, 8),
+                                   (2, 5, 24)])
+def test_pair_walk_matches_the_pair_plain_version(b, r, c):
+    args = _pair_inputs(b, r, c, seed=r * 100 + c)
+    # both convs' blocks: the plan's buffers and the statistics
+    p = conv_plan(b, r, c, c, BF16)
+    assert p.smem + 8 * p.bn <= SMEM_BYTES
+    assert p.min_blocks * (p.smem + 8 * p.bn + 1024) <= SMEM_SM
+    _assert_fp32_close(_pair_walk(*args, rounded=False),
+                       _conv3d_pair_plain(*args))
+    x, w0, b0, ca, cb, w1 = args
+    x, w0, w1 = (_bf16(t) for t in (x, w0, w1))
+    got = _pair_walk(x, w0, b0, ca, cb, w1, rounded=True)
+    ref = _conv3d_pair_plain(x.to(BF16), w0.to(BF16), b0, ca, cb,
+                             w1.to(BF16))
+    _assert_bf16_close(got, ref)
+
+
+def _pvblock_constants():
+    """K9's compile-time tile (csrc/pvblock.cu)."""
+    src = (Path(__file__).resolve().parents[1] / "lion_tpu_torch" / "csrc"
+           / "pvblock.cu").read_text()
+    return {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_pvblock_cluster_is_the_plan_of_its_shape():
+    """K9's 8 blocks per item are conv_plan's grid for (b, 8, 128, 128,
+    bf16): 4 bricks of 2 x 8 x 8 voxels (d-major) by 2 tiles of 64 output
+    channels, with the plan's chunk. Its weight stage is the plan's rule at
+    two blocks per SM (so that 16 clusters of 8 fit the card at once): the
+    most taps whose buffers, beside the kernel's 768 floats of statistics
+    and fold, fit twice in an SM."""
+    k = _pvblock_constants()
+    kc, bn, static = k["kKc"], k["kBn"], 4 * (2 * 2 * k["kBn"] + 4 * k["kC"])
+    cells = (k["kPlanes"] + 2) * (k["kR"] + 2) ** 2
+    for b in (1, 2, 16):
+        p = conv_plan(b, k["kR"], k["kC"], k["kC"], BF16)
+        assert p.brick == (k["kPlanes"], k["kR"], k["kR"]) and p.tile == 1
+        assert (p.bn, p.kc) == (bn, kc)
+        assert p.grid == (k["kR"] // k["kPlanes"], k["kC"] // bn, b)
+        assert p.grid[0] * p.grid[1] == k["kCluster"]
+
+    def fits_twice(taps):
+        smem = 2 * (2 * cells * kc + 2 * taps * kc * bn) + 4 * cells
+        return 2 * (smem + static + 1024) <= SMEM_SM
+    assert k["kBlocksPerSm"] == 2
+    assert fits_twice(k["kTaps"]) and 27 % k["kTaps"] == 0
+    assert not any(fits_twice(t) for t in (27, 9) if t > k["kTaps"])
+
+
+def _block_walk(feats, vox, nc, w0, b0, ca, cb, w1, rounded):
+    """K9 block by block: rank = 2 pp + half owns planes [2 pp, 2 pp + 2)
+    and channels [64 half, 64 half + 64). Each voxelizes its cells and
+    channels; each conv is the plan's walk with every block's partial
+    statistics kept, the item's statistics summed over pp in rank order;
+    rank q devoxelizes points [q N / 8, (q + 1) N / 8)."""
+    b, n, c = feats.shape
+    r = 8
+    p = conv_plan(b, r, c, c, BF16)
+    npp, bn = p.grid[0], p.bn
+    cells = p.brick[0] * r * r
+    flat = ((vox[..., 0] * r + vox[..., 1]) * r + vox[..., 2]).long()
+    grid = torch.full((b, r ** 3, c), float("nan"))
+    for item in range(b):
+        for pp in range(npp):
+            local = flat[item] - pp * cells
+            mine = (local >= 0) & (local < cells)
+            for half in range(p.grid[1]):
+                ch = slice(half * bn, (half + 1) * bn)
+                sums = torch.zeros(cells, bn).index_add_(
+                    0, local[mine], feats[item, mine, ch].float())
+                count = torch.zeros(cells).index_add_(
+                    0, local[mine], torch.ones(int(mine.sum())))
+                mean = sums / count.clamp(min=1.0)[:, None]
+                grid[item, pp * cells:(pp + 1) * cells, ch] = \
+                    _bf16(mean) if rounded else mean
+    grid = grid.reshape(b, r, r, r, c)
+
+    def rank_order(parts):
+        st = torch.zeros(b, 2, c)
+        for item in range(b):
+            for half in range(p.grid[1]):
+                acc = torch.zeros(2, bn)
+                for pp in range(npp):
+                    acc = acc + parts[pp, half, item]
+                st[item, :, half * bn:(half + 1) * bn] = acc
+        return st
+    parts0, parts1 = {}, {}
+    y0, _ = _walk(grid, w0, None, None, False, p, rounded, parts0)
+    sc, bi = _fold(rank_order(parts0), b0, ca, cb, float(r ** 3))
+    y1, _ = _walk(y0, w1, sc, bi, True, p, rounded, parts1)
+    if rounded:
+        y1 = y1.to(BF16)
+    per = n // (npp * p.grid[1])
+    pts = torch.cat([_trilinear_devoxelize_plain(
+        y1, nc[:, q * per:(q + 1) * per].contiguous(), r)
+        for q in range(npp * p.grid[1])], 1)
+    return pts, rank_order(parts1)
+
+
+@pytest.mark.parametrize("n", [64, 256, 2048])
+def test_pvblock_walk_matches_the_block_plain_version(n):
+    b, r, c = 2, 8, 128
+    rs = np.random.RandomState(n)
+    nc = torch.from_numpy(rs.uniform(0, r - 1, (b, n, 3)).astype(np.float32))
+    nc[:, :8] = torch.round(nc[:, :8])    # points on cells: frac = 0
+    vox = torch.round(nc).to(torch.int32)
+    feats = torch.from_numpy(rs.randn(b, n, c).astype(np.float32))
+    _, w0, b0, ca, cb, w1 = _pair_inputs(b, r, c, seed=n + 1)
+    _assert_fp32_close(
+        _block_walk(feats, vox, nc, w0, b0, ca, cb, w1, rounded=False),
+        _pvconv_block_pair_plain(feats, vox, nc, w0, b0, ca, cb, w1, r))
+    feats, w0, w1 = (_bf16(t) for t in (feats, w0, w1))
+    got = _block_walk(feats, vox, nc, w0, b0, ca, cb, w1, rounded=True)
+    ref = _pvconv_block_pair_plain(feats.to(BF16), vox, nc, w0.to(BF16), b0,
+                                   ca, cb, w1.to(BF16), r)
+    assert got[0].dtype == ref[0].dtype == BF16
+    _assert_bf16_close(got, ref)

@@ -181,7 +181,10 @@ def test_conv3d_kernel_bf16(gen, r, ci, co, affine, swish):
                                atol=1e-3 * float(sr.abs().max()))
 
 
-@pytest.mark.parametrize("r,c", [(32, 64), (16, 32), (8, 128), (4, 8)])
+# the main path's r32 C64, other widths, and grids that are no whole number
+# of bricks (r = 4, 5, 3 against the 8 x 8 planes)
+@pytest.mark.parametrize("r,c", [(32, 64), (16, 32), (8, 128), (4, 8),
+                                 (5, 64), (3, 24)])
 def test_conv_pair_kernel(gen, r, c):
     x = _randn(gen, 2, r, r, r, c).to(BF16)
     w0 = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
@@ -196,7 +199,7 @@ def test_conv_pair_kernel(gen, r, c):
                                atol=2e-3 * float(sr.abs().max()))
 
 
-@pytest.mark.parametrize("n", [64, 256, 2048])
+@pytest.mark.parametrize("n", [64, 256, 2048, 4096])
 def test_pvconv_block_kernel(gen, n):
     b, r, c = 3, 8, 128
     xyz = _randn(gen, b, n, 3, scale=0.3)
@@ -214,6 +217,76 @@ def test_pvconv_block_kernel(gen, n):
     _assert_bf16_close(pts, pr, 2e-2)
     torch.testing.assert_close(st, sr, rtol=2e-2,
                                atol=2e-3 * float(sr.abs().max()))
+
+
+def _repeat(label, fn):
+    """Run fn twice; print whether the two results are bit-equal and
+    return both."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    diff = max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+    print(f"[repeat] {label}: bit-equal {same}, max |run 1 - run 2| "
+          f"{diff:.3e}", flush=True)
+    return a, b
+
+
+def test_repeat_runs_on_the_same_inputs(gen):
+    """Run-to-run reproducibility (ROADMAP Queue 3 item 3): K8 at r32 C64,
+    K9 at r8 C128 N256 and one local-prior forward in bf16 at batch 16 and
+    in fp32 at batch 4, twice each on the same inputs. Bit equality is
+    printed, not required: K8's statistics add across blocks with global
+    atomics (so do K4's and K3's sums) and K9's voxelize adds with shared
+    atomics, while K9's statistics are summed in rank order. The two runs
+    must agree within the kernels' own gates."""
+    from lion_tpu_torch.config import flagship_cfg
+    from lion_tpu_torch.models.registry import build_local_prior
+    from lion_tpu_torch.nn import init_weights
+    b, c = 16, 64
+    x = _randn(gen, b, 32, 32, 32, c).to(BF16)
+    w = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
+    pair = (x, w, _randn(gen, c, scale=0.1),
+            1.0 + _randn(gen, b, c, scale=0.1), _randn(gen, b, c, scale=0.1),
+            w)
+    for a, r in zip(*_repeat("conv3d_pair B16 r32 C64",
+                             lambda: ops.conv3d_pair(*pair))):
+        _assert_bf16_close(a, r, 2e-2)
+    xyz = _randn(gen, b, 256, 3, scale=0.3)
+    nc = voxel.normalize_coords(xyz, 8).contiguous()
+    c = 128
+    w = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
+    block = (_randn(gen, b, 256, c).to(BF16),
+             torch.round(nc).to(torch.int32), nc, w,
+             _randn(gen, c, scale=0.1), 1.0 + _randn(gen, b, c, scale=0.1),
+             _randn(gen, b, c, scale=0.1), w, 8)
+    for a, r in zip(*_repeat("pvconv_block_pair B16 r8 C128 N256",
+                             lambda: ops.pvconv_block_pair(*block))):
+        _assert_bf16_close(a, r, 2e-2)
+    g = torch.Generator().manual_seed(8)
+    for bf16, batch in ((True, 16), (False, 4)):
+        cfg = flagship_cfg()
+        cfg.tpu.bf16 = bf16
+        net = build_local_prior(cfg).eval()
+        init_weights(net, torch.Generator().manual_seed(7))
+        net = net.cuda()
+        xs = (torch.randn(batch, 2048, 4, generator=g)
+              * torch.tensor([0.3, 0.3, 0.3, 1.0])).reshape(batch, -1).cuda()
+        t = torch.full((batch,), 500.0, device="cuda")
+        cond = torch.randn(batch, 128, generator=g).cuda()
+        with torch.no_grad():
+            (a,), (r,) = _repeat(
+                f"local prior forward {'bf16' if bf16 else 'fp32'} B{batch}",
+                lambda: net(xs, t, condition_input=cond))
+        assert torch.isfinite(a).all()
+        # the full-width forward's own gates (chip_smoke.py phase 4)
+        if bf16:
+            assert float((a - r).norm() / r.norm()) <= 0.03
+        else:
+            torch.testing.assert_close(a, r, rtol=0.0,
+                                       atol=1e-4 * float(r.abs().max()))
 
 
 def _sa_inputs(gen, b, n, m, k, widths, radius_ball):

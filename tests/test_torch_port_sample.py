@@ -230,6 +230,38 @@ def test_sample_chunked_equals_sample():
         lion.sample_chunked(2, chunks=2)
 
 
+def test_sample_refuses_ode_sample_before_any_draw():
+    """lion_tpu samples by the PF-ODE under sde.ode_sample
+    (lion_tpu/models/lion.py:227,246-265); the port has no such sampler yet
+    and refuses the flag instead of running another one."""
+    cfg = tiny_cfg(get_default_cfg(), N, STEPS)
+    assert cfg.sde.ode_sample == 0 and flagship_cfg().sde.ode_sample == 0
+    cfg.sde.ode_sample = 1
+    lion = LION(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(5)
+    state = gen.get_state()
+    for call in (lambda: lion.sample(2, generator=gen),
+                 lambda: lion.sample(2, generator=gen, ddim_step=2),
+                 lambda: lion.sample_chunked(2, generator=gen, chunks=5)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item D"):
+            call()
+    assert torch.equal(gen.get_state(), state)     # nothing was drawn
+    cfg.sde.ode_sample = 0                         # the default samples
+    assert torch.isfinite(lion.sample(2, generator=gen)["points"]).all()
+
+
+def test_vae_refuses_style_mlp():
+    """lion_tpu/models/vae.py:86-87 refuses a style MLP; so does the port."""
+    from lion_tpu_torch.models.vae import VAE
+    cfg = tiny_cfg(get_default_cfg(), N, STEPS)
+    assert cfg.latent_pts.style_mlp == ""
+    VAE(cfg)
+    cfg.latent_pts.style_mlp = "mlp"
+    with pytest.raises(NotImplementedError, match="style_mlp"):
+        VAE(cfg)
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, lion_tpu_torch, lion_tpu_torch.models, "
             "lion_tpu_torch.ops, lion_tpu_torch.ckpt, "
