@@ -11,10 +11,12 @@ non-zero:
      card at the main paths' shapes (batch 16), fp32 and bf16, with times
      from CUDA events; every K4 and K10 case with its bound and cuDNN's
      conv beside it (bf16 in channels-last, fp32 with TF32 off); K8 beside
-     two cuDNN convs and with its fold in every conv1 block;
+     two cuDNN convs;
      K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
      2048-point clouds, N != M both ways and a permuted copy; K13's
-     backward against K2's backward of the permuted gradient.
+     backward against K2's backward of the permuted gradient; K3 (fp32,
+     bf16) and K7 (SA0, SA3) run twice and must repeat bit for bit, and K3
+     must equal the float32 sum in point order over the count.
   4. forward parity: one full-width local-prior forward (batch 2) on the
      card against the same module on the CPU (plain versions), in fp32 and
      in bf16, and the card's bf16 forward against its fp32 one.
@@ -394,6 +396,46 @@ def check_cf_backward(cloud, centers, feats, g):
         f"permuted gradient: max_abs_err {err:.3e}")
 
 
+def _ordered_mean(feats, vox, r):
+    """K3's reference on the CPU: each cell's float32 sum in point order
+    (np.add.at applies in index order) over the count, rounded once."""
+    f, v = feats.float().cpu().numpy(), vox.long().cpu().numpy()
+    cells = (v[..., 0] * r + v[..., 1]) * r + v[..., 2]
+    out = np.zeros((f.shape[0], r ** 3, f.shape[-1]), np.float32)
+    for i in range(f.shape[0]):
+        np.add.at(out[i], cells[i], f[i])
+        count = np.bincount(cells[i], minlength=r ** 3)[:, None]
+        out[i] = np.where(count > 0, out[i] / np.maximum(count, 1)
+                          .astype(np.float32), np.float32(0))
+    return torch.from_numpy(out).to(feats.dtype).reshape(
+        f.shape[0], r, r, r, f.shape[-1])
+
+
+def check_repeats(vox32, f64, sa0, sa3):
+    """K3 (fp32 and bf16, B16 r32 C64) and K7 (SA0, SA3) twice on the same
+    inputs: each must repeat bit for bit (no float atomics, fixed-order
+    sums), and K3 must equal the ordered float32 reference."""
+    from lion_tpu_torch import ops
+    runs = [(f"avg_voxelize {dt} B16 r32 C64",
+             lambda x=f64.to(dt): ops.avg_voxelize(x, vox32, 32))
+            for dt in (torch.float32, torch.bfloat16)]
+    runs += [("sa_fused B16 SA0", lambda: ops.sa_fused(*sa0)),
+             ("sa_fused B16 SA3", lambda: ops.sa_fused(*sa3))]
+    for label, fn in runs:
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        log(f"[kernels] repeat {label}: bit-equal {same}")
+        if not same:
+            raise AssertionError(f"{label}: two runs differ")
+        if label.startswith("avg_voxelize"):
+            x = f64.to(first.dtype)
+            if not torch.equal(first.cpu(), _ordered_mean(x, vox32, 32)):
+                raise AssertionError(f"{label}: not the ordered mean")
+            log(f"[kernels] {label} equals the ordered float32 reference "
+                f"bit for bit")
+
+
 def phase_kernels():
     import torch.nn.functional as F
     from lion_tpu_torch import ops
@@ -461,8 +503,8 @@ def phase_kernels():
                     bound(nbytes(cloud, centers, f32c)
                           + b * 1024 * 32 * 35 * 4,
                           fp32_ops=8 * _scan_pairs(centers, cloud, 0.1, 32))),
-        # K3: both scatter with atomics in varying order; a cell sums at
-        # most a few dozen features
+        # K3: the plain version scatters with atomics in varying order; a
+        # cell sums at most a few dozen features
         KernelCheck("avg_voxelize", "B16 N2048 r32 C64", (f64, vox32, 32), {},
                     _close(1e-5, 1e-5), 20, 5,
                     bound(nbytes(f64, vox32) + b * 32 ** 3 * 64 * 4,
@@ -594,6 +636,7 @@ def phase_kernels():
         if not float(own.max()) < 1e-3:
             raise AssertionError(f"EMD of a permuted copy: {own.tolist()}")
         check_cf_backward(cloud, centers, f32c, randn(b, 32, 35, 1024))
+        check_repeats(vox32, f64, sa0, sa3)
     return results
 
 

@@ -98,6 +98,28 @@ __device__ __forceinline__ float trilinear(const float* p, int r,
   return acc;
 }
 
+// Raise a kernel's dynamic shared-memory limit to `bytes`, and ask for the
+// largest shared-memory carveout (so that as many blocks as the shared
+// memory allows share an SM), once per device and process (the attributes
+// persist); `done` is the caller's static bit mask of the devices already
+// set.
+inline cudaError_t set_smem_once(const void* fn, int bytes, unsigned* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (*done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(fn,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) *done |= bit;
+  return err;
+}
+
 inline int ceil_div(long long a, long long b) {
   return static_cast<int>((a + b - 1) / b);
 }

@@ -15,158 +15,705 @@
 //   sc = rs * ca, sh = cb - mu * sc; the next z = bf16(h @ W + b), float32
 //   sums. Output: the max of the last h over the K slots, (B, M, C_L) bf16.
 //
-// Bound on the H100: device-memory traffic of the grouped activations (the
-// rows of z, M*K*C bf16 per item and layer: 4 MB per item at SA0) and the
-// dense layers (2 * C_in * C_out flops per slot) on the tensor cores.
-// Design: the statistics span the whole item, so no block can normalize
-// before every block has produced its rows: one C entry makes 2L + 1
-// launches on one stream, with no PyTorch op between them.
-//   1. sa_first: one block per 128 slot rows (128 / K centers). A warp per
-//      center runs the ball query (__ballot_sync, no sort), then the block
-//      gathers z1 rows, stores them bf16, and writes each channel's partial
-//      statistics: the sum and the sum of squared deviations about the
-//      block's own mean.
-//   2. per layer, sa_stats: one block per item merges the partials (Chan's
-//      parallel form, in float64), so the variance is the centered one
-//      without a second pass over z, and folds (ca, cb) into (sc, sh).
-//   3. sa_dense (layers 1..L-1): normalize + swish the block's rows into a
-//      bf16 tile in shared memory, multiply by the next kernel in 64-column
-//      chunks with WMMA bf16 fragments (float32 accumulation), add the bias,
-//      store bf16 and write the partial statistics of the new rows.
-//   4. sa_max (layer L): normalize + swish and reduce the max over K.
-#include <mma.h>
-
+// Bound on the H100: the ball query's distance tests and the dense layers
+// (2 * C_in * C_out flops per slot) on the tensor cores; the function reads
+// the cloud, A and bc once and writes (B, M, C_L).
+// Design: an index-and-recompute walk. No grouped (B, M, K, C) tensor
+// exists anywhere: the statistics span the whole item, so every layer takes
+// one pass over the item's slot rows, and each pass recomputes the rows
+// from the stored ball-query indices. One C entry makes L + 1 launches of
+// one kernel on one stream (after a memset of B ints), with no PyTorch op
+// between them:
+//   pass 1: ball query (the item's cloud staged in shared memory when it
+//     fits) -> the (B, M, K) int32 slot indices; z1 -> layer 1's statistics.
+//   pass l = 2..L: z1 from the indices -> [normalize, swish, dense] through
+//     layers 1..l-1 -> layer l's statistics.
+//   pass L + 1: the same through layer L -> normalize, swish, max over K.
+// Blocks of 256 threads walk tiles of tm centers (128 slot rows, or 64
+// where the layers are wide; two bf16 row buffers in shared memory) of one
+// item, tile = blockIdx.x, + gridDim.x, ...; each kind of pass (query,
+// statistics, max) is compiled on its own, the query pass with four blocks
+// an SM, the others with two. A tile's layer-1 rows are in flight while
+// the previous tile is computed. The dense layers run on mma.sync m16n8k16
+// (bf16, float32 sums) with the epilogue in registers; a layer that the
+// pass normalizes is normalized where its rows are formed (the gather or
+// the epilogue); the weights stay in shared memory for the whole pass when
+// they fit in 24 KB.
+// Statistics: a thread sums d = z - shift and d * d in float32 over its
+// rows of the block's tiles, the shift being the block's first row (so d is
+// of the order of the spread and the centered M2 needs no second pass); the
+// block folds its threads' sums in a fixed order in float64 into one
+// partial (count, mean, centered M2); the item's last block to finish (an
+// integer ticket) merges the G partials by Chan's rule in a fixed tree
+// (strided slices of blocks, then the slices in order), folds GroupNorm and
+// (ca, cb) into (sc, sh) for the next pass, and resets the ticket. No
+// float atomics: the result is bit-reproducible.
+//
+// Invariant: every pass forms a layer's rows with the same device functions
+// (Gather, dense, and the normalize they apply), in the same order of
+// operations, from the same indices: a layer's z is rounded to bf16 before
+// anything reads it, so the rows whose statistics pass l takes are
+// bit-identical to the rows that pass l + 1 normalizes.
 #include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
+using lion::bf16;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 128;
 constexpr int kMaxC = 256;
-constexpr int kChunk = 64;  // output channels per dense pass
+static_assert(kMaxC <= kThreads, "a thread per channel in the merges");
+constexpr int kMaxLayers = 32;
+constexpr int kChunk = 64;            // output channels per weight stage
 constexpr int kLdW = kChunk + 8;
-constexpr int kLdS = kChunk + 4;
+constexpr int kRed = 2560;            // floats of the statistics' reduction
+constexpr int kResident = 24576;      // weight bytes kept for a whole pass
+// dynamic shared memory a block may take (the H100's 227 KB less 1 KB of
+// static shared memory)
+constexpr int kSmemDyn = 232448 - 1024;
 
+struct Layers {
+  const bf16* w[kMaxLayers];      // dense l -> l + 1: (C_l, C_{l+1}) bf16
+  const float* bias[kMaxLayers];  // (C_{l+1},) f32
+  int width[kMaxLayers];          // C_1 .. C_L
+  int coff[kMaxLayers];           // layer l's channels in sc / sh
+  int woff[kMaxLayers];           // dense l's stages in the resident weights
+};
+
+struct Pass {
+  const float* points;   // (B, N, 3)
+  const float* centers;  // (B, M, 3)
+  const float* a;        // (B, N, C_1)
+  const float* bc;       // (B, M, C_1)
+  const float* ca;       // (B, C_t): the statistics pass's affine
+  const float* cb;
+  int* idx;              // (B, M, K) slot indices
+  double* part;          // (B, G, 2, C_t): per-block mean and M2
+  float* sc;             // (B, csum); sh follows at + B * csum
+  int* tickets;          // (B,)
+  bf16* out;             // (B, M, C_L)
+  int n, m, k, tm, tiles, csum, ld;
+  int target;            // the layer whose rows the pass forms (1-based)
+  int kshift;            // log2(K)
+  int staged, resident;
+  float r2;
+};
+
+// swish with the fast exponential and division (a few ulp from the exact
+// form; every pass evaluates this same function)
 __device__ __forceinline__ float swishf(float v) {
-  return v / (1.0f + expf(-v));
+  return __fdividef(v, 1.0f + __expf(-v));
 }
 
-__device__ __forceinline__ float rounded(float v) {
-  return lion::round_to<lion::bf16>(v);
+__device__ __forceinline__ int pad16(int c) { return (c + 15) / 16 * 16; }
+
+// Stages of 64 output channels of dense l.
+__device__ __forceinline__ int chunks(int cout) {
+  return (cout + kChunk - 1) / kChunk;
 }
 
-// Per channel of vals (rows x c, row stride ld): the sum and the sum of
-// squared deviations about the rows' own mean.
-__device__ void tile_stats(const float* vals, int rows, int ld, int c,
-                           float* part_sum, float* part_m2) {
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float s = 0.0f;
-    for (int i = 0; i < rows; ++i) s += vals[i * ld + ch];
-    const float mean = s / static_cast<float>(rows);
-    float m2 = 0.0f;
-    for (int i = 0; i < rows; ++i) {
-      const float d = vals[i * ld + ch] - mean;
-      m2 += d * d;
+// Two centers' ball queries by one warp (the second may be absent:
+// ctr1 == nullptr), 64 points a round (two ballots per center, so a
+// round's loads and tests are in flight together), into sel0 / sel1 (K
+// slots each, global memory); the cloud is read from shared memory (SoA)
+// when staged, else from global memory (interleaved xyz).
+template <bool kStaged>
+__device__ void ball_query(const Pass& p, const float* __restrict__ pts,
+                           const float* ctr0, const float* ctr1, int* sel0,
+                           int* sel1) {
+  const int lane = threadIdx.x & 31;
+  const float* ctr[2] = {ctr0, ctr1 != nullptr ? ctr1 : ctr0};
+  int* sel[2] = {sel0, sel1};
+  float cx[2], cy[2], cz[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    cx[c] = ctr[c][0];
+    cy[c] = ctr[c][1];
+    cz[c] = ctr[c][2];
+  }
+  int count[2] = {0, ctr1 != nullptr ? 0 : p.k};  // identical in every lane
+  for (int base = 0; base < p.n && (count[0] < p.k || count[1] < p.k);
+       base += 64) {
+    bool hit[2][2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = base + 32 * u + lane;
+      float px = 0.0f, py = 0.0f, pz = 0.0f;
+      if (j < p.n) {
+        px = kStaged ? pts[j] : __ldg(pts + 3 * j);
+        py = kStaged ? pts[p.n + j] : __ldg(pts + 3 * j + 1);
+        pz = kStaged ? pts[2 * p.n + j] : __ldg(pts + 3 * j + 2);
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        hit[c][u] = j < p.n &&
+                    lion::sq_dist(cx[c], cy[c], cz[c], px, py, pz) < p.r2;
+      }
     }
-    part_sum[ch] = s;
-    part_m2[ch] = m2;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const unsigned mask = __ballot_sync(0xffffffffu, hit[c][u]);
+        if (hit[c][u] && count[c] < p.k) {
+          const int s = count[c] + __popc(mask & ((1u << lane) - 1u));
+          if (s < p.k) sel[c][s] = base + 32 * u + lane;
+        }
+        count[c] += __popc(mask);
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c == 1 && ctr1 == nullptr) break;
+    const int found = count[c] < p.k ? count[c] : p.k;
+    const int first = found > 0 ? sel[c][0] : 0;
+    __syncwarp();
+    for (int s = found + lane; s < p.k; s += 32) sel[c][s] = first;
+  }
+  __syncwarp();
+}
+
+// Eight floats rounded to bf16 (16 bytes) and back.
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return u;
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
   }
 }
 
-// Grid (tiles, B). part: (B, tiles, 2, c1).
-__global__ void __launch_bounds__(kThreads)
-sa_first_kernel(const float* __restrict__ points,
-                const float* __restrict__ centers,
-                const float* __restrict__ a, const float* __restrict__ bc,
-                int n, int m, int k, int tm, int c1, float r2,
-                lion::bf16* __restrict__ z, float* __restrict__ part) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int rows = tm * k;
-  float* vals = reinterpret_cast<float*>(smem);        // rows x c1
-  int* slot = reinterpret_cast<int*>(vals + rows * c1);  // tm x k
-  const int b = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
-  const int m0 = tile * tm;
+// Round z to bf16 and, when sc is given, normalize the rounded values:
+// h = bf16(swish(z * sc + sh)). n values.
+template <int n>
+__device__ __forceinline__ void round_norm(float* v, const float* sc,
+                                           const float* sh) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    v[i] = __bfloat162float(__float2bfloat16_rn(v[i]));
+    if (sc != nullptr) v[i] = swishf(v[i] * sc[i] + sh[i]);
+  }
+}
+
+// The gather of layer 1's rows, z1 = bf16(A[idx] + bc), normalized when
+// sc is given. A thread keeps four channels (4j..4j+3) of the rows
+// r0 + u * step of a tile; the first kPre of them are software-pipelined
+// across the block's tiles: their rows of A and bc are loaded while the
+// previous tile is computed, and their indices one tile earlier still.
+// Rows past those (wide first layers) are gathered when they are stored.
+constexpr int kPre = 4;
+
+struct Gather {
+  int q, step, j, r0, c1;
+  bool active, live;
+  int idx[kPre];                  // the indices of a coming tile's rows
+  float4 a[kPre], bc[kPre];       // the rows of the tile to be formed
+
+  __device__ void init(int width) {
+    c1 = width;
+    q = pad16(c1) / 4;
+    step = kThreads / q;
+    j = threadIdx.x % q;
+    r0 = threadIdx.x / q;
+    active = r0 < step;
+    live = active && 4 * j < c1;
+  }
+
+  // The indices of tile's first kPre row slots (plain loads: pass 1 wrote
+  // them in this kernel).
+  __device__ void load_idx(const Pass& p, int b, int tile, int rows) {
+    const int* gidx = p.idx + (static_cast<size_t>(b) * p.m + tile * p.tm) * p.k;
+#pragma unroll
+    for (int u = 0; u < kPre; ++u) {
+      const int row = r0 + u * step;
+      idx[u] = live && row < rows ? gidx[row] : 0;
+    }
+  }
+
+  // Start the loads of tile's rows of A and bc for the indices held.
+  __device__ void load_rows(const Pass& p, int b, int tile, int rows) {
+    const float* ab = p.a + static_cast<size_t>(b) * p.n * c1 + 4 * j;
+    const float* bcb =
+        p.bc + (static_cast<size_t>(b) * p.m + tile * p.tm) * c1 + 4 * j;
+#pragma unroll
+    for (int u = 0; u < kPre; ++u) {
+      const int row = r0 + u * step;
+      if (live && row < rows) {
+        a[u] = __ldg(reinterpret_cast<const float4*>(
+            ab + static_cast<size_t>(idx[u]) * c1));
+        bc[u] = __ldg(reinterpret_cast<const float4*>(
+            bcb + (row >> p.kshift) * c1));
+      }
+    }
+  }
+
+  __device__ void put(const Pass& p, int row, float4 av, float4 bv,
+                      const float* s4, const float* t4, bf16* buf) const {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (live) {
+      v[0] = av.x + bv.x;
+      v[1] = av.y + bv.y;
+      v[2] = av.z + bv.z;
+      v[3] = av.w + bv.w;
+      round_norm<4>(v, s4, t4);
+    }
+    uint2 out;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+    h[0] = __floats2bfloat162_rn(v[0], v[1]);
+    h[1] = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(buf + row * p.ld + 4 * j) = out;
+  }
+
+  // The tile's rows into buf (row stride ld); the columns up to pad16(C_1)
+  // become 0.
+  __device__ void store(const Pass& p, int b, int tile, int rows,
+                        const float* sc, const float* sh, bf16* buf) {
+    if (!active) return;
+    float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f}, t4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (live && sc != nullptr) {
+      *reinterpret_cast<float4*>(s4) =
+          *reinterpret_cast<const float4*>(sc + 4 * j);
+      *reinterpret_cast<float4*>(t4) =
+          *reinterpret_cast<const float4*>(sh + 4 * j);
+    }
+    const float* s = sc == nullptr ? nullptr : s4;
+#pragma unroll
+    for (int u = 0; u < kPre; ++u) {
+      const int row = r0 + u * step;
+      if (row < rows) put(p, row, a[u], bc[u], s, t4, buf);
+    }
+    const int* gidx = p.idx + (static_cast<size_t>(b) * p.m + tile * p.tm) * p.k;
+    const float* ab = p.a + static_cast<size_t>(b) * p.n * c1 + 4 * j;
+    const float* bcb =
+        p.bc + (static_cast<size_t>(b) * p.m + tile * p.tm) * c1 + 4 * j;
+    for (int row = r0 + kPre * step; row < rows; row += step) {
+      float4 av = make_float4(0.0f, 0.0f, 0.0f, 0.0f), bv = av;
+      if (live) {
+        av = __ldg(reinterpret_cast<const float4*>(
+            ab + static_cast<size_t>(gidx[row]) * c1));
+        bv = __ldg(reinterpret_cast<const float4*>(
+            bcb + (row >> p.kshift) * c1));
+      }
+      put(p, row, av, bv, s, t4, buf);
+    }
+  }
+};
+
+// One stage of dense l's weights (64 output channels from n0, all padded
+// input rows) into wt, in 16-byte pieces (widths are multiples of 8).
+__device__ void load_stage(const Layers& L, int l, int n0, bf16* wt) {
+  const int cin = L.width[l], cout = L.width[l + 1], cinp = pad16(cin);
+  for (int e = threadIdx.x; e < cinp * (kChunk / 8); e += kThreads) {
+    const int kk = e / (kChunk / 8), nn = 8 * (e - kk * (kChunk / 8));
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (kk < cin && n0 + nn < cout) {
+      v = __ldg(reinterpret_cast<const uint4*>(
+          L.w[l] + static_cast<size_t>(kk) * cout + n0 + nn));
+    }
+    *reinterpret_cast<uint4*>(wt + kk * kLdW + nn) = v;
+  }
+}
+
+// ldmatrix / mma.sync (PTX ISA 7.8; m16n8k16, bf16 in, f32 sums).
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* ptr) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* ptr) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void mma16816(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// zout = bf16(h @ W_l + bias) for the tile's rows, normalized when sc is
+// given; the columns up to pad16(C_{l+1}) become 0. Per 64-column weight
+// stage (resident, or loaded stage by stage) a warp takes 16 rows and 64 or
+// 32 columns (rows = 128 or 64): A from ldmatrix, B from ldmatrix.trans of
+// the row-major stage, m16n8k16 products summed over k in order, and the
+// epilogue on the accumulators in registers (a lane holds rows g and g + 8,
+// columns 2q and 2q + 1 of each 8-column tile). Ends with a barrier.
+__device__ void dense(const Pass& p, const Layers& L, int l, int rows,
+                      const float* __restrict__ bias, const float* sc,
+                      const float* sh, const bf16* __restrict__ h,
+                      bf16* __restrict__ zout, bf16* __restrict__ wt) {
+  const int cin = L.width[l], cout = L.width[l + 1];
+  const int cinp = pad16(cin), coutp = pad16(cout), ld = p.ld;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* pts = points + static_cast<size_t>(b) * n * 3;
-
-  for (int mi = warp; mi < tm; mi += kWarps) {
-    const float* ctr = centers + (static_cast<size_t>(b) * m + m0 + mi) * 3;
-    const float cx = ctr[0], cy = ctr[1], cz = ctr[2];
-    int* sel = slot + mi * k;
-    int count = 0;  // identical in every lane
-    for (int base = 0; base < n && count < k; base += 32) {
-      const int j = base + lane;
-      bool hit = false;
-      if (j < n) {
-        hit = lion::sq_dist(cx, cy, cz, pts[3 * j], pts[3 * j + 1],
-                            pts[3 * j + 2]) < r2;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      if (hit) {
-        const int s = count + __popc(mask & ((1u << lane) - 1u));
-        if (s < k) sel[s] = j;
-      }
-      count += __popc(mask);
+  const int rtiles = rows / 16, nsplit = kWarps / rtiles;
+  const int r0 = (warp % rtiles) * 16, ntn = 8 / nsplit;
+  const int nt0 = (warp / rtiles) * ntn;   // this warp's first 8-col tile
+  const int g = lane >> 2, tq = lane & 3;
+  for (int n0 = 0; n0 < coutp; n0 += kChunk) {
+    const bf16* stage = wt;
+    if (p.resident) {
+      stage = wt + L.woff[l] + (n0 / kChunk) * cinp * kLdW;
+    } else {
+      load_stage(L, l, n0, wt);
+      __syncthreads();
     }
-    __syncwarp();
-    const int found = count < k ? count : k;
-    const int first = found > 0 ? sel[0] : 0;
-    __syncwarp();
-    for (int s = found + lane; s < k; s += 32) sel[s] = first;
-    __syncwarp();
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+    for (int kk = 0; kk < cinp; kk += 16) {
+      unsigned a[4];
+      ldsm_x4(a, h + (r0 + (lane & 15)) * ld + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        const int nt = nt0 + i;
+        if (i < ntn && n0 + nt * 8 < cout) {
+          unsigned bf[4];
+          ldsm_x4_trans(bf, stage + (kk + (lane & 15)) * kLdW +
+                                (nt + (lane >> 4)) * 8);
+          mma16816(acc[i], a, bf);
+          mma16816(acc[i + 1], a, bf + 2);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c0 = n0 + (nt0 + i) * 8;
+      if (i < ntn && c0 < coutp) {
+        const int col = c0 + 2 * tq;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (c0 < cout) {
+          const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+          v[0] = acc[i][0] + bb.x;
+          v[1] = acc[i][1] + bb.y;
+          v[2] = acc[i][2] + bb.x;
+          v[3] = acc[i][3] + bb.y;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = __bfloat162float(__float2bfloat16_rn(v[e]));
+          if (sc != nullptr) {
+            const float2 s2 = *reinterpret_cast<const float2*>(sc + col);
+            const float2 t2 = *reinterpret_cast<const float2*>(sh + col);
+            v[0] = swishf(v[0] * s2.x + t2.x);
+            v[1] = swishf(v[1] * s2.y + t2.y);
+            v[2] = swishf(v[2] * s2.x + t2.x);
+            v[3] = swishf(v[3] * s2.y + t2.y);
+          }
+        }
+        *reinterpret_cast<__nv_bfloat162*>(zout + (r0 + g) * ld + col) =
+            __floats2bfloat162_rn(v[0], v[1]);
+        *reinterpret_cast<__nv_bfloat162*>(zout + (r0 + g + 8) * ld + col) =
+            __floats2bfloat162_rn(v[2], v[3]);
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
-
-  const float* ab = a + static_cast<size_t>(b) * n * c1;
-  const float* bcb = bc + (static_cast<size_t>(b) * m + m0) * c1;
-  lion::bf16* zb = z + (static_cast<size_t>(b) * m + m0) * k * c1;
-  for (int e = threadIdx.x; e < rows * c1; e += kThreads) {
-    const int row = e / c1, ch = e - row * c1;
-    const float v = rounded(ab[static_cast<size_t>(slot[row]) * c1 + ch] +
-                            bcb[(row / k) * c1 + ch]);
-    zb[e] = __float2bfloat16_rn(v);
-    vals[e] = v;
-  }
-  __syncthreads();
-  float* pb = part + (static_cast<size_t>(b) * tiles + tile) * 2 * c1;
-  tile_stats(vals, rows, c1, c1, pb, pb + c1);
 }
 
-// Grid (B). Merges the (B, tiles, 2, c) partials of `rows` rows each into
-// GroupNorm(8) per item and folds the channel affine (ca, cb) (row stride
-// ld): sc = rs * ca, sh = cb - mu * sc, both (B, c).
-__global__ void sa_stats_kernel(const float* __restrict__ part,
-                                const float* __restrict__ ca,
-                                const float* __restrict__ cb, int ld, int c,
-                                int tiles, int rows, float* __restrict__ sc,
-                                float* __restrict__ sh) {
-  __shared__ double mean_c[kMaxC], m2_c[kMaxC];
-  const int b = blockIdx.x;
-  const float* pb = part + static_cast<size_t>(b) * tiles * 2 * c;
-  const double nt = rows;
-  const double nc = nt * tiles;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    double s = 0.0;
-    for (int t = 0; t < tiles; ++t)
-      s += pb[static_cast<size_t>(t) * 2 * c + ch];
-    const double mean = s / nc;
-    double m2 = 0.0;
-    for (int t = 0; t < tiles; ++t) {
-      const float* pt = pb + static_cast<size_t>(t) * 2 * c;
-      const double d = pt[ch] / nt - mean;
-      m2 += pt[c + ch] + nt * d * d;
+// Chan's rule: fold (nb, mean_b, m2_b) into (n, mean, m2), float64.
+__device__ __forceinline__ void chan(double& n, double& mean, double& m2,
+                                     double nb, double mean_b, double m2_b) {
+  if (nb == 0.0) return;
+  const double nn = n + nb, d = mean_b - mean, w = nb / nn;
+  mean += d * w;
+  m2 += m2_b + d * d * n * w;
+  n = nn;
+}
+
+// A thread's share of the statistics of a pass: four channels (4j..4j+3)
+// of the rows r = sl (mod slices) of every tile the block walks, as sums
+// of d = z - shift and d * d in float32, where the shift is the block's
+// first row (so that d is of the order of the spread, not of the mean:
+// the centered M2 follows without a second pass over the rows).
+struct Stats {
+  float shift[4], s1[4], s2[4];
+  int n;
+};
+
+__device__ __forceinline__ void stats_map(int c, int& j, int& sl,
+                                          int& slices) {
+  const int q = c / 4;
+  j = threadIdx.x % q;
+  sl = threadIdx.x / q;
+  slices = kThreads / q;
+}
+
+// The tile's rows of z (c channels) into the thread's sums.
+__device__ void tile_stats(const bf16* __restrict__ z, int ld, int rows,
+                           int c, bool first, Stats& st) {
+  int j, sl, slices;
+  stats_map(c, j, sl, slices);
+  if (sl >= slices) return;
+  if (first) {
+    const uint2 u = *reinterpret_cast<const uint2*>(z + 4 * j);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    st.shift[0] = __low2float(h[0]);
+    st.shift[1] = __high2float(h[0]);
+    st.shift[2] = __low2float(h[1]);
+    st.shift[3] = __high2float(h[1]);
+  }
+  for (int r = sl; r < rows; r += slices) {
+    const uint2 u = *reinterpret_cast<const uint2*>(z + r * ld + 4 * j);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float v[4] = {__low2float(h[0]), __high2float(h[0]),
+                        __low2float(h[1]), __high2float(h[1])};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float d = v[i] - st.shift[i];
+      st.s1[i] += d;
+      st.s2[i] += d * d;
     }
-    mean_c[ch] = mean;
-    m2_c[ch] = m2;
+    ++st.n;
+  }
+}
+
+// The block's partial (mean, M2) per channel from its threads' sums, folded
+// over the slices in order in float64 (red: 2 * kThreads * 4 floats and
+// kThreads ints of shared memory).
+__device__ void block_stats(const Stats& st, int c, float* red, int* cnt,
+                            double* mean_out, double* m2_out) {
+  int j, sl, slices;
+  stats_map(c, j, sl, slices);
+  if (sl < slices) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      red[sl * c + 4 * j + i] = st.s1[i];
+      red[kThreads * 4 + sl * c + 4 * j + i] = st.s2[i];
+    }
+    if (j == 0) cnt[sl] = st.n;
+    if (sl == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[kThreads * 8 + 4 * j + i] = st.shift[i];
+    }
   }
   __syncthreads();
+  for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+    double n = 0.0, s1 = 0.0, s2 = 0.0;
+    for (int k = 0; k < slices; ++k) {
+      n += cnt[k];
+      s1 += red[k * c + ch];
+      s2 += red[kThreads * 4 + k * c + ch];
+    }
+    const double d = s1 / n;
+    mean_out[ch] = red[kThreads * 8 + ch] + d;
+    m2_out[ch] = s2 - s1 * d;
+  }
+}
+
+// The passes' kinds: each is compiled on its own, so that the ball query's
+// pass keeps few registers and four blocks an SM, and the passes with dense
+// layers keep their fragments in registers (two blocks an SM).
+enum Kind { kQuery = 0, kStats = 1, kMax = 2 };
+constexpr int kBlocksSm[3] = {4, 2, 2};
+
+// Grid (G, B), kThreads threads. One pass of the walk (see the header).
+template <int kKind>
+__global__ void __launch_bounds__(kThreads, kBlocksSm[kKind])
+sa_pass_kernel(const Pass p, const Layers L) {
+  constexpr bool query = kKind == kQuery, is_max = kKind == kMax;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_last;
+  const int rows = p.tm * p.k;
+  const size_t buf_bytes = static_cast<size_t>(rows) * p.ld * 2;
+  bf16* buf0 = reinterpret_cast<bf16*>(smem);
+  float* scr = reinterpret_cast<float*>(smem + buf_bytes);  // kRed floats
+  // the pass's sc, sh and biases of every layer (biases at the output
+  // layer's offset)
+  float* sc_s = scr + kRed;
+  float* sh_s = sc_s + p.csum;
+  float* bias_s = sh_s + p.csum;
+  unsigned char* tail = reinterpret_cast<unsigned char*>(bias_s + p.csum);
+  bf16* buf1 = reinterpret_cast<bf16*>(tail);
+  bf16* wt = reinterpret_cast<bf16*>(tail + buf_bytes);
+  float* xs = reinterpret_cast<float*>(tail);  // the staged cloud (pass 1)
+
+  const int b = blockIdx.y, g = blockIdx.x, blocks = gridDim.x;
+  const int warp = threadIdx.x >> 5;
+  const int t = p.target - 1;          // 0-based layer
+  const int c = L.width[t];
+  if (query && p.staged) {
+    const float* pts = p.points + static_cast<size_t>(b) * p.n * 3;
+    for (int j = threadIdx.x; j < p.n; j += kThreads) {
+      xs[j] = pts[3 * j];
+      xs[p.n + j] = pts[3 * j + 1];
+      xs[2 * p.n + j] = pts[3 * j + 2];
+    }
+  }
+  for (int i = threadIdx.x; i < p.csum; i += kThreads) {
+    sc_s[i] = p.sc[static_cast<size_t>(b) * p.csum + i];
+    sh_s[i] = p.sc[(static_cast<size_t>(gridDim.y) + b) * p.csum + i];
+  }
+  for (int l = 0; l < t; ++l) {
+    for (int i = threadIdx.x; i < L.width[l + 1]; i += kThreads)
+      bias_s[L.coff[l + 1] + i] = L.bias[l][i];
+    if (p.resident) {
+      const int stage = pad16(L.width[l]) * kLdW;
+      for (int ch = 0; ch < chunks(L.width[l + 1]); ++ch)
+        load_stage(L, l, ch * kChunk, wt + L.woff[l] + ch * stage);
+    }
+  }
+  __syncthreads();
+  if (query) {  // every center of the block's tiles, a warp each
+    const int centers = (p.tiles - g + blocks - 1) / blocks * p.tm;
+    const float* pts =
+        p.staged ? xs : p.points + static_cast<size_t>(b) * p.n * 3;
+    // the indices are read back by this block's own threads (plain loads,
+    // not the read-only path) after the barrier below
+    auto center = [&](int cc) -> size_t {
+      return static_cast<size_t>(b) * p.m + (g + cc / p.tm * blocks) * p.tm +
+             cc % p.tm;
+    };
+    for (int cc = 2 * warp; cc < centers; cc += 2 * kWarps) {
+      const size_t m0 = center(cc);
+      const bool two = cc + 1 < centers;
+      const size_t m1 = two ? center(cc + 1) : m0;
+      const float* c1 = two ? p.centers + m1 * 3 : nullptr;
+      if (p.staged) {
+        ball_query<true>(p, pts, p.centers + m0 * 3, c1, p.idx + m0 * p.k,
+                         p.idx + m1 * p.k);
+      } else {
+        ball_query<false>(p, pts, p.centers + m0 * 3, c1, p.idx + m0 * p.k,
+                          p.idx + m1 * p.k);
+      }
+    }
+    __syncthreads();
+  }
+
+  // layer l is normalized in this pass when the pass reads past it
+  auto norm_sc = [&](int l) -> const float* {
+    return (l < t || (is_max && l == t)) ? sc_s + L.coff[l] : nullptr;
+  };
+  Stats st{};
+  Gather ga;
+  ga.init(L.width[0]);
+  if (ga.active && g < p.tiles) {
+    ga.load_idx(p, b, g, rows);
+    ga.load_rows(p, b, g, rows);
+    if (g + blocks < p.tiles) ga.load_idx(p, b, g + blocks, rows);
+  }
+  const float* s0 = norm_sc(0);
+  for (int tile = g; tile < p.tiles; tile += blocks) {
+    const int m0 = tile * p.tm;
+    bf16* x = buf0;
+    bf16* y = buf1;
+    ga.store(p, b, tile, rows, s0, s0 == nullptr ? nullptr : sh_s + L.coff[0],
+             x);
+    __syncthreads();
+    // the next tile's rows (and the one after's indices) while this one is
+    // computed
+    if (ga.active && tile + blocks < p.tiles) {
+      ga.load_rows(p, b, tile + blocks, rows);
+      if (tile + 2 * blocks < p.tiles)
+        ga.load_idx(p, b, tile + 2 * blocks, rows);
+    }
+    for (int l = 0; l < (query ? 0 : t); ++l) {
+      const float* s1 = norm_sc(l + 1);
+      dense(p, L, l, rows, bias_s + L.coff[l + 1], s1,
+            s1 == nullptr ? nullptr : sh_s + L.coff[l + 1], x, y, wt);
+      bf16* s = x;
+      x = y;
+      y = s;
+    }
+    if constexpr (is_max) {
+      const int q = c / 8;
+      for (int e = threadIdx.x; e < p.tm * q; e += kThreads) {
+        const int mi = e / q, j = e - mi * q;
+        const bf16* col = x + mi * p.k * p.ld + 8 * j;
+        float best[8], f[8];
+#pragma unroll
+        for (int v = 0; v < 8; ++v) best[v] = -INFINITY;
+#pragma unroll 4
+        for (int r = 0; r < p.k; ++r) {
+          unpack8(*reinterpret_cast<const uint4*>(col + r * p.ld), f);
+#pragma unroll
+          for (int v = 0; v < 8; ++v) best[v] = fmaxf(best[v], f[v]);
+        }
+        *reinterpret_cast<uint4*>(
+            p.out + (static_cast<size_t>(b) * p.m + m0 + mi) * c + 8 * j) =
+            pack8(best);
+      }
+    } else {
+      tile_stats(x, p.ld, rows, c, tile == g, st);
+    }
+    __syncthreads();
+  }
+  if constexpr (is_max) return;
+
+  // this block's partial, then the item's ticket
+  double* part = p.part + static_cast<size_t>(b) * blocks * 2 * c;
+  block_stats(st, c, scr, reinterpret_cast<int*>(scr + kThreads * 8 + kMaxC),
+              part + static_cast<size_t>(g) * 2 * c,
+              part + static_cast<size_t>(g) * 2 * c + c);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(p.tickets + b, 1) == blocks - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // the last block: merge the G partials, fold GroupNorm(8) and (ca, cb)
+  // into (sc, sh). Thread (channel, slice) merges the partials j = slice,
+  // slice + slices, ... in order; then the slices merge in order: a fixed
+  // tree, so the result does not depend on which block came last.
+  double* mean_c = reinterpret_cast<double*>(smem);
+  double* m2_c = mean_c + kMaxC;
+  double* sl_n = m2_c + kMaxC;             // kThreads entries each
+  double* sl_mean = sl_n + kThreads;
+  double* sl_m2 = sl_mean + kThreads;
+  const double rows_d = rows;
+  {
+    const int slices = kThreads / c;   // c <= kMaxC = kThreads
+    const int ch = threadIdx.x % c, sl = threadIdx.x / c;
+    if (sl < slices) {
+      double n = 0.0, mean = 0.0, m2 = 0.0;
+      for (int j = sl; j < blocks; j += slices) {
+        const double nb = ((p.tiles - j + blocks - 1) / blocks) * rows_d;
+        chan(n, mean, m2, nb,
+             __ldcg(part + static_cast<size_t>(j) * 2 * c + ch),
+             __ldcg(part + static_cast<size_t>(j) * 2 * c + c + ch));
+      }
+      sl_n[threadIdx.x] = n;
+      sl_mean[threadIdx.x] = mean;
+      sl_m2[threadIdx.x] = m2;
+    }
+    __syncthreads();
+    if (threadIdx.x < c) {
+      double n = 0.0, mean = 0.0, m2 = 0.0;
+      for (int k = 0; k < slices; ++k) {
+        const int i = k * c + threadIdx.x;
+        chan(n, mean, m2, sl_n[i], sl_mean[i], sl_m2[i]);
+      }
+      mean_c[threadIdx.x] = mean;
+      m2_c[threadIdx.x] = m2;
+    }
+  }
+  __syncthreads();
+  const double nc = static_cast<double>(p.m) * p.k;
   const int cg = c / 8;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+  for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     const int g0 = (ch / cg) * cg;
     double mg = 0.0;
     for (int j = 0; j < cg; ++j) mg += mean_c[g0 + j];
@@ -177,193 +724,132 @@ __global__ void sa_stats_kernel(const float* __restrict__ part,
       m2g += m2_c[g0 + j] + nc * d * d;
     }
     const float rs = static_cast<float>(1.0 / sqrt(m2g / (nc * cg) + 1e-5));
-    const float s = rs * ca[static_cast<size_t>(b) * ld + ch];
-    sc[static_cast<size_t>(b) * c + ch] = s;
-    sh[static_cast<size_t>(b) * c + ch] =
-        cb[static_cast<size_t>(b) * ld + ch] - static_cast<float>(mg) * s;
+    const float s = rs * p.ca[static_cast<size_t>(b) * c + ch];
+    float* sc = p.sc + static_cast<size_t>(b) * p.csum + L.coff[t];
+    sc[ch] = s;
+    sc[static_cast<size_t>(gridDim.y) * p.csum + ch] =
+        p.cb[static_cast<size_t>(b) * c + ch] - static_cast<float>(mg) * s;
   }
-}
-
-// Grid (tiles, B). zin (B, M*K, cin) -> zout (B, M*K, cout) through
-// normalize + swish and the dense layer w (cin, cout) bf16, bias (cout,).
-// part: (B, tiles, 2, cout).
-__global__ void __launch_bounds__(kThreads)
-sa_dense_kernel(const lion::bf16* __restrict__ zin,
-                const float* __restrict__ sc, const float* __restrict__ sh,
-                const lion::bf16* __restrict__ w,
-                const float* __restrict__ bias, int m, int k, int tm,
-                int cin, int cout, lion::bf16* __restrict__ zout,
-                float* __restrict__ part) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int cinp = (cin + 15) / 16 * 16;
-  const int ldh = cinp + 8;
-  const int rows = tm * k;
-  lion::bf16* h = reinterpret_cast<lion::bf16*>(smem);      // rows x ldh
-  lion::bf16* wt = h + rows * ldh;                          // cinp x kLdW
-  float* stage = reinterpret_cast<float*>(wt + cinp * kLdW);  // rows x kLdS
-  const int b = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
-  const size_t row0 = (static_cast<size_t>(b) * m +
-                       static_cast<size_t>(tile) * tm) * k;
-  const float* scb = sc + static_cast<size_t>(b) * cin;
-  const float* shb = sh + static_cast<size_t>(b) * cin;
-  for (int e = threadIdx.x; e < rows * cinp; e += kThreads) {
-    const int row = e / cinp, ch = e - row * cinp;
-    float v = 0.0f;
-    if (ch < cin) {
-      v = swishf(__bfloat162float(zin[(row0 + row) * cin + ch]) * scb[ch] +
-                 shb[ch]);
-    }
-    h[row * ldh + ch] = __float2bfloat16_rn(v);
-  }
-  float* pb = part + (static_cast<size_t>(b) * tiles + tile) * 2 * cout;
-  const int warp = threadIdx.x >> 5;
-  for (int n0 = 0; n0 < cout; n0 += kChunk) {
-    for (int e = threadIdx.x; e < cinp * kChunk; e += kThreads) {
-      const int kk = e / kChunk, nn = e - kk * kChunk;
-      wt[kk * kLdW + nn] = (kk < cin && n0 + nn < cout)
-                               ? w[static_cast<size_t>(kk) * cout + n0 + nn]
-                               : __float2bfloat16_rn(0.0f);
-    }
-    __syncthreads();
-    const int frags = (rows / 16) * (kChunk / 16);
-    for (int f = warp; f < frags; f += kWarps) {
-      const int fi = f / (kChunk / 16), fj = f % (kChunk / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kk = 0; kk < cinp; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, lion::bf16,
-                       wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, lion::bf16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, h + fi * 16 * ldh + kk, ldh);
-        wmma::load_matrix_sync(fb, wt + kk * kLdW + fj * 16, kLdW);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(stage + fi * 16 * kLdS + fj * 16, acc, kLdS,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    const int cw = min(kChunk, cout - n0);
-    for (int e = threadIdx.x; e < rows * kChunk; e += kThreads) {
-      const int row = e / kChunk, nn = e - row * kChunk;
-      if (nn < cw) {
-        const float v = rounded(stage[row * kLdS + nn] + bias[n0 + nn]);
-        stage[row * kLdS + nn] = v;
-        zout[(row0 + row) * cout + n0 + nn] = __float2bfloat16_rn(v);
-      }
-    }
-    __syncthreads();
-    tile_stats(stage, rows, kLdS, cw, pb + n0, pb + cout + n0);
-    __syncthreads();
-  }
-}
-
-// Grid (tiles, B). out (B, M, c) = max over the K slots of
-// bf16(swish(z * sc + sh)).
-__global__ void __launch_bounds__(kThreads)
-sa_max_kernel(const lion::bf16* __restrict__ z,
-              const float* __restrict__ sc, const float* __restrict__ sh,
-              int m, int k, int tm, int c, lion::bf16* __restrict__ out) {
-  const int b = blockIdx.y, tile = blockIdx.x;
-  const size_t m0 = static_cast<size_t>(b) * m +
-                    static_cast<size_t>(tile) * tm;
-  for (int e = threadIdx.x; e < tm * c; e += kThreads) {
-    const int mi = e / c, ch = e - mi * c;
-    const float s = sc[static_cast<size_t>(b) * c + ch];
-    const float t = sh[static_cast<size_t>(b) * c + ch];
-    const lion::bf16* zr = z + (m0 + mi) * k * c + ch;
-    float best = -INFINITY;
-    for (int j = 0; j < k; ++j) {
-      best = fmaxf(best, rounded(swishf(
-                             __bfloat162float(zr[static_cast<size_t>(j) * c]) *
-                                 s + t)));
-    }
-    out[(m0 + mi) * c + ch] = __float2bfloat16_rn(best);
-  }
-}
-
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  if (threadIdx.x == 0) p.tickets[b] = 0;
 }
 
 }  // namespace
 
-// points (B, N, 3), centers (B, M, 3), a (B, N, C1), bc (B, M, C1) f32;
-// w: the bf16 kernels of layers 2..L, (C_{l-1}, C_l) each, back to back;
-// bias: their f32 biases back to back; ca/cb (B, C_1 + ... + C_L) f32;
-// widths: host array of the L widths. Scratch: z0/z1 (B*M*K*Cmax) bf16,
-// part (B * M/tm * 2 * Cmax) f32, scsh (2 * B * Cmax) f32. out (B, M, C_L)
-// bf16. tm centers per block (tm * K <= 128 slot rows, a multiple of 16).
-LION_EXPORT int lion_sa_fused(const void* points, const void* centers,
-                              const void* a, const void* bc, const void* w,
-                              const void* bias, const void* ca,
-                              const void* cb, const void* widths_ptr,
-                              int nlayers, void* z0, void* z1, void* part,
-                              void* scsh, void* out, int b, int n, int m,
-                              int k, int tm, float r2, void* stream) {
-  const int* widths = static_cast<const int*>(widths_ptr);
-  int csum = 0, cmax = 0;
-  for (int l = 0; l < nlayers; ++l) {
-    csum += widths[l];
-    cmax = widths[l] > cmax ? widths[l] : cmax;
-  }
+// Shared memory of one pass: the head (row buffer, the statistics'
+// reduction, the layers' sc, sh and biases) and, for pass 1, the staged cloud
+// (or nothing when it does not fit) or, for the later passes of a block
+// with dense layers, the second row buffer and the weights: all of them
+// when they fit in kResident bytes, else one stage. ops/sa_fused.py:
+// sa_plan mirrors this; the entry refuses a plan whose numbers differ.
+static void sa_smem(int n, int k, int tm, int ld, int wrows, int wres,
+                    int nlayers, int csum, int* query, int* pass,
+                    int* staged) {
   const int rows = tm * k;
-  if (nlayers < 1 || cmax > kMaxC || rows > kMaxRows || rows % 16 ||
-      m % tm)
+  const int buf = rows * ld * 2;
+  const int head = buf + kRed * 4 + 3 * csum * 4;
+  *staged = head + n * 12 <= kSmemDyn;
+  *query = head + (*staged ? n * 12 : 0);
+  const int wt = wres <= kResident ? wres : wrows * kLdW * 2;
+  *pass = head + (nlayers > 1 ? buf + wt : 0);
+}
+
+// points (B, N, 3), centers (B, M, 3), a (B, N, C1), bc (B, M, C1) f32.
+// Host arrays of L - 1 pointers: ws, the bf16 (C_l, C_{l+1}) kernels, and
+// bs, their f32 biases; of L pointers: cas, cbs, the (B, C_l) f32 affines;
+// widths, the L widths. Scratch (none zeroed): idx (B, M, K) int32, part
+// (B * max(G, G1) * 2 * Cmax) f64, scsh (2 * B * (C_1 + ... + C_L)) f32,
+// tickets (B) int32. out (B, M, C_L) bf16. The plan: tm centers per tile,
+// G blocks per item (G1 in pass 1), the passes' shared memory (sa_smem).
+LION_EXPORT int lion_sa_fused(const void* points, const void* centers,
+                              const void* a, const void* bc,
+                              const void* const* ws, const void* const* bs,
+                              const void* const* cas, const void* const* cbs,
+                              const int* widths, int nlayers, void* idx,
+                              void* part, void* scsh, void* tickets,
+                              void* out, int b, int n, int m, int k, int tm,
+                              int blocks, int blocks_query, int smem_query,
+                              int smem_pass, float r2, void* stream) {
+  if (nlayers < 1 || nlayers > kMaxLayers || tm < 1 || m % tm ||
+      k < 1 || (k & (k - 1)) ||
+      (tm * k != 64 && tm * k != 128) || blocks < 1 ||
+      blocks > m / tm ||
+      blocks_query < 1 || blocks_query > m / tm)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = m / tm;
-  const dim3 grid(tiles, b);
-  float* sc = static_cast<float*>(scsh);
-  float* sh = sc + static_cast<size_t>(b) * cmax;
-  float* pf = static_cast<float*>(part);
-  const auto* caf = static_cast<const float*>(ca);
-  const auto* cbf = static_cast<const float*>(cb);
-
-  const size_t smem1 = (static_cast<size_t>(rows) * widths[0] + rows) * 4;
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(sa_first_kernel),
-                             smem1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sa_first_kernel<<<grid, kThreads, smem1, s>>>(
-      static_cast<const float*>(points), static_cast<const float*>(centers),
-      static_cast<const float*>(a), static_cast<const float*>(bc), n, m, k,
-      tm, widths[0], r2, static_cast<lion::bf16*>(z0), pf);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  const lion::bf16* wl = static_cast<const lion::bf16*>(w);
-  const float* bl = static_cast<const float*>(bias);
-  lion::bf16* zin = static_cast<lion::bf16*>(z0);
-  lion::bf16* zout = static_cast<lion::bf16*>(z1);
-  int coff = 0;
+  Layers L{};
+  int csum = 0, cmax = 0, wrows = 0, wres = 0;
   for (int l = 0; l < nlayers; ++l) {
     const int c = widths[l];
-    sa_stats_kernel<<<b, 256, 0, s>>>(pf, caf + coff, cbf + coff, csum, c,
-                                      tiles, rows, sc, sh);
+    if (c < 8 || c % 8 || c > kMaxC)
+      return static_cast<int>(cudaErrorInvalidValue);
+    L.width[l] = c;
+    L.coff[l] = csum;
+    csum += c;
+    cmax = c > cmax ? c : cmax;
+  }
+  for (int l = 0; l + 1 < nlayers; ++l) {
+    const int cinp = (widths[l] + 15) / 16 * 16;
+    L.w[l] = static_cast<const bf16*>(ws[l]);
+    L.bias[l] = static_cast<const float*>(bs[l]);
+    L.woff[l] = wres / 2;
+    wres += cinp * kLdW * 2 * ((widths[l + 1] + kChunk - 1) / kChunk);
+    wrows = cinp > wrows ? cinp : wrows;
+  }
+  const int ld = (cmax + 15) / 16 * 16 + 8;
+  int want_query = 0, want_pass = 0, staged = 0;
+  sa_smem(n, k, tm, ld, wrows, wres, nlayers, csum, &want_query, &want_pass,
+          &staged);
+  if (want_query != smem_query || want_pass != smem_pass ||
+      smem_pass > kSmemDyn || smem_query > kSmemDyn)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned attr_done[3] = {0, 0, 0};  // per device, once per process
+  const void* kernels[3] = {
+      reinterpret_cast<const void*>(sa_pass_kernel<kQuery>),
+      reinterpret_cast<const void*>(sa_pass_kernel<kStats>),
+      reinterpret_cast<const void*>(sa_pass_kernel<kMax>)};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+    err = lion::set_smem_once(kernels[i], kSmemDyn, &attr_done[i]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(tickets, 0, sizeof(int) * b, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Pass p{};
+  p.points = static_cast<const float*>(points);
+  p.centers = static_cast<const float*>(centers);
+  p.a = static_cast<const float*>(a);
+  p.bc = static_cast<const float*>(bc);
+  p.idx = static_cast<int*>(idx);
+  p.part = static_cast<double*>(part);
+  p.sc = static_cast<float*>(scsh);
+  p.tickets = static_cast<int*>(tickets);
+  p.out = static_cast<bf16*>(out);
+  p.n = n;
+  p.m = m;
+  p.k = k;
+  p.kshift = __builtin_ctz(static_cast<unsigned>(k));
+  p.tm = tm;
+  p.tiles = m / tm;
+  p.csum = csum;
+  p.ld = ld;
+  p.r2 = r2;
+  p.staged = staged;
+  p.resident = wres <= kResident;
+  for (int pass = 1; pass <= nlayers + 1; ++pass) {
+    p.target = pass <= nlayers ? pass : nlayers;
+    const bool query = pass == 1, is_max = pass == nlayers + 1;
+    p.ca = static_cast<const float*>(cas[p.target - 1]);
+    p.cb = static_cast<const float*>(cbs[p.target - 1]);
+    const dim3 grid(query ? blocks_query : blocks, b);
+    if (query) {
+      sa_pass_kernel<kQuery><<<grid, kThreads, smem_query, s>>>(p, L);
+    } else if (is_max) {
+      sa_pass_kernel<kMax><<<grid, kThreads, smem_pass, s>>>(p, L);
+    } else {
+      sa_pass_kernel<kStats><<<grid, kThreads, smem_pass, s>>>(p, L);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
-    if (l + 1 < nlayers) {
-      const int co = widths[l + 1];
-      const int cinp = (c + 15) / 16 * 16;
-      const size_t smem = static_cast<size_t>(rows) * (cinp + 8) * 2 +
-                          static_cast<size_t>(cinp) * kLdW * 2 +
-                          static_cast<size_t>(rows) * kLdS * 4;
-      err = set_smem(reinterpret_cast<const void*>(sa_dense_kernel), smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      sa_dense_kernel<<<grid, kThreads, smem, s>>>(zin, sc, sh, wl, bl, m, k,
-                                                   tm, c, co, zout, pf);
-      if ((err = cudaGetLastError()) != cudaSuccess)
-        return static_cast<int>(err);
-      lion::bf16* t = zin;
-      zin = zout;
-      zout = t;
-      wl += static_cast<size_t>(c) * co;
-      bl += co;
-    } else {
-      sa_max_kernel<<<grid, kThreads, 0, s>>>(zin, sc, sh, m, k, tm, c,
-                                              static_cast<lion::bf16*>(out));
-    }
-    coff += c;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }

@@ -3,86 +3,250 @@
 // Replaces lion_tpu/ops/pallas/voxelize.py: avg_voxelize_pallas
 // (_vox_kernel) and lion_tpu/ops/pallas/voxelize_binned.py:
 // avg_voxelize_binned (_vox_binned_kernel). The TPU needed a dense and a
-// point-binned variant to feed its matrix unit; one scatter serves here.
+// point-binned variant to feed its matrix unit; one cell-ordered gather
+// serves here.
 //
 // Semantics: cell index x*r^2 + y*r + z; each cell holds the mean of the
-// features of the points that fall in it; empty cells hold 0. Features are
-// float32 or bfloat16; sums are taken in float32 and the mean is rounded
-// once to the features' dtype (lion_tpu/ops/voxel.py:61,92).
+// features of the points that fall in it; empty cells hold 0; a point
+// outside the grid is dropped. Features are float32 or bfloat16; sums are
+// taken in float32 and the mean is rounded once to the features' dtype
+// (lion_tpu/ops/voxel.py:61,92). The result is deterministic: each cell's
+// sum runs over its points in ascending point order, starting from 0, and
+// is divided by the count in IEEE float32, so it equals bit for bit a
+// float32 sum in point order (np.add.at) divided by the count.
 //
-// Bound on the H100: device-memory bandwidth and atomic throughput. The
-// scatter moves N*C floats in and the divide pass touches the whole
-// (B, r^3, C) grid once (134 MB at B = 16, r = 32, C = 64).
-// Design: one thread per (point, channel) atomically adds into a grid the
-// caller zeroed, so neighbouring threads hit neighbouring addresses of one
-// cell row; channel 0 also counts the point. A second pass divides by the
-// count. Atomic order varies from run to run, so sums agree with a serial
-// sum to fp32 rounding, not bit for bit.
+// Bound on the H100: device-memory bandwidth of the one write of the
+// (B, r^3, C) output (134 MB at B = 16, r = 32, C = 64 in float32).
+// Design: two launches, no zero fill, no float atomics.
+//   1. vox_order: one block per item builds a stable cell order of its
+//      points. It counts the points of each cell with integer atomics (an
+//      integer sum does not depend on order) in shared memory, or in
+//      global memory when r^3 does not fit, takes the exclusive scan as the
+//      cells' offsets (B, r^3 + 1), and places the points 1024 at a time:
+//      a point goes to its cell's running cursor plus its rank among the
+//      lanes of its warp in the same cell (__match_any_sync), the warps
+//      taking turns in order, so each cell's slice of the (B, N) order
+//      lists its points in ascending order.
+//   2. vox_mean: a thread per (cell, group of V neighbouring channels; V = 4
+//      fp32 or 8 bf16 values, 16 bytes) sums the cell's rows in that order,
+//      divides and stores once; empty cells store 0. Neighbouring threads take neighbouring channels, so
+//      the stores (every output element exactly once) are coalesced.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kOrderThreads = 1024;
+constexpr int kMeanThreads = 256;
+constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
 
-template <typename T>
-__global__ void vox_scatter_kernel(const T* __restrict__ feats,
-                                   const int* __restrict__ vox, int b, int n,
-                                   int c, int r, float* __restrict__ grid,
-                                   float* __restrict__ count) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<size_t>(b) * n * c) return;
-  const int ch = static_cast<int>(t % c);
-  const size_t pt = t / c;  // b * n + i
-  const int* v = vox + pt * 3;
+__device__ __forceinline__ int cell_of(const int* v, int r) {
   const int x = v[0], y = v[1], z = v[2];
-  if (x < 0 || x >= r || y < 0 || y >= r || z < 0 || z >= r) return;
-  const size_t r3 = static_cast<size_t>(r) * r * r;
-  const size_t cell = (pt / n) * r3 + (static_cast<size_t>(x) * r + y) * r + z;
-  atomicAdd(grid + cell * c + ch, lion::to_float(feats[t]));
-  if (ch == 0) atomicAdd(count + cell, 1.0f);
+  if (x < 0 || x >= r || y < 0 || y >= r || z < 0 || z >= r) return -1;
+  return (x * r + y) * r + z;
 }
 
-// out may alias grid (float32): each thread reads and writes one element.
-template <typename T>
-__global__ void vox_divide_kernel(const float* grid,
-                                  const float* __restrict__ count,
-                                  size_t total, int c, T* out) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const float k = count[t / c];
-  lion::store(out + t, k > 0.0f ? grid[t] / k : grid[t]);
-}
+// The counts' layout: one pad word after every 32 cells, so a lane that
+// walks its own run of 32 cells meets no bank conflict.
+__device__ __forceinline__ int padded(int cell) { return cell + (cell >> 5); }
 
-template <typename T>
-int launch(const void* feats, const void* vox, void* grid, void* count,
-           void* out, int b, int n, int c, int r, cudaStream_t s) {
-  const long long points = static_cast<long long>(b) * n * c;
-  if (points > 0) {
-    vox_scatter_kernel<T><<<lion::ceil_div(points, kThreads), kThreads, 0,
-                            s>>>(
-        static_cast<const T*>(feats), static_cast<const int*>(vox), b, n, c,
-        r, static_cast<float*>(grid), static_cast<float*>(count));
+// Grid (B), kOrderThreads threads. The counts (padded, r^3 + r^3 / 32 + 1)
+// and the N cells live in shared memory (shared != 0) or in the global
+// scratch (B, padded r^3 + N) int32.
+__global__ void __launch_bounds__(kOrderThreads)
+vox_order_kernel(const int* __restrict__ vox, int n, int r, int shared,
+                 int* __restrict__ scratch, int* __restrict__ offsets,
+                 int* __restrict__ order) {
+  extern __shared__ __align__(16) int smem[];
+  __shared__ int warp_total[kOrderThreads / 32];
+  const int b = blockIdx.x;
+  const int r3 = r * r * r, r3p = padded(r3) + 1;
+  int* cnt = shared ? smem : scratch + static_cast<size_t>(b) * (r3p + n);
+  int* cells = cnt + r3p;
+  const int* vb = vox + static_cast<size_t>(b) * n * 3;
+  int* off = offsets + static_cast<size_t>(b) * (r3 + 1);
+  int* ord = order + static_cast<size_t>(b) * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kWarps = kOrderThreads / 32;
+
+  for (int i = threadIdx.x; i < r3p; i += kOrderThreads) cnt[i] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kOrderThreads) {
+    const int cell = cell_of(vb + 3 * i, r);
+    cells[i] = cell;
+    if (cell >= 0) atomicAdd(cnt + padded(cell), 1);
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long cells = static_cast<long long>(b) * r * r * r * c;
-  vox_divide_kernel<T><<<lion::ceil_div(cells, kThreads), kThreads, 0, s>>>(
-      static_cast<const float*>(grid), static_cast<const float*>(count),
-      static_cast<size_t>(cells), c, static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
+  __syncthreads();
+
+  // exclusive scan: thread t owns the run [t * per, (t + 1) * per)
+  const int per = (r3 + kOrderThreads - 1) / kOrderThreads;
+  const int lo = min(threadIdx.x * per, r3), hi = min(lo + per, r3);
+  int total = 0;
+  for (int i = lo; i < hi; ++i) total += cnt[padded(i)];
+  int inc = total;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += v;
+  }
+  if (lane == 31) warp_total[warp] = inc;
+  __syncthreads();
+  int base = inc - total;
+  for (int w = 0; w < warp; ++w) base += warp_total[w];
+  for (int i = lo; i < hi; ++i) {  // the cursor starts at the offset
+    const int v = cnt[padded(i)];
+    cnt[padded(i)] = base;
+    base += v;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < r3; i += kOrderThreads) off[i] = cnt[padded(i)];
+  if (threadIdx.x == 0) {
+    int all = 0;
+    for (int w = 0; w < kWarps; ++w) all += warp_total[w];
+    off[r3] = all;
+  }
+  __syncthreads();
+
+  // stable placement in point order, 1024 points a round: every warp finds
+  // its lanes' peers (__match_any_sync) at once, then the warps take turns
+  // in warp order to read and move their cells' cursors
+  for (int i0 = 0; i0 < n; i0 += kOrderThreads) {
+    const int i = i0 + threadIdx.x;
+    const int cell = i < n ? cells[i] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, cell);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    int at = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (warp == w) {
+        if (cell >= 0) at = cnt[padded(cell)];
+        __syncwarp();
+        if (cell >= 0 && rank == 0) cnt[padded(cell)] = at + __popc(peers);
+      }
+      __syncthreads();
+    }
+    if (cell >= 0) ord[at + rank] = i;
+  }
+}
+
+template <typename T, int V>
+struct Vec;
+template <>
+struct Vec<float, 4> {
+  using type = float4;
+};
+template <>
+struct Vec<lion::bf16, 8> {
+  using type = uint4;
+};
+
+// Grid (ceil(r^3 / blockDim.y), B), block (gx, gy): threadIdx.y picks the
+// cell, threadIdx.x walks its channel groups of V neighbouring channels, so
+// neighbouring threads store neighbouring channels.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMeanThreads)
+vox_mean_kernel(const T* __restrict__ feats, const int* __restrict__ offsets,
+                const int* __restrict__ order, int n, int c, int r3,
+                T* __restrict__ out) {
+  const int cell = blockIdx.x * blockDim.y + threadIdx.y;
+  const int b = blockIdx.y;
+  if (cell >= r3) return;
+  const int* off = offsets + static_cast<size_t>(b) * (r3 + 1) + cell;
+  const int s = off[0], e = off[1];
+  const int* ord = order + static_cast<size_t>(b) * n;
+  const T* fb = feats + static_cast<size_t>(b) * n * c;
+  T* dst = out + (static_cast<size_t>(b) * r3 + cell) * c;
+  const float k = static_cast<float>(e - s);
+  for (int g = threadIdx.x * V; g < c; g += blockDim.x * V) {
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+    for (int j = s; j < e; ++j) {
+      const T* row = fb + static_cast<size_t>(ord[j]) * c + g;
+      if constexpr (V == 1) {
+        acc[0] = __fadd_rn(acc[0], lion::to_float(row[0]));
+      } else {
+        const typename Vec<T, V>::type raw =
+            *reinterpret_cast<const typename Vec<T, V>::type*>(row);
+        const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          acc[v] = __fadd_rn(acc[v], lion::to_float(x[v]));
+      }
+    }
+    alignas(16) T res[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      lion::store(res + v, e > s ? __fdiv_rn(acc[v], k) : 0.0f);
+    if constexpr (V == 1) {
+      dst[g] = res[0];
+    } else {  // streaming store: the grid is written once, read later
+      __stcs(reinterpret_cast<typename Vec<T, V>::type*>(dst + g),
+             *reinterpret_cast<const typename Vec<T, V>::type*>(res));
+    }
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_mean(const void* feats, const int* offsets,
+                        const int* order, int b, int n, int c, int r3,
+                        void* out, cudaStream_t s) {
+  const int gx = min(c / V, kMeanThreads);
+  const int gy = max(1, kMeanThreads / gx);
+  if (b > 0 && r3 > 0) {
+    vox_mean_kernel<T, V><<<dim3((r3 + gy - 1) / gy, b), dim3(gx, gy), 0,
+                            s>>>(static_cast<const T*>(feats), offsets,
+                                 order, n, c, r3, static_cast<T*>(out));
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// Shared memory of vox_order for N points at resolution r: the padded
+// r^3 counts and the N cells, or 0 when they do not fit (they then live in the global
+// scratch). ops/voxel.py: vox_order_smem mirrors this.
+static int vox_order_smem(int n, int r) {
+  const long long r3 = static_cast<long long>(r) * r * r;
+  const long long bytes = (r3 + (r3 >> 5) + 1 + n) * 4;
+  return bytes + 4 * (kOrderThreads / 32) <= kSmemMax
+             ? static_cast<int>(bytes) : 0;
+}
+
 // feats (B, N, C) f32 or bf16 (bf16 != 0), vox (B, N, 3) i32 -> out
-// (B, r^3, C) of the features' dtype. grid (B, r^3, C) f32 and count
-// (B, r^3) f32 are scratch zeroed by the caller; for f32 out may be grid.
+// (B, r^3, C) of the features' dtype. Scratch, none zeroed: offsets
+// (B, r^3 + 1) and order (B, N) int32; scratch (B, r^3 + r^3 / 32 + 1 + N)
+// int32, used
+// (and may be NULL otherwise) when vox_order_smem(N, r) is 0.
 LION_EXPORT int lion_avg_voxelize(const void* feats, const void* vox,
-                                  void* grid, void* count, void* out, int b,
-                                  int n, int c, int r, int bf16,
-                                  void* stream) {
+                                  void* offsets, void* order, void* scratch,
+                                  void* out, int b, int n, int c, int r,
+                                  int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(feats, vox, grid, count, out, b, n, c,
-                                      r, s)
-              : launch<float>(feats, vox, grid, count, out, b, n, c, r, s);
+  const int r3 = r * r * r;
+  const int smem = vox_order_smem(n, r);
+  if (r < 1 || n < 0 || c < 1 || (smem == 0 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned attr_done = 0;  // per device, once per process
+  cudaError_t err = lion::set_smem_once(
+      reinterpret_cast<const void*>(vox_order_kernel),
+      kSmemMax - 4 * (kOrderThreads / 32), &attr_done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* off = static_cast<int*>(offsets);
+  int* ord = static_cast<int*>(order);
+  if (b > 0) {
+    vox_order_kernel<<<b, kOrderThreads, smem, s>>>(
+        static_cast<const int*>(vox), n, r, smem != 0,
+        static_cast<int*>(scratch), off, ord);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (bf16) {
+    err = c % 8 == 0
+              ? launch_mean<lion::bf16, 8>(feats, off, ord, b, n, c, r3, out, s)
+              : launch_mean<lion::bf16, 1>(feats, off, ord, b, n, c, r3, out,
+                                           s);
+  } else {
+    err = c % 4 == 0
+              ? launch_mean<float, 4>(feats, off, ord, b, n, c, r3, out, s)
+              : launch_mean<float, 1>(feats, off, ord, b, n, c, r3, out, s);
+  }
+  return static_cast<int>(err);
 }

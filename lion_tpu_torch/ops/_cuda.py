@@ -45,13 +45,12 @@ _SIGNATURES = {
     "lion_ball_query_group_cf": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                  _P),
     "lion_emd_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "lion_avg_voxelize": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lion_avg_voxelize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_conv3d_brick": (_P,) * 6 + (_I,) * 18 + (_P,),
     "lion_conv3d_pair": (_P,) * 11 + (_I,) * 13 + (_P,),
     "lion_pvconv_block_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _P),
-    "lion_sa_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                      _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "lion_sa_fused": (_P,) * 9 + (_I,) + (_P,) * 5 + (_I,) * 9 + (_F, _P),
     "lion_trilinear_devoxelize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _P),

@@ -3,7 +3,9 @@
 Channels-last like the JAX package: grids are (B, R, R, R, C).
 
 Kernels here:
-  K3 `avg_voxelize` (csrc/voxelize.cu): scatter-mean of point features.
+  K3 `avg_voxelize` (csrc/voxelize.cu): scatter-mean of point features,
+     as a stable cell order of the points (one block per item) and one
+     write per output element; bit-reproducible, no zero fill.
   K5 `trilinear_devoxelize` (csrc/devoxelize.cu): 8-corner trilinear
      gather.
 Both take float32 or bfloat16 features and emit their dtype. K3 sums in
@@ -57,6 +59,23 @@ def _avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
     return grid.reshape(b, r, r, r, c).to(features.dtype)
 
 
+SMEM_MAX = 232448   # a block's shared memory on the H100
+
+
+def _order_words(n: int, r: int) -> int:
+    """The ordering launch's counts (one pad word after every 32 cells, and
+    one at the end) and the N cells, in int32 words."""
+    return r ** 3 + (r ** 3 >> 5) + 1 + n
+
+
+def vox_order_smem(n: int, r: int) -> int:
+    """Shared memory of K3's ordering launch (csrc/voxelize.cu
+    vox_order_smem), or 0 when its words do not fit and live in a global
+    scratch."""
+    need = _order_words(n, r) * 4
+    return need if need + 4 * 32 <= SMEM_MAX else 0
+
+
 @kernel("avg_voxelize", _avg_voxelize_plain,
         "lion_tpu_torch/csrc/voxelize.cu",
         "lion_tpu/ops/pallas/voxelize.py:107")
@@ -64,17 +83,26 @@ def avg_voxelize_kernel(features: torch.Tensor, vox_coords: torch.Tensor,
                  resolution: int) -> torch.Tensor:
     """features (B, N, C) f32 or bf16, vox_coords (B, N, 3) int32 in
     [0, r) -> (B, R, R, R, C) of the features' dtype; a point outside the
-    grid is dropped."""
+    grid is dropped. Two launches: the cell order (offsets (B, r^3 + 1),
+    order (B, N)), then each output element written once."""
     dt = check_float(features, "avg_voxelize")
     check_cuda(features, dtype=dt)
     check_cuda(vox_coords, dtype=torch.int32)
     b, n, c = features.shape
     r = resolution
-    sums = torch.zeros((b, r, r, r, c), device=features.device)
-    count = torch.zeros((b, r ** 3), device=features.device)
-    out = sums if dt == torch.float32 else torch.empty_like(sums, dtype=dt)
-    launch("lion_avg_voxelize", ptr(features), ptr(vox_coords), ptr(sums),
-           ptr(count), ptr(out), b, n, c, r, int(dt == torch.bfloat16),
+    dev = features.device
+    if vox_coords.shape != (b, n, 3):
+        raise ValueError(f"avg_voxelize: vox_coords {vox_coords.shape}")
+    # one int32 scratch: offsets (B, r^3 + 1), order (B, N) and, when the
+    # ordering launch's words do not fit in shared memory, their room
+    words = b * (r ** 3 + 1 + n)
+    extra = 0 if vox_order_smem(n, r) else b * _order_words(n, r)
+    scratch = torch.empty(words + extra, dtype=torch.int32, device=dev)
+    base = scratch.data_ptr()
+    out = torch.empty((b, r, r, r, c), dtype=dt, device=dev)
+    launch("lion_avg_voxelize", ptr(features), ptr(vox_coords), base,
+           base + 4 * b * (r ** 3 + 1), base + 4 * words if extra else None,
+           ptr(out), b, n, c, r, int(dt == torch.bfloat16),
            stream_of(features))
     return out
 

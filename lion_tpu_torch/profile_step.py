@@ -26,6 +26,12 @@ alone, without the wrapper's host time that CUDA events include. Then K8
 at r32 C64 beside two cuDNN bf16 convs (its yardstick; no PyTorch call
 computes the pair), and K9 at r8 C128 N256 at the batch and at batch 1
 (one cluster of 8 blocks alone).
+
+With --split it prints, for K7 (`sa_fused`) at the bf16 local step's SA0
+and SA3 shapes and for K3 (`avg_voxelize`) at r32 C64 in fp32 and bf16,
+the device ms per call of every CUDA kernel and memset the call runs, by
+name, beside the call's CUDA-event ms and the host ms the wrapper takes to
+enqueue it.
 """
 import argparse
 import functools
@@ -35,13 +41,12 @@ from torch.profiler import ProfilerActivity, profile
 
 # our kernels' __global__ names -> the wrapper they belong to
 _OURS = {"fps_kernel": "fps", "bqg_kernel": "ball_query_group",
-         "vox_scatter_kernel": "avg_voxelize",
-         "vox_divide_kernel": "avg_voxelize",
+         "vox_order_kernel": "avg_voxelize",
+         "vox_mean_kernel": "avg_voxelize",
          "conv3d_brick": "conv3d_3x3_fused",
          "devox_kernel": "trilinear_devoxelize",
          "three_nn_kernel": "three_nn_interpolate",
-         "sa_first_kernel": "sa_fused", "sa_stats_kernel": "sa_fused",
-         "sa_dense_kernel": "sa_fused", "sa_max_kernel": "sa_fused",
+         "sa_pass_kernel": "sa_fused",
          "pair_conv0_brick": "conv3d_pair",
          "pair_conv1_brick": "conv3d_pair", "pair_fold_kernel": "conv3d_pair",
          "pvblock_brick": "pvconv_block_pair", "bq_kernel": "ball_query"}
@@ -243,6 +248,87 @@ def profile_pair(batch, device_ms, randn) -> None:
               f"(device)")
 
 
+def _split_cases(batch, randn):
+    """(label, call) of K7 at SA0 and SA3 (K = 32; bf16 local step's
+    widths) and K3 at r32 C64 (its wrapper without the autograd Function,
+    as chip_smoke.py times it), on random inputs at the batch."""
+    from . import ops
+    from .ops.voxel import normalize_coords
+    bf = torch.bfloat16
+
+    def sa(n, m, widths, radius):
+        pts = randn(batch, n, 3, scale=0.3)
+        ctr = ops.KERNELS["fps"].plain(pts, m)[1]
+        args = (pts, ctr, randn(batch, n, widths[0]),
+                -(ctr @ randn(3, widths[0], scale=0.5)).contiguous(),
+                [randn(ci, co, scale=ci ** -0.5).to(bf)
+                 for ci, co in zip(widths[:-1], widths[1:])],
+                [randn(co, scale=0.1) for co in widths[1:]],
+                [1.0 + randn(batch, co, scale=0.2) for co in widths],
+                [randn(batch, co, scale=0.2) for co in widths], radius, 32)
+        return functools.partial(ops.sa_fused, *args)
+
+    vox = torch.round(normalize_coords(randn(batch, 2048, 3, scale=0.3),
+                                       32)).to(torch.int32)
+    f64 = randn(batch, 2048, 64)
+    return [("K7 SA0 N2048 M1024 K32 C32,64", sa(2048, 1024, (32, 64), 0.1)),
+            ("K7 SA3 N64 M16 K32 C128x3", sa(64, 16, (128,) * 3, 0.8)),
+            ("K3 fp32 N2048 r32 C64",
+             functools.partial(ops.KERNELS["avg_voxelize"], f64, vox, 32)),
+            ("K3 bf16 N2048 r32 C64",
+             functools.partial(ops.KERNELS["avg_voxelize"], f64.to(bf), vox,
+                               32))]
+
+
+def profile_split(batch: int, steps: int) -> None:
+    import time
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    print(f"[setup] {torch.cuda.get_device_name(0)}, batch {batch}, bf16 K7, "
+          f"{steps} profiled calls per case")
+    for label, fn in _split_cases(batch, randn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / steps
+        end.record()
+        torch.cuda.synchronize()
+        events = start.elapsed_time(end) / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        names = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", 0.0)
+            if dev_us > 0 and \
+                    ev.device_type == torch.autograd.DeviceType.CUDA:
+                names[ev.key] = (dev_us / 1e3 / steps, ev.count // steps)
+        device = sum(v[0] for v in names.values())
+        print(f"[split] {label} B{batch}: events {events:.4f} ms, device "
+              f"{device:.4f} ms, host enqueue {host:.4f} ms per call")
+        for name, (ms, n) in sorted(names.items(), key=lambda kv: -kv[1][0]):
+            print(f"[split]   {ms:8.4f} ms  {n:3d} x  {name[:90]}")
+        # the launches of one call in order (the last call of the window)
+        launches = sorted((e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA),
+                          key=lambda e: e.time_range.start)
+        per_call = sum(v[1] for v in names.values())
+        print("[split]   in order: " + ", ".join(
+            f"{e.time_range.elapsed_us() / 1e3:.4f}"
+            for e in launches[-per_call:]) + " ms")
+
+
 def profile_steps(step, steps: int, label: str) -> None:
     wall, groups = _device_groups(step, steps)
     busy = sum(v[0] for v in groups.values())
@@ -264,6 +350,9 @@ def main(argv=None):
                     help="profile the two-prior training step (fp32)")
     ap.add_argument("--convs", action="store_true",
                     help="device ms of every K4 / K10 case and cuDNN's conv")
+    ap.add_argument("--split", action="store_true",
+                    help="K7's and K3's device ms by launch, events and "
+                    "host time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -274,6 +363,9 @@ def main(argv=None):
         return
     if args.convs:
         profile_convs(args.batch, args.steps)
+        return
+    if args.split:
+        profile_split(args.batch, args.steps)
         return
 
     from .config import flagship_cfg

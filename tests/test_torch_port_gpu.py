@@ -8,6 +8,7 @@ This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -62,17 +63,75 @@ def test_ball_query_group_kernel(gen, n, m, k, c, r):
     assert torch.equal(got, ref)
 
 
+def _ordered_mean(feats, vox, r):
+    """The float32 sum of each cell's features in point order (np.add.at
+    applies in index order), divided by the count, rounded once to the
+    features' dtype; points outside the grid dropped, empty cells 0."""
+    f = feats.float().cpu().numpy()
+    v = vox.long().cpu().numpy()
+    inside = np.all((v >= 0) & (v < r), axis=-1)
+    cells = (v[..., 0] * r + v[..., 1]) * r + v[..., 2]
+    out = np.zeros((f.shape[0], r ** 3, f.shape[-1]), np.float32)
+    for i in range(f.shape[0]):
+        keep = inside[i]
+        sums = np.zeros((r ** 3, f.shape[-1]), np.float32)
+        np.add.at(sums, cells[i][keep], f[i][keep])
+        count = np.bincount(cells[i][keep], minlength=r ** 3)
+        out[i] = np.where(count[:, None] > 0,
+                          sums / np.maximum(count, 1)[:, None]
+                          .astype(np.float32), np.float32(0))
+    return torch.from_numpy(out).reshape(
+        f.shape[0], r, r, r, f.shape[-1]).to(feats.dtype)
+
+
 @pytest.mark.parametrize("r,c", [(5, 3), (8, 192), (32, 64)])
 def test_voxelize_kernels(gen, r, c):
     xyz = _randn(gen, 2, 700, 3, scale=0.3)
     nc = voxel.normalize_coords(xyz, r).contiguous()
     vox = torch.round(nc).to(torch.int32)
-    got, ref = _both("avg_voxelize", _randn(gen, 2, 700, c), vox, r)
-    # atomic sums in varying order on both sides
+    feats = _randn(gen, 2, 700, c)
+    got, ref = _both("avg_voxelize", feats, vox, r)
+    # the plain version on the card scatters with atomics in varying order
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.cpu(), _ordered_mean(feats, vox, r))
     grid = _randn(gen, 2, r, r, r, c)
     got, ref = _both("trilinear_devoxelize", grid, nc, r)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+@pytest.mark.parametrize("r,c", [(5, 3), (8, 64), (16, 192), (32, 64),
+                                 (32, 3), (8, 192)])
+@pytest.mark.parametrize("edge", [None, "one cell", "outside", "odd n"])
+def test_voxelize_kernel_is_the_ordered_mean(gen, dt, r, c, edge):
+    """K3 bit-equal to the ordered float32 reference: empty cells (most of
+    the grid at r 32), all points in one cell, points outside the grid
+    (dropped), N not a multiple of the ordering warp's 32 or the block."""
+    n = 1037 if edge == "odd n" else 2048
+    xyz = _randn(gen, 3, n, 3, scale=0.3)
+    vox = torch.round(voxel.normalize_coords(xyz, r)).to(torch.int32)
+    if edge == "one cell":
+        vox[:] = vox[:, :1]
+    elif edge == "outside":
+        vox[:, ::5, 0] = r
+        vox[:, 1::7, 2] = -1
+    feats = _randn(gen, 3, n, c).to(dt)
+    w = ops.KERNELS["avg_voxelize"]
+    launches = w.launches
+    got = ops.avg_voxelize(feats, vox.contiguous(), r)
+    assert w.launches == launches + 1 and got.dtype == dt
+    assert torch.equal(got.cpu(), _ordered_mean(feats, vox, r))
+
+
+def test_voxelize_kernel_beyond_shared_memory(gen):
+    """r = 40: the ordering launch keeps its counts in the global scratch."""
+    r = 40
+    vox = torch.round(voxel.normalize_coords(
+        _randn(gen, 2, 3000, 3, scale=0.3), r)).to(torch.int32)
+    feats = _randn(gen, 2, 3000, 16)
+    assert voxel.vox_order_smem(3000, r) == 0
+    got = ops.avg_voxelize(feats, vox, r)
+    assert torch.equal(got.cpu(), _ordered_mean(feats, vox, r))
 
 
 # K4's cases: (r, ci, co, affine, swish). affine 3.0 shifts the prologue's
@@ -148,9 +207,11 @@ def test_voxelize_kernels_bf16(gen, r, c):
     feats = _randn(gen, 2, 700, c).to(BF16)
     got, ref = _both("avg_voxelize", feats, vox, r)
     assert got.dtype == BF16
-    # fp32 atomic sums in varying order, then one bf16 rounding
+    # the plain version's fp32 atomic sums in varying order, then one bf16
+    # rounding
     torch.testing.assert_close(got.float(), ref.float(), rtol=8e-3,
                                atol=1e-6)
+    assert torch.equal(got.cpu(), _ordered_mean(feats, vox, r))
     grid = _randn(gen, 2, r, r, r, c).to(BF16)
     got, ref = _both("trilinear_devoxelize", grid, nc, r)
     assert got.dtype == BF16 and torch.equal(got, ref)
@@ -235,17 +296,34 @@ def _repeat(label, fn):
 
 
 def test_repeat_runs_on_the_same_inputs(gen):
-    """Run-to-run reproducibility (ROADMAP Queue 3 item 3): K8 at r32 C64,
-    K9 at r8 C128 N256 and one local-prior forward in bf16 at batch 16 and
-    in fp32 at batch 4, twice each on the same inputs. Bit equality is
-    printed, not required: K8's statistics add across blocks with global
-    atomics (so do K4's and K3's sums) and K9's voxelize adds with shared
-    atomics, while K9's statistics are summed in rank order. The two runs
-    must agree within the kernels' own gates."""
+    """Run-to-run reproducibility (ROADMAP Queue 3 item 3). K3 (fp32 and
+    bf16 at B16 r32 C64) and K7 (SA0 and SA3 at B16) must repeat bit for
+    bit: K3 sums each cell in point order, K7 merges its statistics in a
+    fixed order, and neither adds floats with atomics. K8 at r32 C64, K9 at
+    r8 C128 N256 and one local-prior forward in bf16 at batch 16 and in
+    fp32 at batch 4 run twice each on the same inputs; their bit equality
+    is printed, not required: K8's statistics add across blocks with global
+    atomics (so do K4's) and K9's voxelize adds with shared atomics, while
+    K9's statistics are summed in rank order. Those two runs must agree
+    within the kernels' own gates."""
     from lion_tpu_torch.config import flagship_cfg
     from lion_tpu_torch.models.registry import build_local_prior
     from lion_tpu_torch.nn import init_weights
-    b, c = 16, 64
+    b = 16
+    vox = torch.round(voxel.normalize_coords(
+        _randn(gen, b, 2048, 3, scale=0.3), 32)).to(torch.int32)
+    f64 = _randn(gen, b, 2048, 64)
+    for dt in (torch.float32, BF16):
+        x = f64.to(dt)
+        a, r = _repeat(f"avg_voxelize {dt} B16 r32 C64",
+                       lambda: ops.avg_voxelize(x, vox, 32))
+        assert torch.equal(a[0], r[0])
+    for label, shape in (("SA0", (2048, 1024, 32, (32, 64), 0.1)),
+                         ("SA3", (64, 16, 32, (128, 128, 128), 0.8))):
+        args = _sa_inputs(gen, b, *shape)
+        a, r = _repeat(f"sa_fused B16 {label}", lambda: ops.sa_fused(*args))
+        assert torch.equal(a[0], r[0])
+    c = 64
     x = _randn(gen, b, 32, 32, 32, c).to(BF16)
     w = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
     pair = (x, w, _randn(gen, c, scale=0.1),
@@ -311,13 +389,17 @@ def _sa_inputs(gen, b, n, m, k, widths, radius_ball):
     (64, 16, 32, (128, 128, 128), 0.8),       # SA3
     (300, 64, 8, (24,), 0.05),                # partial balls, one layer
     (500, 40, 8, (16, 40, 8), 0.2),           # K = 8, three layers
-    (256, 128, 16, (64, 128), 0.3)])
+    (256, 128, 16, (64, 128), 0.3),
+    (512, 64, 128, (32, 64), 0.4),            # K = 128
+    (256, 32, 32, (256, 64), 0.3),            # a width of 256
+    (20000, 8, 8, (8,), 0.05)])               # a cloud read through L2
 def test_sa_fused_kernel(gen, n, m, k, widths, radius):
     args = _sa_inputs(gen, 2, n, m, k, widths, radius)
     got, ref = _both("sa_fused", *args)
     assert got.dtype == BF16 and got.shape == (2, m, widths[-1])
     # GroupNorm over bf16 rows: statistics summed in another order (and
     # merged in float64 on the card) move a few roundings by one ulp
+    assert torch.equal(got, ops.sa_fused(*args))   # bit-reproducible
     _assert_bf16_close(got, ref, 2e-2)
 
 
