@@ -14,12 +14,17 @@ non-zero:
      two cuDNN convs;
      K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
      2048-point clouds, N != M both ways and a permuted copy; K13's
-     backward against K2's backward of the permuted gradient; K3 (fp32,
-     bf16) and K7 (SA0, SA3) run twice and must repeat bit for bit, and K3
+     backward against K2's backward of the permuted gradient; K1 at the
+     local step's four levels (N 2048 -> 1024 -> 256 -> 64 -> 16), exact,
+     with its time per level; K3 (fp32, bf16), K4 (every case above), K7
+     (SA0, SA3), K8 and K9 run twice and must repeat bit for bit, and K3
      must equal the float32 sum in point order over the count.
   4. forward parity: one full-width local-prior forward (batch 2) on the
      card against the same module on the CPU (plain versions), in fp32 and
-     in bf16, and the card's bf16 forward against its fp32 one.
+     in bf16, and the card's bf16 forward against its fp32 one. Then the
+     full-width local-prior forward in bf16 at batch 16 and in fp32 at
+     batch 4, and a 10-step `LION.sample` under `given_noise` on each path
+     (fp32 batch 4, bf16 batch 16), twice each: bit for bit.
   5. fp32 main path: the flagship LION (2048 points, nf 2048, fp32) with
      random weights from a seed serves three sampling requests of 4 shapes
      each through `LION.sample`, `--steps` DDPM steps per prior (1000 is
@@ -411,29 +416,58 @@ def _ordered_mean(feats, vox, r):
         f.shape[0], r, r, r, f.shape[-1])
 
 
-def check_repeats(vox32, f64, sa0, sa3):
-    """K3 (fp32 and bf16, B16 r32 C64) and K7 (SA0, SA3) twice on the same
-    inputs: each must repeat bit for bit (no float atomics, fixed-order
-    sums), and K3 must equal the ordered float32 reference."""
+def _bit_equal(label, fn, tag="kernels"):
+    """Run fn twice; raise unless every output is equal bit for bit.
+    Returns the first run's outputs as a tuple."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[{tag}] repeat {label}: bit-equal {same}")
+    if not same:
+        raise AssertionError(f"{label}: two runs differ")
+    return first
+
+
+def check_repeats(vox32, f64, sa0, sa3, checks):
+    """K3 (fp32 and bf16, B16 r32 C64), K7 (SA0, SA3) and every K4, K8 and
+    K9 case of `checks` twice on the same inputs: each must repeat bit for
+    bit (no float atomics, fixed-order sums), and K3 must equal the ordered
+    float32 reference."""
     from lion_tpu_torch import ops
     runs = [(f"avg_voxelize {dt} B16 r32 C64",
              lambda x=f64.to(dt): ops.avg_voxelize(x, vox32, 32))
             for dt in (torch.float32, torch.bfloat16)]
     runs += [("sa_fused B16 SA0", lambda: ops.sa_fused(*sa0)),
              ("sa_fused B16 SA3", lambda: ops.sa_fused(*sa3))]
+    runs += [(f"{c.name} {c.case}",
+              lambda c=c: ops.KERNELS[c.name](*c.args, **c.kwargs))
+             for c in checks if c.name in ("conv3d_3x3_fused", "conv3d_pair",
+                                           "pvconv_block_pair")]
     for label, fn in runs:
-        first, second = fn(), fn()
-        torch.cuda.synchronize()
-        same = torch.equal(first, second)
-        log(f"[kernels] repeat {label}: bit-equal {same}")
-        if not same:
-            raise AssertionError(f"{label}: two runs differ")
+        first = _bit_equal(label, fn)[0]
         if label.startswith("avg_voxelize"):
             x = f64.to(first.dtype)
             if not torch.equal(first.cpu(), _ordered_mean(x, vox32, 32)):
                 raise AssertionError(f"{label}: not the ordered mean")
             log(f"[kernels] {label} equals the ordered float32 reference "
                 f"bit for bit")
+
+
+def check_fps_levels(b, randn):
+    """K1 at the local step's four levels, each level's cloud the previous
+    level's picks: exact against the plain version; the time per level."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.profile_step import fps_level_inputs
+    ms = {}
+    for n, m, cloud in fps_level_inputs(b, randn):
+        _exact(ops.fps(cloud, m), ops.KERNELS["fps"].plain(cloud, m))
+        ms[f"N{n}->M{m}"] = cuda_time_ms(lambda: ops.fps(cloud, m), 20)
+    log(f"[kernels] fps per level B{b} (exact): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; the four levels {sum(ms.values()):.4f} ms")
+    return ms
 
 
 def phase_kernels():
@@ -636,7 +670,8 @@ def phase_kernels():
         if not float(own.max()) < 1e-3:
             raise AssertionError(f"EMD of a permuted copy: {own.tolist()}")
         check_cf_backward(cloud, centers, f32c, randn(b, 32, 35, 1024))
-        check_repeats(vox32, f64, sa0, sa3)
+        results["fps"]["ms_levels"] = check_fps_levels(b, randn)
+        check_repeats(vox32, f64, sa0, sa3, checks)
     return results
 
 
@@ -708,6 +743,51 @@ def phase_forward_parity(cfg):
     if not drift <= 0.06:
         raise AssertionError(f"bf16 vs fp32 drift {drift:.3e}")
     return {"fp32_max_abs_err": err, "bf16_rel_l2": rel, "bf16_drift": drift}
+
+
+def phase_repeat_paths(cfg):
+    """The full-width local-prior forward (bf16 at batch 16, fp32 at batch
+    4) and a 10-step LION.sample under given_noise on each path (fp32 at
+    batch 4, bf16 at batch 16), twice each on the same inputs: bit for
+    bit, and finite."""
+    from lion_tpu_torch.models import LION
+    g = torch.Generator().manual_seed(9)
+    for bf16, batch in ((True, BATCH_BF16), (False, BATCH)):
+        c = copy.deepcopy(cfg)
+        c.tpu.bf16 = bf16
+        _, net = _local_prior_pair(c)
+        xs = (torch.randn(batch, 2048, 4, generator=g)
+              * torch.tensor([0.3, 0.3, 0.3, 1.0])).reshape(batch, -1).cuda()
+        ts = torch.full((batch,), 500.0, device="cuda")
+        cs = torch.randn(batch, 128, generator=g).cuda()
+        with torch.no_grad():
+            out = _bit_equal(f"local prior forward {'bf16' if bf16 else 'fp32'}"
+                             f" B{batch}", lambda: net(xs, ts,
+                                                       condition_input=cs),
+                             "repeat")
+        if not torch.isfinite(out[0]).all():
+            raise AssertionError("non-finite forward")
+    for bf16, batch in ((False, BATCH), (True, BATCH_BF16)):
+        c = copy.deepcopy(cfg)
+        c.tpu.bf16 = bf16
+        c.ddpm.num_steps = 10
+        lion = LION(c).init_params(torch.Generator().manual_seed(3))
+        rs = np.random.RandomState(12)
+        noise = tuple(
+            (torch.from_numpy(rs.randn(batch, d).astype(np.float32)).cuda(),
+             torch.from_numpy(rs.randn(10, batch, d).astype(np.float32))
+             .cuda())
+            for d in (lion.style_dim, lion.local_dim))
+
+        def sample():
+            out = lion.sample(batch, given_noise=noise)
+            return out["z_global"], out["z_local"], out["points"]
+        out = _bit_equal(f"LION.sample 10 steps given_noise "
+                         f"{'bf16' if bf16 else 'fp32'} B{batch}", sample,
+                         "repeat")
+        if not all(torch.isfinite(o).all() for o in out):
+            raise AssertionError("non-finite samples")
+        del lion
 
 
 def _path_counts(path, label):
@@ -1084,6 +1164,7 @@ def main(argv=None):
     phase_build()
     results = phase_kernels()
     phase_forward_parity(flagship_cfg())
+    phase_repeat_paths(flagship_cfg())
     fp32 = phase_main_path(flagship_cfg(), args.steps, BATCH, REQUESTS,
                            FP32_PATH, "fp32")
     cfg16 = flagship_cfg()

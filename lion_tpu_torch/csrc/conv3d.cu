@@ -12,8 +12,9 @@
 // pro(x) = x * scale[b, ci] + shift[b, ci], optionally followed by swish,
 // applies to in-grid inputs only: the halo is 0 after the prologue. x is
 // NDHWC (B, R, R, R, Ci), w is (3, 3, 3, Ci, Co), y is (B, R, R, R, Co).
-// stats[b, 0, co] += sum of y, stats[b, 1, co] += sum of y^2 over all R^3
-// voxels (the caller zeroes stats). In bf16 the prologue runs in float32
+// stats[b, 0, co] = sum of y, stats[b, 1, co] = sum of y^2 over all R^3
+// voxels, summed in a fixed order (conv_brick.cuh: flush_stats), so two runs
+// on the same inputs give the same bits. In bf16 the prologue runs in float32
 // and is rounded to bf16 before the products (ops/pallas/conv3d.py:460-468),
 // the products are summed in float32, y is rounded to bf16 once and the
 // statistics are those of the rounded y (conv3d_packed.py:466-472).
@@ -63,18 +64,17 @@ conv3d_brick_bf16(const BrickConv p) {
 template <int BN, int TV, bool kStats>
 __global__ void __launch_bounds__(256) conv3d_brick_f32(const BrickConv p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float sstat[2 * BN];
+  using Tile = lion::BrickTileF32<BN, TV>;
+  float* const buf = reinterpret_cast<float*>(smem);
   const lion::Brick k(p, BN);
-  lion::BrickTileF32<BN, TV> tile(p, k);
-  if (kStats)
-    for (int i = threadIdx.x; i < 2 * BN; i += blockDim.x) sstat[i] = 0.0f;
+  Tile tile(p, k);
   lion::brick_pipeline(
-      p, k, BN, prologue_of(p, k.b), reinterpret_cast<float*>(smem),
+      p, k, BN, prologue_of(p, k.b), buf,
       [&](const float* h, const float* w, int tap0) {
         tile.step(p, k, h, w, tap0);
       });
-  tile.store(p, k, sstat, sstat + BN, kStats);
-  if (kStats) lion::flush_stats(p, k, BN, sstat);
+  tile.store(p, k, buf, kStats);
+  if (kStats) lion::flush_stats(p, k, BN, buf, Tile::kSlots);
 }
 
 template <bool kStats>
@@ -101,14 +101,16 @@ int launch_f32(const BrickConv& p, dim3 grid, int bn, int tile, int smem,
 
 // x (B, r, r, r, ci), w (27, ci, ldw) (ldw >= co, a multiple of 16 bytes,
 // columns past co zero), scale/shift (B, ci) f32 or null -> y (B, r, r, r,
-// co), stats (B, 2, co) f32 (zeroed by the caller) or null; fp32 or bf16
-// (is_bf16). The rest is the plan (ops/conv3d.py: conv_plan): the brick
+// co), stats (B, 2, co) f32 or null; fp32 or bf16 (is_bf16). With stats:
+// part (B, bricks, 2, co) f32 scratch and tickets (B, ceil(co / bn)) int32,
+// zero, left zero. The rest is the plan (ops/conv3d.py: conv_plan): the brick
 // (bd, bh, bw), bn output channels and the tile per block, the blocks per
 // SM the bf16 kernel keeps registers for, kc channels per chunk, taps per
 // weight stage, the shared-memory pitches and bytes.
 LION_EXPORT int lion_conv3d_brick(const void* x, const void* w,
                                   const void* scale, const void* shift,
-                                  void* y, void* stats, int b, int r, int ci,
+                                  void* y, void* stats, void* part,
+                                  void* tickets, int b, int r, int ci,
                                   int co, int ldw, int is_bf16, int pre_swish,
                                   int bd, int bh, int bw, int bn, int tile,
                                   int min_blocks, int kc, int taps,
@@ -118,7 +120,8 @@ LION_EXPORT int lion_conv3d_brick(const void* x, const void* w,
             nbw = lion::ceil_div(r, bw);
   const BrickConv p{x,  w,  static_cast<const float*>(scale),
                     static_cast<const float*>(shift),
-                    y,  static_cast<float*>(stats),
+                    y,  static_cast<float*>(stats), static_cast<float*>(part),
+                    static_cast<int*>(tickets),
                     r,  ci, co, ldw, bd, bh, bw, nbh, nbw, kc, taps, hpitch,
                     wpitch, pre_swish};
   const dim3 grid(nbd * nbh * nbw, lion::ceil_div(co, bn), b);

@@ -61,14 +61,15 @@ __global__ void pair_fold_kernel(const float* __restrict__ st0,
 
 // x (B, r, r, r, C) bf16, w0/w1 (3, 3, 3, C, C) bf16, b0 (C,) f32, ca/cb
 // (B, C) f32 -> y0 (scratch) and y1 (B, r, r, r, C) bf16, st0 and st1
-// (B, 2, C) f32 (zeroed by the caller); fold (2, B, C) f32 scratch. C a
-// multiple of 8. The rest is conv_plan's plan for (b, r, C, C, bf16): the
+// (B, 2, C) f32; fold (2, B, C) f32, part (B, bricks, 2, C) f32 scratch
+// (the two convs' partial statistics, one after the other) and tickets
+// (B, ceil(C / 64)) int32, zero, left zero. C a multiple of 8. The rest is conv_plan's plan for (b, r, C, C, bf16): the
 // brick, the tile and blocks per SM, kc, taps, pitches, shared memory.
 LION_EXPORT int lion_conv3d_pair(const void* x, const void* w0,
                                  const void* b0, const void* ca,
                                  const void* cb, const void* w1, void* y0,
                                  void* st0, void* y1, void* st1, void* fold,
-                                 int b, int r, int c, int bd, int bh, int bw,
+                                 void* part, void* tickets, int b, int r, int c, int bd, int bh, int bw,
                                  int tile, int min_blocks, int kc, int taps,
                                  int hpitch, int wpitch, int smem,
                                  void* stream) {
@@ -79,9 +80,11 @@ LION_EXPORT int lion_conv3d_pair(const void* x, const void* w0,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* scale = static_cast<float*>(fold);
   float* shift = scale + static_cast<size_t>(b) * c;
-  const BrickConv p0{x,  w0, nullptr, nullptr, y0, static_cast<float*>(st0),
-                     r,  c,  c,       c,       bd, bh, bw, nbh, nbw, kc,
-                     taps, hpitch, wpitch, 0};
+  const BrickConv p0{x,    w0,     nullptr, nullptr, y0,
+                     static_cast<float*>(st0), static_cast<float*>(part),
+                     static_cast<int*>(tickets),
+                     r,    c,      c,       c,       bd, bh, bw, nbh, nbw, kc,
+                     taps, hpitch, wpitch,  0};
   BrickConv p1 = p0;
   p1.x = y0;
   p1.w = w1;

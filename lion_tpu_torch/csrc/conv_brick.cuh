@@ -6,6 +6,13 @@
 // that takes the statistics; fold_gn turns a conv's statistics into the
 // next conv's prologue (K8, K9).
 //
+// The statistics are summed in a fixed order, so a conv repeats bit for bit:
+// each warp (or warpgroup) writes its channels' partial (sum, sumsq) to its
+// own slot, the block sums the slots in slot order into its partial in a
+// global scratch, and the last block of each (item, channel tile), found by
+// an integer ticket, sums the bricks' partials in a fixed tree into stats
+// and resets the ticket (flush_stats). No float is added with atomics.
+//
 // A block owns a brick of BD x BH x BW output voxels of one item and BN
 // output channels. For each chunk of KC input channels it stages the brick's
 // input with its one-voxel halo, (BD+2) x (BH+2) x (BW+2) cells of KC
@@ -42,7 +49,9 @@ struct BrickConv {
   const float* scale;   // (B, ci) or null: no affine prologue
   const float* shift;
   void* y;              // (B, r, r, r, co), T
-  float* stats;         // (B, 2, co) or null, accumulated with atomics
+  float* stats;         // (B, 2, co) or null: written by flush_stats
+  float* part;          // (B, bricks, 2, co): the blocks' partials
+  int* tickets;         // (B, channel tiles), zero between launches
   int r, ci, co, ldw;
   int bd, bh, bw;       // the brick
   int nbh, nbw;         // bricks along h and w
@@ -432,12 +441,17 @@ struct BrickTileWgmma {
     wgmma_wait_all();  // the buffers are free for the next stage
   }
 
-  // Round to bf16 and store the in-grid voxels' channels < co of y; add
-  // each channel's (sum, sumsq) of the rounded values to ssum / ssq[block
-  // channel] (shared, atomics).
+  // Slots of the statistics: one per warpgroup. Each of its 4 warps owns
+  // 16 of the 64 channels, and one lane of the warp each channel's sums.
+  static constexpr int kSlots = 2;
+
+  // Round to bf16 and store the in-grid voxels' channels < co of y; if
+  // `stats`, write each channel's (sum, sumsq) of the rounded values over
+  // this warpgroup's planes to slots[warpgroup] (2 kBn floats: sums, then
+  // sumsqs). The slots reuse the staging buffers: the call waits for every
+  // warp to leave them.
   __device__ __forceinline__ void store(const BrickConv& p, const Brick& k,
-                                        float* ssum, float* ssq,
-                                        bool stats) const {
+                                        float* slots, bool stats) const {
     const int lane = threadIdx.x & 31;
     const int m0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
     const int plane0 = (threadIdx.x >> 7) * PD;
@@ -473,41 +487,94 @@ struct BrickTileWgmma {
         s[hf] += __shfl_xor_sync(0xffffffffu, s[hf], m);
         sq[hf] += __shfl_xor_sync(0xffffffffu, sq[hf], m);
       }
-      if ((lane & 3) == 0) {
-        atomicAdd(ssum + m0 + 8 * hf, s[hf]);
-        atomicAdd(ssq + m0 + 8 * hf, sq[hf]);
+    }
+    __syncthreads();  // no warp reads the staged buffers any more
+    float* slot = slots + (threadIdx.x >> 7) * 2 * kBn;
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        slot[m0 + 8 * hf] = s[hf];
+        slot[kBn + m0 + 8 * hf] = sq[hf];
       }
     }
   }
 };
 
-// The block's (sum, sumsq) per channel into stats[b] (one atomic each).
-__device__ __forceinline__ void flush_stats(const BrickConv& p,
-                                            const Brick& k, int bn,
-                                            const float* sstat) {
-  __syncthreads();
-  float* st = p.stats + static_cast<size_t>(k.b) * 2 * p.co;
-  for (int c = threadIdx.x; c < bn && k.n0 + c < p.co; c += blockDim.x) {
-    atomicAdd(st + k.n0 + c, sstat[c]);
-    atomicAdd(st + p.co + k.n0 + c, sstat[bn + c]);
-  }
+// Value i of the block's statistics: the slots' values i summed in slot
+// order (each slot `stride` floats), after a barrier that follows the
+// slots' writes.
+__device__ __forceinline__ float slot_sum(const float* slots, int nslots,
+                                          int stride, int i) {
+  float v = 0.0f;
+  for (int j = 0; j < nslots; ++j) v += slots[j * stride + i];
+  return v;
 }
 
-// One bf16 block of a brick conv: stage, multiply, store y and add each
-// channel's (sum, sumsq) of the rounded y to ssum / ssq (shared) if `stats`.
-// The core of K4's and K8's kernels (brick_conv_bf16) and of K9's two convs.
+// The block's (sum, sumsq) of its bn channels from `nslots` slots of
+// 2 bn floats (the tile's store wrote them) into stats[b], in a fixed order
+// whichever block comes last. The block writes the slots' sum in slot order
+// to its partial part[b][brick]; the item's channel tile takes a ticket per
+// block, and the block that takes the last one sums the tile's partials:
+// thread (value, slice) sums bricks slice, slice + slices, ... in order, then
+// the slices are summed in order. It writes stats[b] and resets the ticket,
+// so the tickets are zero again when the launch ends (K7's merge,
+// csrc/sa_fused.cu). Grid: (bricks, channel tiles, items). The slots are
+// the merge's scratch afterwards (they hold blockDim floats at least).
+__device__ __forceinline__ void flush_stats(const BrickConv& p,
+                                            const Brick& k, int bn,
+                                            float* slots, int nslots) {
+  __shared__ int s_last;
+  const int vals = 2 * bn;
+  const int bricks = gridDim.x;
+  const int nch = min(bn, p.co - k.n0);
+  const size_t row = 2 * static_cast<size_t>(p.co);  // a partial's floats
+  float* part = p.part + static_cast<size_t>(k.b) * bricks * row + k.n0;
+  __syncthreads();  // the slots are written
+  for (int i = threadIdx.x; i < vals; i += blockDim.x)
+    if (i % bn < nch)
+      part[blockIdx.x * row + (i / bn) * p.co + i % bn] =
+          slot_sum(slots, nslots, vals, i);
+  __threadfence();
+  __syncthreads();
+  int* ticket = p.tickets + k.b * gridDim.y + blockIdx.y;
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1) == bricks - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int slices = blockDim.x / vals;
+  const int i = threadIdx.x % vals, sl = threadIdx.x / vals;
+  const bool mine = i % bn < nch;
+  if (sl < slices && mine) {
+    const float* src = part + (i / bn) * p.co + i % bn;
+    float v = 0.0f;
+    // unrolled: eight loads from L2 in flight, the adds still in order
+#pragma unroll 8
+    for (int j = sl; j < bricks; j += slices) v += __ldcg(src + j * row);
+    slots[threadIdx.x] = v;
+  }
+  __syncthreads();
+  if (sl == 0 && mine) {
+    p.stats[static_cast<size_t>(k.b) * row + (i / bn) * p.co + k.n0 +
+            i % bn] = slot_sum(slots, slices, vals, i);
+  }
+  if (threadIdx.x == 0) *ticket = 0;
+}
+
+// One bf16 block of a brick conv: stage, multiply, store y and, if
+// `stats`, write each warpgroup's (sum, sumsq) per channel of the rounded y
+// to its slot, at the start of smem (BrickTileWgmma::store). The core of
+// K4's and K8's kernels (brick_conv_bf16) and of K9's two convs.
 template <int PD>
 __device__ __forceinline__ void brick_conv_block(const BrickConv& p,
                                                  const Brick& k,
                                                  const BrickPrologue& pro,
-                                                 bf16* smem, float* ssum,
-                                                 float* ssq, bool stats) {
+                                                 bf16* smem, bool stats) {
   BrickTileWgmma<PD> tile;
   brick_pipeline<true>(p, k, BrickTileWgmma<PD>::kBn, pro, smem,
                        [&](const bf16* h, const bf16* w, int tap0) {
                          tile.step(p, k, h, w, tap0);
                        });
-  tile.store(p, k, ssum, ssq, stats);
+  tile.store(p, k, reinterpret_cast<float*>(smem), stats);
 }
 
 // One bf16 block of a brick conv on the grid (bricks, channel tiles,
@@ -517,13 +584,12 @@ template <int PD>
 __device__ __forceinline__ void brick_conv_bf16(const BrickConv& p,
                                                 const BrickPrologue& pro,
                                                 void* smem) {
-  constexpr int kBn = BrickTileWgmma<PD>::kBn;
-  __shared__ float sstat[2 * kBn];
-  const Brick k(p, kBn);
-  for (int i = threadIdx.x; i < 2 * kBn; i += blockDim.x) sstat[i] = 0.0f;
-  brick_conv_block<PD>(p, k, pro, static_cast<bf16*>(smem), sstat,
-                       sstat + kBn, p.stats != nullptr);
-  if (p.stats != nullptr) flush_stats(p, k, kBn, sstat);
+  using Tile = BrickTileWgmma<PD>;
+  const Brick k(p, Tile::kBn);
+  brick_conv_block<PD>(p, k, pro, static_cast<bf16*>(smem),
+                       p.stats != nullptr);
+  if (p.stats != nullptr)
+    flush_stats(p, k, Tile::kBn, static_cast<float*>(smem), Tile::kSlots);
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory.
@@ -623,11 +689,16 @@ struct BrickTileF32 {
     }
   }
 
+  // Slots of the statistics: one per warp (each warp covers all BN
+  // channels).
+  static constexpr int kSlots = 8;
+
   // Store the in-grid voxels' channels < co of y (float4 where co % 4 ==
-  // 0) and add each channel's (sum, sumsq) to ssum / ssq[block channel].
+  // 0) and, if `stats`, write each channel's (sum, sumsq) over this warp's
+  // voxels to slots[warp] (2 BN floats: sums, then sumsqs). The slots
+  // reuse the staging buffers: the call waits for every warp to leave them.
   __device__ __forceinline__ void store(const BrickConv& p, const Brick& k,
-                                        float* ssum,
-                        float* ssq, bool stats) const {
+                                        float* slots, bool stats) const {
     float* y = static_cast<float*>(p.y) +
                static_cast<size_t>(k.b) * p.r * p.r * p.r * p.co;
     const bool vec = p.co % 4 == 0;
@@ -665,10 +736,16 @@ struct BrickTileF32 {
         s[e] += __shfl_xor_sync(0xffffffffu, s[e], m);
         sq[e] += __shfl_xor_sync(0xffffffffu, sq[e], m);
       }
-      if (lane < kTn) {
+    }
+    static_assert(256 / 32 == kSlots, "one slot per warp");
+    __syncthreads();  // no warp reads the staged buffers any more
+    float* slot = slots + (threadIdx.x >> 5) * 2 * BN;
+    if (lane < kTn) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
         const int c = (e / 4) * (BN / 2) + 4 * tn + e % 4;
-        atomicAdd(ssum + c, s[e]);
-        atomicAdd(ssq + c, sq[e]);
+        slot[c] = s[e];
+        slot[BN + c] = sq[e];
       }
     }
   }

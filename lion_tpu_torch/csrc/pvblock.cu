@@ -32,8 +32,12 @@
 // of the points. The grids (grid, y0, y1) live in a
 // global scratch that stays in L2. Each block folds the item's st0 from the
 // 8 partials, read through distributed shared memory and summed in rank
-// order, so the statistics do not depend on the order of the blocks; the
-// voxelize still adds features with shared-memory atomics.
+// order, so the statistics do not depend on the order of the blocks. The
+// voxelize sums each cell's features in point order, from a stable cell
+// order of the points that the block builds as K3 does (csrc/voxelize.cu:
+// integer counts, their scan, ranks within a warp by __match_any_sync, the
+// warps taking turns), so it equals K3 and the plain version bit for bit.
+// No float is added with atomics: the kernel repeats bit for bit.
 #include <cooperative_groups.h>
 
 #include "conv_brick.cuh"
@@ -70,10 +74,15 @@ struct ConvSmem {
   int cell[kHalo];
 };
 
+// the voxelize's stable order: each owned cell's first slot in `order`
+// (the exclusive scan of the counts, start[kCells] = the points owned), the
+// cursors that place the points, each point's owned cell or -1, and the
+// owned points listed cell by cell in ascending point order
 struct VoxSmem {
-  float sums[kCells * kBn];
-  int count[kCells];
+  int start[kCells + 1];
+  int cursor[kCells];
   int cell[kMaxN];
+  int order[kMaxN];
 };
 
 constexpr int kSmem = sizeof(ConvSmem) > sizeof(VoxSmem) ? sizeof(ConvSmem)
@@ -109,8 +118,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                   const bf16* __restrict__ w1, int n, bf16* scratch,
                   bf16* __restrict__ out, float* __restrict__ st1_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  // partial statistics (sum, sumsq) of this block's channels, the item's
-  // st0 and the fold
+  // statistics (sum, sumsq) of this block's channels (the tile's slots
+  // summed in order), the item's st0 and the fold
   __shared__ float st0[2 * kBn], st1[2 * kBn], tot[2 * kC], sc[kC], bi[kC];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -122,15 +131,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   bf16* grids = scratch;
   bf16* y0s = scratch + static_cast<size_t>(gridDim.y) * kR3 * kC;
   bf16* grid = grids + static_cast<size_t>(b) * kR3 * kC;
-  for (int i = tid; i < 2 * kBn; i += nt) st0[i] = st1[i] = 0.0f;
 
   // ---- voxelize this block's cells and channels ----
   {
     VoxSmem& vs = *reinterpret_cast<VoxSmem*>(smem);
     const int* vb = vox + static_cast<size_t>(b) * n * 3;
     const int cell0 = pp * kCells;
-    for (int i = tid; i < kCells * kBn; i += nt) vs.sums[i] = 0.0f;
-    for (int i = tid; i < kCells; i += nt) vs.count[i] = 0;
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int i = tid; i < kCells; i += nt) vs.cursor[i] = 0;
     for (int p = tid; p < n; p += nt) {
       const int x = vb[3 * p], y = vb[3 * p + 1], z = vb[3 * p + 2];
       const bool in = x >= 0 && x < kR && y >= 0 && y < kR && z >= 0 &&
@@ -139,36 +147,82 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       vs.cell[p] = (c >= 0 && c < kCells) ? c : -1;
     }
     __syncthreads();
+    // the counts (integer atomics: their sum does not depend on the order)
     for (int p = tid; p < n; p += nt)
-      if (vs.cell[p] >= 0) atomicAdd(&vs.count[vs.cell[p]], 1);
-    const bf16* fb = feats + static_cast<size_t>(b) * n * kC + half * kBn;
-    for (int e = tid; e < n * kBn; e += nt) {
-      const int c = vs.cell[e / kBn];
-      if (c >= 0)
-        atomicAdd(&vs.sums[c * kBn + e % kBn],
-                  __bfloat162float(fb[static_cast<size_t>(e / kBn) * kC +
-                                      e % kBn]));
+      if (vs.cell[p] >= 0) atomicAdd(&vs.cursor[vs.cell[p]], 1);
+    __syncthreads();
+    if (warp == 0) {  // exclusive scan: lane l owns cells [4 l, 4 l + 4)
+      static_assert(kCells == 4 * 32, "four cells a lane");
+      int cnt[4], total = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) total += cnt[j] = vs.cursor[4 * lane + j];
+      int inc = total;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, inc, d);
+        if (lane >= d) inc += v;
+      }
+      int at = inc - total;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        vs.start[4 * lane + j] = vs.cursor[4 * lane + j] = at;
+        at += cnt[j];
+      }
+      if (lane == 31) vs.start[kCells] = inc;
     }
     __syncthreads();
-    for (int i = tid; i < kCells * kBn; i += nt) {
-      const int k = vs.count[i / kBn];
-      grid[static_cast<size_t>(cell0 + i / kBn) * kC + half * kBn +
-           i % kBn] =
-          __float2bfloat16_rn(k > 0 ? vs.sums[i] / static_cast<float>(k)
-                                    : 0.0f);
+    // stable placement, nt points a round: a point goes to its cell's
+    // cursor plus its rank among its warp's lanes in the same cell; the
+    // warps take turns in warp order to read and move the cursors
+    for (int i0 = 0; i0 < n; i0 += nt) {
+      const int i = i0 + tid;
+      const int c = i < n ? vs.cell[i] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, c);
+      const int rank = __popc(peers & ((1u << lane) - 1u));
+      int at = 0;
+      for (int w = 0; w < nt / 32; ++w) {
+        if (warp == w) {
+          if (c >= 0) at = vs.cursor[c];
+          __syncwarp();
+          if (c >= 0 && rank == 0) vs.cursor[c] = at + __popc(peers);
+        }
+        __syncthreads();
+      }
+      if (c >= 0) vs.order[at + rank] = i;
+    }
+    __syncthreads();
+    // each (cell, channel): the float32 sum of its points in point order
+    // over the count, rounded once (K3's mean)
+    const bf16* fb = feats + static_cast<size_t>(b) * n * kC + half * kBn;
+    for (int e = tid; e < kCells * kBn; e += nt) {
+      const int c = e / kBn, ch = e % kBn;
+      const int s0 = vs.start[c], s1 = vs.start[c + 1];
+      float acc = 0.0f;
+      for (int j = s0; j < s1; ++j)
+        acc = __fadd_rn(acc, __bfloat162float(
+                                 fb[static_cast<size_t>(vs.order[j]) * kC +
+                                    ch]));
+      grid[static_cast<size_t>(cell0 + c) * kC + half * kBn + ch] =
+          __float2bfloat16_rn(
+              s1 > s0 ? __fdiv_rn(acc, static_cast<float>(s1 - s0)) : 0.0f);
     }
   }
   cluster_barrier(cluster);
 
   // ---- conv0 of this block's brick ----
-  lion::BrickConv p{grids, w0,  nullptr, nullptr, y0s,   nullptr, kR,
-                    kC,    kC,  kC,      kPlanes, kR,    kR,      1,
-                    1,     kKc, kTaps,   kKc,     kBn,   0};
+  lion::BrickConv p{grids, w0,      nullptr, nullptr, y0s,   nullptr,
+                    nullptr, nullptr, kR,    kC,      kC,    kC,
+                    kPlanes, kR,      kR,    1,       1,     kKc,
+                    kTaps,   kKc,     kBn,   0};
   const lion::Brick k(p, pp, half * kBn, b);
   bf16* const buf = reinterpret_cast<bf16*>(smem);
+  const float* slots = reinterpret_cast<const float*>(smem);
+  constexpr int kSlots = lion::BrickTileWgmma<kTilePd>::kSlots;
   lion::brick_conv_block<kTilePd>(
-      p, k, lion::BrickPrologue{nullptr, nullptr, false}, buf, st0,
-      st0 + kBn, true);
+      p, k, lion::BrickPrologue{nullptr, nullptr, false}, buf, true);
+  __syncthreads();
+  for (int i = tid; i < 2 * kBn; i += nt)
+    st0[i] = lion::slot_sum(slots, kSlots, 2 * kBn, i);
   cluster_barrier(cluster);
 
   // ---- fold: the item's st0 is the sum of the 4 plane pairs' ----
@@ -187,7 +241,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   p.w = w1;
   p.y = grids;
   lion::brick_conv_block<kTilePd>(p, k, lion::BrickPrologue{sc, bi, true},
-                                  buf, st1, st1 + kBn, true);
+                                  buf, true);
+  __syncthreads();
+  for (int i = tid; i < 2 * kBn; i += nt)
+    st1[i] = lion::slot_sum(slots, kSlots, 2 * kBn, i);
   cluster_barrier(cluster);
 
   if (pp == 0) {  // one block per channel half writes the item's st1

@@ -46,8 +46,8 @@ _SIGNATURES = {
                                  _P),
     "lion_emd_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_avg_voxelize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "lion_conv3d_brick": (_P,) * 6 + (_I,) * 18 + (_P,),
-    "lion_conv3d_pair": (_P,) * 11 + (_I,) * 13 + (_P,),
+    "lion_conv3d_brick": (_P,) * 8 + (_I,) * 18 + (_P,),
+    "lion_conv3d_pair": (_P,) * 13 + (_I,) * 13 + (_P,),
     "lion_pvconv_block_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _P),
     "lion_sa_fused": (_P,) * 9 + (_I,) + (_P,) * 5 + (_I,) * 9 + (_F, _P),
@@ -127,6 +127,27 @@ def build() -> Path:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
     return out
+
+
+def build_probe(src: Path) -> ctypes.CDLL:
+    """Compile a measurement probe (a source under csrc/probe/ that
+    includes a kernel's source) on its own into a library beside the
+    kernels' library, unless one for this source exists, and load it. The
+    kernels' library never contains a probe."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (src, *_sources()):
+        h.update(f.read_bytes())
+    out = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.so.tmp")
+        try:
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                       str(src)]])
+            os.replace(tmp, out)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return ctypes.CDLL(str(out))
 
 
 def library() -> ctypes.CDLL:

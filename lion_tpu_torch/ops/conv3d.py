@@ -22,6 +22,10 @@ bfloat16 x and w the prologue runs in float32 and is rounded to bfloat16
 (ops/pallas/conv3d.py:460-468), the products are summed in float32, y is
 rounded to bfloat16 and the statistics are taken of the rounded y, as the
 TPU kernels take them (conv3d_packed.py:466-472).
+The statistics are summed in a fixed order (per-warp slots, then one
+partial per block in a (B, bricks, 2, Co) scratch, merged by each item's
+last block behind an integer ticket; csrc/conv_brick.cuh: flush_stats), so
+K4 and K8 repeat bit for bit.
 K4 and K8 are inference only: no gradient.
 """
 from __future__ import annotations
@@ -41,12 +45,14 @@ GN_GROUPS, GN_EPS = 8, 1e-5
 
 # The halo-brick kernels of K4 and K10 (csrc/conv_brick.cuh): shared memory
 # a block may use on the H100 and an SM holds (1 KB of it reserved per
-# block), its SM count, and the (bn, tile) pairs the kernels are compiled
+# block), the kernels' static shared memory (the statistics merge's flag,
+# padded), its SM count, and the (bn, tile) pairs the kernels are compiled
 # for, all on 256 threads. bf16 (wgmma): 64 channels (wgmma's M), tile =
 # planes of 8 x 8 voxels per warpgroup, a brick of 2 tile x 8 x 8 voxels.
 # fp32: tile = voxels per thread (a run along w), 8 channels each,
 # tile * 2048 / bn voxels. (The plan never chose wider tiles at any shape.)
 SMEM_BYTES, SMEM_SM = 232448, 233472
+SMEM_STATIC = 16
 SMS = 132
 # the widest K8 takes (its wrapper's contract)
 PAIR_MAX_C = 256
@@ -140,7 +146,7 @@ def conv_plan(b: int, r: int, ci: int, co: int,
             bm = tile * 2048 // bn
             brick, wpitch, min_blocks = _brick(bm, r, tile), bn, 1
         cells = math.prod(s + 2 for s in brick)
-        limit = min(SMEM_BYTES, SMEM_SM // min_blocks - 1024) - 8 * bn
+        limit = min(SMEM_BYTES, SMEM_SM // min_blocks - 1024) - SMEM_STATIC
         for taps in (27, 9, 3):
             steps = chunks * 27 // taps
             smem = esize * (min(2, chunks) * cells * hpitch
@@ -158,6 +164,33 @@ def conv_plan(b: int, r: int, ci: int, co: int,
     return best[1]
 
 
+# (device, stream) -> the int32 tickets of the statistics' merge
+_TICKETS = {}
+
+
+def stats_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least n zero int32 tickets for the brick kernels on the current
+    stream of `device`. The block that takes an item's last ticket resets
+    it, so the tickets are zero again whenever a launch has ended: they are
+    zeroed once, not before each launch. One set per stream, since launches
+    on one stream run one after another."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def stats_scratch(p: ConvPlan, co: int, device: torch.device):
+    """The statistics merge's scratch for plan p: each block's partial
+    (B, bricks, 2, co) f32 (not zeroed: every block writes its own) and
+    the tickets of the (item, channel tile)s."""
+    b = p.grid[2]
+    part = torch.empty((b, p.grid[0], 2, co), device=device)
+    return part, stats_tickets(device, b * p.grid[1])
+
+
 def _launch_brick(x, w, scale, shift, y, stats, pre_swish):
     """Launch the brick kernel (csrc/conv3d.cu) on its plan."""
     b, r, ci, co = x.shape[0], x.shape[1], w.shape[3], w.shape[4]
@@ -165,8 +198,10 @@ def _launch_brick(x, w, scale, shift, y, stats, pre_swish):
     w = w.reshape(27, ci, co)
     if p.ldw != co:                        # rows of 16 bytes
         w = F.pad(w, (0, p.ldw - co)).contiguous()
+    part, tickets = (None, None) if stats is None else \
+        stats_scratch(p, co, x.device)
     launch("lion_conv3d_brick", ptr(x), ptr(w), ptr(scale), ptr(shift),
-           ptr(y), ptr(stats), b, r, ci, co, p.ldw,
+           ptr(y), ptr(stats), ptr(part), ptr(tickets), b, r, ci, co, p.ldw,
            int(x.dtype == torch.bfloat16), int(pre_swish), *p.brick, p.bn,
            p.tile, p.min_blocks, p.kc, p.taps, p.hpitch, p.wpitch, p.smem,
            stream_of(x))
@@ -213,7 +248,7 @@ def conv3d_3x3_fused(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv3d_3x3_fused: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
     y = torch.empty((b, r, r, r, co), device=x.device, dtype=dt)
-    stats = torch.zeros((b, 2, co), device=x.device)
+    stats = torch.empty((b, 2, co), device=x.device)
     _launch_brick(x, w, in_scale, in_bias, y, stats, pre_swish)
     return y, stats
 
@@ -333,10 +368,11 @@ def conv3d_pair(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     p = conv_plan(b, r, c, c, torch.bfloat16)
     y0 = torch.empty_like(x)
     y1 = torch.empty_like(x)
-    st = torch.zeros((2, b, 2, c), device=x.device)
+    st = torch.empty((2, b, 2, c), device=x.device)
     fold = torch.empty((2, b, c), device=x.device)
+    part, tickets = stats_scratch(p, c, x.device)
     launch("lion_conv3d_pair", ptr(x), ptr(w0), ptr(b0), ptr(ca), ptr(cb),
-           ptr(w1), ptr(y0), ptr(st[0]), ptr(y1), ptr(st[1]), ptr(fold), b,
-           r, c, *p.brick, p.tile, p.min_blocks, p.kc, p.taps, p.hpitch,
+           ptr(w1), ptr(y0), ptr(st[0]), ptr(y1), ptr(st[1]), ptr(fold),
+           ptr(part), ptr(tickets), b, r, c, *p.brick, p.tile, p.min_blocks, p.kc, p.taps, p.hpitch,
            p.wpitch, p.smem, stream_of(x))
     return y1, st[1]

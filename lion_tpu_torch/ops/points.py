@@ -39,6 +39,31 @@ def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # K1: furthest point sampling
 # --------------------------------------------------------------------------
+# K1's plan (csrc/fps.cu: fps_plan, whose constants these equal): one warp
+# up to FPS_WARP_MAX_N points, else a block of several warps with at least
+# FPS_BLOCK_P points a thread, at most FPS_MAX_THREADS threads and FPS_MAX_P
+# points a thread; 12 bytes of shared memory a point, beside 512 static.
+FPS_MAX_THREADS, FPS_WARP_MAX_N, FPS_BLOCK_P, FPS_MAX_P = 1024, 256, 2, 16
+FPS_MAX_N = FPS_MAX_THREADS * FPS_MAX_P
+
+
+def fps_plan(n: int):
+    """(threads, points per thread P, dynamic shared bytes) of K1 for a
+    cloud of n points: thread t owns points t, t + threads, ... (P of them,
+    in registers); P is a power of two."""
+    if not 1 <= n <= FPS_MAX_N:
+        raise ValueError(f"fps: N={n} outside [1, {FPS_MAX_N}]")
+    p = 1
+    if n <= FPS_WARP_MAX_N:
+        while 32 * p < n:
+            p *= 2
+        return 32, p, 12 * n
+    p = FPS_BLOCK_P
+    while FPS_MAX_THREADS * p < n:
+        p *= 2
+    return 32 * -(-n // (32 * p)), p, 12 * n
+
+
 def _fps_plain(coords: torch.Tensor, num_samples: int):
     """coords (B, N, 3) -> (idx (B, M) int32, centers (B, M, 3)).
 
@@ -67,7 +92,7 @@ def fps(coords: torch.Tensor, num_samples: int):
     """coords (B, N, 3) -> (idx (B, M) int32, centers (B, M, 3) f32)."""
     check_cuda(coords)
     b, n, _ = coords.shape
-    if not 1 <= num_samples <= n or 16 * n > 227 * 1024:
+    if not 1 <= num_samples <= n or n > FPS_MAX_N:
         raise ValueError(f"fps: unsupported N={n}, M={num_samples}")
     idx = torch.empty((b, num_samples), dtype=torch.int32, device=coords.device)
     centers = torch.empty((b, num_samples, 3), device=coords.device)

@@ -4,6 +4,8 @@ two-prior training step, on one GPU.
     python -m lion_tpu_torch.profile_step [--batch 4] [--steps 5] [--bf16]
     python -m lion_tpu_torch.profile_step --train [--batch 16] [--steps 3]
     python -m lion_tpu_torch.profile_step --convs [--batch 16]
+    python -m lion_tpu_torch.profile_step --split [--batch 16]
+    python -m lion_tpu_torch.profile_step --fps-clock [--batch 16]
 
 Builds the flagship LION (fp32, or with `tpu.bf16 = True` under --bf16;
 random weights from a seed), warms up, then
@@ -27,11 +29,27 @@ at r32 C64 beside two cuDNN bf16 convs (its yardstick; no PyTorch call
 computes the pair), and K9 at r8 C128 N256 at the batch and at batch 1
 (one cluster of 8 blocks alone).
 
-With --split it prints, for K7 (`sa_fused`) at the bf16 local step's SA0
-and SA3 shapes and for K3 (`avg_voxelize`) at r32 C64 in fp32 and bf16,
-the device ms per call of every CUDA kernel and memset the call runs, by
-name, beside the call's CUDA-event ms and the host ms the wrapper takes to
-enqueue it.
+With --split it prints, for K1 (`fps`) at the local step's four levels
+(N 2048 -> 1024, 1024 -> 256, 256 -> 64, 64 -> 16), for K7 (`sa_fused`) at
+the bf16 local step's SA0 and SA3 shapes and for K3 (`avg_voxelize`) at
+r32 C64 in fp32 and bf16, the device ms per call of every CUDA kernel and
+memset the call runs, by name, beside the call's CUDA-event ms and the
+host ms the wrapper takes to enqueue it. Then it profiles the bf16 local
+step at the batch and prints the device ms per step of K1, K4, K8 and K9
+and their sum, beside the step's device ms and device ops.
+
+With --fps-clock it builds the K1 probe (csrc/probe/fps_probe.cu) and, at
+each of the four levels, runs K1's kernel on every plan of whole warps
+(threads, points per thread P = 1 .. 16, at most 1024 threads): its
+CUDA-event ms, its indices against K1's own plan's, and the split of one
+pick in clock cycles (update, warp argmax, barrier, fold of the slots, the
+broadcast of the pick and the loop), averaged over the picks, of block
+0's thread 0 and of its last warp's lane 0 (summed in registers, written
+once at the end). Then the chain's floor: M - 1 empty rounds (one
+barrier, two redux.sync, one shared store and load) on 32 to 1024
+threads, in cycles per round and, for the N2048 plan's threads, CUDA-event
+ms; and the cycles a step of dependent redux.sync, dependent shared loads
+and barriers take, on 32 to 1024 threads.
 """
 import argparse
 import functools
@@ -248,10 +266,28 @@ def profile_pair(batch, device_ms, randn) -> None:
               f"(device)")
 
 
+# (N, M) of K1 at the local step's four levels (models/priors.py)
+FPS_LEVELS = ((2048, 1024), (1024, 256), (256, 64), (64, 16))
+
+
+def fps_level_inputs(batch, randn):
+    """[(N, M, cloud)] of the four levels: a random cloud of 2048 points,
+    then each level's cloud is the previous level's picks (the plain
+    version's, on the card)."""
+    from . import ops
+    cloud = randn(batch, FPS_LEVELS[0][0], 3, scale=0.3)
+    out = []
+    for n, m in FPS_LEVELS:
+        out.append((n, m, cloud))
+        cloud = ops.KERNELS["fps"].plain(cloud, m)[1].contiguous()
+    return out
+
+
 def _split_cases(batch, randn):
-    """(label, call) of K7 at SA0 and SA3 (K = 32; bf16 local step's
-    widths) and K3 at r32 C64 (its wrapper without the autograd Function,
-    as chip_smoke.py times it), on random inputs at the batch."""
+    """(label, call) of K1 at its four levels, K7 at SA0 and SA3 (K = 32;
+    bf16 local step's widths) and K3 at r32 C64 (its wrapper without the
+    autograd Function, as chip_smoke.py times it), on random inputs at the
+    batch."""
     from . import ops
     from .ops.voxel import normalize_coords
     bf = torch.bfloat16
@@ -271,7 +307,10 @@ def _split_cases(batch, randn):
     vox = torch.round(normalize_coords(randn(batch, 2048, 3, scale=0.3),
                                        32)).to(torch.int32)
     f64 = randn(batch, 2048, 64)
-    return [("K7 SA0 N2048 M1024 K32 C32,64", sa(2048, 1024, (32, 64), 0.1)),
+    fps = [(f"K1 N{n}->M{m}", functools.partial(ops.KERNELS["fps"], c, m))
+           for n, m, c in fps_level_inputs(batch, randn)]
+    return fps + [
+            ("K7 SA0 N2048 M1024 K32 C32,64", sa(2048, 1024, (32, 64), 0.1)),
             ("K7 SA3 N64 M16 K32 C128x3", sa(64, 16, (128,) * 3, 0.8)),
             ("K3 fp32 N2048 r32 C64",
              functools.partial(ops.KERNELS["avg_voxelize"], f64, vox, 32)),
@@ -327,6 +366,151 @@ def profile_split(batch: int, steps: int) -> None:
         print("[split]   in order: " + ", ".join(
             f"{e.time_range.elapsed_us() / 1e3:.4f}"
             for e in launches[-per_call:]) + " ms")
+    _split_step(batch, steps)
+
+
+# the wrappers whose device time per bf16 step --split sums: K1, K4, K8, K9
+_SPLIT_STEP = ("fps", "conv3d_3x3_fused", "conv3d_pair", "pvconv_block_pair")
+
+
+def _split_step(batch: int, steps: int) -> None:
+    """K1 + K4 + K8 + K9 device ms per bf16 local step at the batch."""
+    from .config import flagship_cfg
+    from .models import LION
+    cfg = flagship_cfg()
+    cfg.tpu.bf16 = True
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    z = torch.randn(batch, lion.style_dim, generator=g, device="cuda")
+    x = torch.randn(batch, lion.num_points, lion.point_channels,
+                    generator=g, device="cuda")
+    noise = torch.randn_like(x)
+    with torch.no_grad():
+        wall, groups = _device_groups(lambda: lion.diffusion._ancestral_step(
+            lambda xx, t: lion.local_prior(xx, t, condition_input=z), x,
+            500, noise), steps)
+    parts = {k: groups.get(f"K {k}", [0.0, 0]) for k in _SPLIT_STEP}
+    device = sum(v[0] for v in groups.values())
+    print(f"[split] bf16 local step B{batch}: device {device:.3f} ms, "
+          f"{sum(v[1] for v in groups.values())} device ops, wall "
+          f"{wall:.3f} ms; K1 + K4 + K8 + K9 "
+          f"{sum(v[0] for v in parts.values()):.3f} ms = " + " + ".join(
+              f"{k} {v[0]:.3f} ({v[1]} ops)" for k, v in parts.items()))
+
+
+def profile_fps_clock(batch: int, steps: int) -> None:
+    """K1's plans at the four levels, timed and split by the probe."""
+    import ctypes
+    from . import ops
+    from .ops import _cuda
+    from .ops.points import FPS_MAX_P, FPS_MAX_THREADS, fps_plan
+    lib = _cuda.build_probe(_cuda.CSRC / "probe" / "fps_probe.cu")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lion_fps_on_plan.argtypes = (vp, vp, vp) + (i32,) * 5 + (vp,)
+    lib.lion_fps_probe.argtypes = (vp, vp, vp) + (i32,) * 5 + (vp, vp)
+    lib.lion_fps_empty_rounds.argtypes = (i32, i32, i32, vp, vp, vp)
+    lib.lion_fps_plan.argtypes = (i32, ctypes.POINTER(i32))
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what}: CUDA error {err}")
+
+    stream = torch.cuda.current_stream().cuda_stream
+    print(f"[setup] {torch.cuda.get_device_name(0)}, batch {batch}, K1 "
+          f"plans, {4 * steps} timed calls each")
+    for n, m, xyz in fps_level_inputs(batch, randn):
+        ref = ops.fps(xyz, m)[0]
+        plan = fps_plan(n)[:2]
+        t = i32(0)
+        assert (lib.lion_fps_plan(n, ctypes.byref(t)), t.value) == \
+            plan[::-1], "the probe's plan is not ops.points.fps_plan's"
+        p = 1
+        while p <= FPS_MAX_P:
+            threads = 32 * -(-n // (32 * p))
+            if threads > FPS_MAX_THREADS or (threads == 32 and p > 1
+                                             and 16 * p >= n):
+                p *= 2
+                continue
+            idx = torch.empty_like(ref)
+            ctr = torch.empty(batch, m, 3, device="cuda")
+            args = (xyz.data_ptr(), idx.data_ptr(), ctr.data_ptr(), batch,
+                    n, m, threads, p)
+
+            def run():
+                check(lib.lion_fps_on_plan(*args, stream), "lion_fps_on_plan")
+            for _ in range(3):
+                run()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(4 * steps):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / (4 * steps)
+            same = torch.equal(idx, ref)
+            stamps = torch.zeros(12, dtype=torch.int32, device="cuda")
+            check(lib.lion_fps_probe(*args, stamps.data_ptr(), stream),
+                  "lion_fps_probe")
+            torch.cuda.synchronize()
+            us = ms * 1e3 / max(m - 1, 1)
+            split = []
+            for who, st in (("thread 0", stamps[:6]),
+                            ("last warp", stamps[6:])):
+                st = st.cpu().double()
+                picks = float(st[5])
+                # the tail runs from the second pick on
+                per = [float(st[0]) / max(picks - 1, 1)] + [
+                    float(v) / max(picks, 1) for v in st[1:5]]
+                split.append(f"{who} {sum(per):.1f} = " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in zip(
+                        ("tail", "update", "warp", "barrier", "fold"), per)))
+            print(f"[fps-clock] N{n}->M{m} threads {threads} P {p}"
+                  f"{' (plan)' if (threads, p) == plan else ''}: events "
+                  f"{ms:.4f} ms, {us:.4f} us a pick, indices equal K1's "
+                  f"{same}; cycles a pick: " + "; ".join(split))
+            if not same:
+                raise AssertionError(f"N{n} plan ({threads}, {p}) differs")
+            p *= 2
+    n, m = FPS_LEVELS[0]
+    plan_threads = fps_plan(n)[0]
+    out = torch.empty(batch * FPS_MAX_THREADS, dtype=torch.int32,
+                      device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    lib.lion_fps_latency.argtypes = (i32, i32, i32, i32, vp, vp, vp)
+    for threads in (32, 256, 512, 1024):
+        def rounds():
+            check(lib.lion_fps_empty_rounds(batch, threads, m, out.data_ptr(),
+                                            cycles.data_ptr(), stream),
+                  "lion_fps_empty_rounds")
+        for _ in range(3):
+            rounds()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(4 * steps):
+            rounds()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (4 * steps)
+        print(f"[fps-clock] chain floor N{n}->M{m}: {m - 1} empty rounds on "
+              f"{threads} threads{' (the plan)' if threads == plan_threads else ''}"
+              f", {float(cycles[0]) / (m - 1):.1f} cycles a round, events "
+              f"{ms:.4f} ms")
+        line = []
+        for kind, name in enumerate(("redux.sync", "shared load",
+                                     "barrier")):
+            check(lib.lion_fps_latency(kind, batch, threads, 1024,
+                                       out.data_ptr(), cycles.data_ptr(),
+                                       stream), "lion_fps_latency")
+            torch.cuda.synchronize()
+            line.append(f"{name} {float(cycles[0]) / 1024:.1f}")
+        print(f"[fps-clock] cycles a dependent step on {threads} threads: "
+              + ", ".join(line))
 
 
 def profile_steps(step, steps: int, label: str) -> None:
@@ -351,8 +535,10 @@ def main(argv=None):
     ap.add_argument("--convs", action="store_true",
                     help="device ms of every K4 / K10 case and cuDNN's conv")
     ap.add_argument("--split", action="store_true",
-                    help="K7's and K3's device ms by launch, events and "
-                    "host time")
+                    help="K1's, K7's and K3's device ms by launch, events "
+                    "and host time; K1 + K4 + K8 + K9 per bf16 step")
+    ap.add_argument("--fps-clock", action="store_true",
+                    help="K1's plans timed and split into phases by clock64")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -366,6 +552,9 @@ def main(argv=None):
         return
     if args.split:
         profile_split(args.batch, args.steps)
+        return
+    if args.fps_clock:
+        profile_fps_clock(args.batch, args.steps)
         return
 
     from .config import flagship_cfg

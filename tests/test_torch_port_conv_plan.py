@@ -4,6 +4,10 @@ shape, and a PyTorch walk of each plan's bricks, with the kernel's index and
 halo logic, against the plain versions: K4 and K10 alone, K8's two brick
 convs with the fold between them, and K9's cluster of 4 bricks x 2 channel
 tiles per item with its per-block voxelize, statistics and devoxelize.
+The statistics' fixed-order merge (per-warp slots, one partial per block,
+the last block's fixed tree) is modelled on every main-path K4 and K8 plan,
+and K9's voxelize order (integer counts, a one-warp scan, warps placing
+their points in turn) is walked per block.
 
 The kernel itself runs only on the card (tests/test_torch_port_gpu.py); this
 file holds what surrounds it: the grid covers every output voxel and channel
@@ -20,12 +24,14 @@ import pytest
 import torch
 
 from lion_tpu_torch.ops.conv3d import (GN_EPS, GN_GROUPS, SMEM_BYTES,
+                                       SMEM_STATIC,
                                        SMEM_SM, _BF16_TILES, _FP32_TILES,
                                        _conv3d_3x3_fused_plain,
                                        _conv3d_pair_plain,
                                        _conv3d_3x3_same_plain, conv_plan)
 from lion_tpu_torch.ops.pvblock import _pvconv_block_pair_plain
 from lion_tpu_torch.ops.voxel import _trilinear_devoxelize_plain
+from lion_tpu_torch.profile_step import K4_CASES
 
 BF16, F32 = torch.bfloat16, torch.float32
 # (b, r, ci, co): the local step's K4 / K10 shapes at batch 16 and the GPU
@@ -59,8 +65,8 @@ def test_plan_covers_the_output_once_and_fits(b, r, ci, co, dtype):
     cells = math.prod(s + 2 for s in p.brick)
     assert p.smem == esize * (min(2, chunks) * cells * p.hpitch + min(
         2, chunks * 27 // p.taps) * p.taps * p.kc * p.wpitch) + 4 * cells
-    assert p.smem + 8 * p.bn <= SMEM_BYTES
-    assert p.min_blocks * (p.smem + 8 * p.bn + 1024) <= SMEM_SM
+    assert p.smem + SMEM_STATIC <= SMEM_BYTES
+    assert p.min_blocks * (p.smem + SMEM_STATIC + 1024) <= SMEM_SM
     if p.min_blocks == 2:   # one chunk, at most 64 accumulators a thread
         assert dtype == BF16 and chunks == 1 and p.tile <= 2
     # fragment depth, 16-byte rows, index shifts
@@ -260,8 +266,8 @@ def test_pair_walk_matches_the_pair_plain_version(b, r, c):
     args = _pair_inputs(b, r, c, seed=r * 100 + c)
     # both convs' blocks: the plan's buffers and the statistics
     p = conv_plan(b, r, c, c, BF16)
-    assert p.smem + 8 * p.bn <= SMEM_BYTES
-    assert p.min_blocks * (p.smem + 8 * p.bn + 1024) <= SMEM_SM
+    assert p.smem + SMEM_STATIC <= SMEM_BYTES
+    assert p.min_blocks * (p.smem + SMEM_STATIC + 1024) <= SMEM_SM
     _assert_fp32_close(_pair_walk(*args, rounded=False),
                        _conv3d_pair_plain(*args))
     x, w0, b0, ca, cb, w1 = args
@@ -373,3 +379,154 @@ def test_pvblock_walk_matches_the_block_plain_version(n):
                                    ca, cb, w1.to(BF16), r)
     assert got[0].dtype == ref[0].dtype == BF16
     _assert_bf16_close(got, ref)
+
+
+# ------------------------------------------------- the statistics' merge
+def _tile_slots():
+    """The tiles' statistics slots (csrc/conv_brick.cuh: kSlots of the bf16
+    tile, then of the fp32 tile), 2 bn floats each."""
+    src = (Path(__file__).resolve().parents[1] / "lion_tpu_torch" / "csrc"
+           / "conv_brick.cuh").read_text()
+    bf, f32 = (int(v) for v in re.findall(
+        r"static constexpr int kSlots = (\d+);", src))
+    return {BF16: bf, F32: f32}
+
+
+STAT_SLOTS = _tile_slots()
+# (r, ci, co, dtype) of every K4 call of the local steps (profile_step's
+# cases) and of K8's two convs (r32 C64 bf16)
+STAT_CASES = sorted({(r, ci, co, dt) for r, ci, co, dt, _ in K4_CASES}
+                    | {(32, 64, 64, BF16)}, key=str)
+
+
+def _merged_stats(y, p, dtype):
+    """flush_stats's sums of y (B, r, r, r, co): each block's slots (the
+    tile's kSlots equal runs of its brick's voxels in d-major order: a
+    warpgroup's planes in bf16, a warp's voxel runs in fp32) summed in
+    slot order into the block's partial; then, per (item, channel tile),
+    thread (value, slice) sums bricks slice, slice + slices, ... in order
+    and the slices are summed in order."""
+    b, r, co = y.shape[0], y.shape[1], y.shape[-1]
+    nb = [-(-r // s) for s in p.brick]
+    bd, bh, bw = p.brick
+    slots = STAT_SLOTS[dtype]
+    yf = y.float()
+    part = torch.zeros(b, p.grid[0], 2, co)
+    for bx in range(p.grid[0]):
+        iw, ih, idd = bx % nb[2], (bx // nb[2]) % nb[1], bx // nb[2] // nb[1]
+        v = yf[:, idd * bd:(idd + 1) * bd, ih * bh:(ih + 1) * bh,
+               iw * bw:(iw + 1) * bw].reshape(b, -1, co)
+        runs = v.reshape(b, slots, -1, co)
+        acc = torch.zeros(b, 2, co)
+        for j in range(slots):
+            acc = acc + torch.stack([runs[:, j].sum(1),
+                                     (runs[:, j] * runs[:, j]).sum(1)], 1)
+        part[:, bx] = acc
+    slices = p.threads // (2 * p.bn)
+    sl = torch.zeros(slices, b, 2, co)
+    for k in range(slices):
+        for j in range(k, p.grid[0], slices):
+            sl[k] = sl[k] + part[:, j]
+    out = torch.zeros(b, 2, co)
+    for k in range(slices):
+        out = out + sl[k]
+    return out
+
+
+@pytest.mark.parametrize("r,ci,co,dtype", STAT_CASES)
+def test_statistics_merge_fits_and_equals_the_plain_statistics(r, ci, co,
+                                                               dtype):
+    b = 2
+    p = conv_plan(b, r, ci, co, dtype)
+    assert all(r % s == 0 for s in p.brick)   # whole bricks on the main path
+    slot_bytes = STAT_SLOTS[dtype] * 2 * p.bn * 4
+    # the slots and then the merge's scratch (a float a thread) reuse the
+    # staging buffers; the threads split into whole slices of 2 bn values
+    assert p.threads * 4 <= slot_bytes <= p.smem
+    assert p.threads % (2 * p.bn) == 0
+    # each slot's run is whole: a warpgroup's planes (bf16), a warp's 32
+    # threads' runs of `tile` voxels (fp32)
+    voxels = math.prod(p.brick)
+    if dtype == BF16:
+        assert voxels // 2 == (p.brick[0] // 2) * 64
+    else:
+        assert voxels // 8 == 32 // (p.bn // 8) * p.tile
+    rs = np.random.RandomState(r + ci + co)
+    x = torch.from_numpy(rs.randn(b, r, r, r, ci).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rs.randn(3, 3, 3, ci, co) * (27 * ci) ** -0.5)
+                         .astype(np.float32)).to(dtype)
+    y, st = _conv3d_3x3_fused_plain(x, w)
+    got = _merged_stats(y, p, dtype)
+    # fp32 sums of up to 32768 values in another order (the GPU tests'
+    # tolerance of the fp32 kernel's statistics)
+    torch.testing.assert_close(got, st, rtol=1e-4,
+                               atol=1e-4 * float(st.abs().max()))
+
+
+def _k9_vox_order(cells, k_cells, threads=256):
+    """K9's voxelize order for one block: integer counts of its k_cells
+    cells, the exclusive scan of one warp whose lane l owns cells
+    [4 l, 4 l + 4), and the placement in rounds of `threads` points whose
+    warps take turns: a lane goes to its cell's cursor (read before its
+    warp's leaders move it) plus its rank among its warp's earlier lanes of
+    the same cell."""
+    counts = np.bincount(cells[cells >= 0], minlength=k_cells)
+    per_lane = counts.reshape(32, 4)
+    inc = np.cumsum(per_lane.sum(1))
+    start = np.zeros(k_cells + 1, np.int64)
+    for lane in range(32):
+        at = inc[lane] - per_lane[lane].sum()
+        for j in range(4):
+            start[4 * lane + j] = at
+            at += per_lane[lane, j]
+    start[k_cells] = inc[-1]
+    cursor = start[:-1].copy()
+    order = np.full(len(cells), -1, np.int64)
+    for i0 in range(0, len(cells), threads):
+        for w0 in range(i0, min(i0 + threads, len(cells)), 32):
+            lanes = cells[w0:w0 + 32]
+            at = cursor.copy()
+            for lane, cell in enumerate(lanes):
+                if cell >= 0:
+                    order[at[cell] + np.sum(lanes[:lane] == cell)] = w0 + lane
+            for cell in np.unique(lanes[lanes >= 0]):
+                cursor[cell] += np.sum(lanes == cell)
+    return start, order[:start[-1]]
+
+
+@pytest.mark.parametrize("n", [64, 256, 2048, 4096])
+def test_pvblock_voxelize_order_gives_the_point_order_means(n):
+    """Each of K9's plane pairs orders the points of its 128 cells stably,
+    and the (cell, channel) sums taken in that order over the count are the
+    float32 sums in point order (np.add.at), bit for bit: the plain
+    version's voxelize."""
+    k = _pvblock_constants()
+    r, k_cells = k["kR"], k["kPlanes"] * k["kR"] * k["kR"]
+    rs = np.random.RandomState(n + 3)
+    vox = np.round(rs.uniform(0, r - 1, (n, 3)) ** 1.5 / (r - 1) ** 0.5)
+    vox = vox.astype(np.int64)
+    vox[::9] = [r, 0, 0]                        # outside the grid
+    feats = torch.from_numpy(rs.randn(n, 16).astype(np.float32)).to(BF16)
+    f = feats.float().numpy()
+    flat = (vox[:, 0] * r + vox[:, 1]) * r + vox[:, 2]
+    inside = np.all((vox >= 0) & (vox < r), axis=1)
+    for pp in range(r // k["kPlanes"]):
+        local = np.where(inside, flat - pp * k_cells, -1)
+        cells = np.where((local >= 0) & (local < k_cells), local, -1)
+        start, order = _k9_vox_order(cells, k_cells)
+        keep = np.nonzero(cells >= 0)[0]
+        np.testing.assert_array_equal(
+            order, keep[np.argsort(cells[keep], kind="stable")])
+        got = np.zeros((k_cells, f.shape[1]), np.float32)
+        for c in range(k_cells):
+            acc = np.zeros(f.shape[1], np.float32)
+            for j in order[start[c]:start[c + 1]]:
+                acc = acc + f[j]
+            if start[c + 1] > start[c]:
+                got[c] = acc / np.float32(start[c + 1] - start[c])
+        sums = np.zeros((k_cells, f.shape[1]), np.float32)
+        np.add.at(sums, cells[keep], f[keep])
+        count = np.bincount(cells[keep], minlength=k_cells)[:, None]
+        want = np.where(count > 0, sums / np.maximum(count, 1)
+                        .astype(np.float32), np.float32(0))
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))

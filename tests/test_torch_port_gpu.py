@@ -43,11 +43,21 @@ def _both(name, *args, **kwargs):
     return got, ref
 
 
-@pytest.mark.parametrize("b,n,m", [(3, 100, 37), (2, 2048, 1024),
-                                   (1, 4000, 16), (2, 8, 8)])
-def test_fps_kernel(gen, b, n, m):
-    xyz = _randn(gen, b, n, 3)
-    xyz[:, n // 2:n // 2 + 4] = xyz[:, :4]       # ties in the min-distance
+@pytest.mark.parametrize("b,n,m,kind", [
+    (3, 100, 37, "random"), (2, 2048, 1024, "random"), (1, 4000, 16, "random"),
+    (2, 8, 8, "random"), (2, 2048, 1024, "grid"), (2, 300, 300, "grid"),
+    (2, 20, 20, "grid"), (2, 16384, 64, "random"),
+    # the local step's four levels at its batch
+    (16, 2048, 1024, "level"), (16, 1024, 256, "level"),
+    (16, 256, 64, "level"), (16, 64, 16, "level")])
+def test_fps_kernel(gen, b, n, m, kind):
+    if kind == "grid":      # integer coordinates: many exact ties
+        xyz = torch.randint(-3, 4, (b, n, 3), generator=gen, device="cuda",
+                            dtype=torch.int32).float()
+    else:
+        xyz = _randn(gen, b, n, 3, scale=0.3)
+    if kind == "random":    # duplicated points: ties in the min-distance
+        xyz[:, n // 2:n // 2 + 4] = xyz[:, :4]
     (idx, ctr), (ridx, rctr) = _both("fps", xyz, m)
     assert torch.equal(idx, ridx) and torch.equal(ctr, rctr)
 
@@ -296,17 +306,18 @@ def _repeat(label, fn):
 
 
 def test_repeat_runs_on_the_same_inputs(gen):
-    """Run-to-run reproducibility (ROADMAP Queue 3 item 3). K3 (fp32 and
-    bf16 at B16 r32 C64) and K7 (SA0 and SA3 at B16) must repeat bit for
-    bit: K3 sums each cell in point order, K7 merges its statistics in a
-    fixed order, and neither adds floats with atomics. K8 at r32 C64, K9 at
-    r8 C128 N256 and one local-prior forward in bf16 at batch 16 and in
-    fp32 at batch 4 run twice each on the same inputs; their bit equality
-    is printed, not required: K8's statistics add across blocks with global
-    atomics (so do K4's) and K9's voxelize adds with shared atomics, while
-    K9's statistics are summed in rank order. Those two runs must agree
-    within the kernels' own gates."""
+    """Run-to-run reproducibility: each of these, run twice on the same
+    inputs, must repeat bit for bit. K3 (fp32 and bf16 at B16 r32 C64), K7
+    (SA0 and SA3 at B16), K4 (fp32 and bf16 at the local step's widest
+    shapes), K8 at r32 C64, K9 at r8 C128 N256, the full-width local-prior
+    forward in bf16 at batch 16 and in fp32 at batch 4, and a 10-step
+    `LION.sample` under `given_noise` on each path. No kernel adds floats
+    with atomics: K3 and K9's voxelize sum each cell in point order, K4's
+    and K8's statistics are summed from per-warp slots and per-block
+    partials in a fixed order, K7 merges its statistics in a fixed tree and
+    K9 sums its statistics in rank order."""
     from lion_tpu_torch.config import flagship_cfg
+    from lion_tpu_torch.models import LION
     from lion_tpu_torch.models.registry import build_local_prior
     from lion_tpu_torch.nn import init_weights
     b = 16
@@ -323,6 +334,18 @@ def test_repeat_runs_on_the_same_inputs(gen):
         args = _sa_inputs(gen, b, *shape)
         a, r = _repeat(f"sa_fused B16 {label}", lambda: ops.sa_fused(*args))
         assert torch.equal(a[0], r[0])
+    for r, ci, co, dt in ((32, 64, 64, torch.float32),
+                          (16, 128, 64, torch.float32),
+                          (32, 32, 32, BF16), (16, 128, 128, BF16),
+                          (8, 128, 128, BF16)):
+        x = _randn(gen, b, r, r, r, ci).to(dt)
+        w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(dt)
+        sc, sh = 1.0 + _randn(gen, b, ci, scale=0.1), _randn(gen, b, ci,
+                                                             scale=0.1)
+        for a, r2 in zip(*_repeat(
+                f"conv3d_3x3_fused {dt} B16 r{r} C{ci}->{co}",
+                lambda: ops.conv3d_3x3_fused(x, w, sc, sh, pre_swish=True))):
+            assert torch.equal(a, r2)
     c = 64
     x = _randn(gen, b, 32, 32, 32, c).to(BF16)
     w = _randn(gen, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(BF16)
@@ -331,7 +354,7 @@ def test_repeat_runs_on_the_same_inputs(gen):
             w)
     for a, r in zip(*_repeat("conv3d_pair B16 r32 C64",
                              lambda: ops.conv3d_pair(*pair))):
-        _assert_bf16_close(a, r, 2e-2)
+        assert torch.equal(a, r)
     xyz = _randn(gen, b, 256, 3, scale=0.3)
     nc = voxel.normalize_coords(xyz, 8).contiguous()
     c = 128
@@ -342,7 +365,7 @@ def test_repeat_runs_on_the_same_inputs(gen):
              _randn(gen, b, c, scale=0.1), w, 8)
     for a, r in zip(*_repeat("pvconv_block_pair B16 r8 C128 N256",
                              lambda: ops.pvconv_block_pair(*block))):
-        _assert_bf16_close(a, r, 2e-2)
+        assert torch.equal(a, r)
     g = torch.Generator().manual_seed(8)
     for bf16, batch in ((True, 16), (False, 4)):
         cfg = flagship_cfg()
@@ -358,13 +381,26 @@ def test_repeat_runs_on_the_same_inputs(gen):
             (a,), (r,) = _repeat(
                 f"local prior forward {'bf16' if bf16 else 'fp32'} B{batch}",
                 lambda: net(xs, t, condition_input=cond))
-        assert torch.isfinite(a).all()
-        # the full-width forward's own gates (chip_smoke.py phase 4)
-        if bf16:
-            assert float((a - r).norm() / r.norm()) <= 0.03
-        else:
-            torch.testing.assert_close(a, r, rtol=0.0,
-                                       atol=1e-4 * float(r.abs().max()))
+        assert torch.isfinite(a).all() and torch.equal(a, r)
+    for bf16, batch in ((False, 4), (True, 16)):
+        cfg = flagship_cfg()
+        cfg.tpu.bf16 = bf16
+        cfg.ddpm.num_steps = 10
+        lion = LION(cfg).init_params(torch.Generator().manual_seed(3))
+        rs = np.random.RandomState(12)
+        noise = tuple(
+            (torch.from_numpy(rs.randn(batch, d).astype(np.float32)).cuda(),
+             torch.from_numpy(rs.randn(10, batch, d).astype(np.float32))
+             .cuda())
+            for d in (lion.style_dim, lion.local_dim))
+
+        def sample():
+            out = lion.sample(batch, given_noise=noise)
+            return out["z_global"], out["z_local"], out["points"]
+        a, r = _repeat(f"LION.sample 10 steps given_noise "
+                       f"{'bf16' if bf16 else 'fp32'} B{batch}", sample)
+        assert all(torch.isfinite(x).all() for x in a)
+        assert all(torch.equal(x, y) for x, y in zip(a, r))
 
 
 def _sa_inputs(gen, b, n, m, k, widths, radius_ball):
