@@ -15,10 +15,13 @@ non-zero:
      K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
      2048-point clouds, N != M both ways and a permuted copy; K13's
      backward against K2's backward of the permuted gradient; K1 at the
-     local step's four levels (N 2048 -> 1024 -> 256 -> 64 -> 16), exact,
-     with its time per level; K3 (fp32, bf16), K4 (every case above), K7
-     (SA0, SA3), K8 and K9 run twice and must repeat bit for bit, and K3
-     must equal the float32 sum in point order over the count.
+     local step's four levels (N 2048 -> 1024 -> 256 -> 64 -> 16), K2 at
+     its four SA levels and K6 at its four FP levels (fp32 and bf16, with
+     its indices and weights) on those clouds, exact, repeating bit for
+     bit, with K2's balls equal to K11's, and their times per level
+     (`ms_levels`); K3 (fp32, bf16), K4 (every case above), K7 (SA0, SA3),
+     K8 and K9 run twice and must repeat bit for bit, and K3 must equal the
+     float32 sum in point order over the count.
   4. forward parity: one full-width local-prior forward (batch 2) on the
      card against the same module on the CPU (plain versions), in fp32 and
      in bf16, and the card's bf16 forward against its fp32 one. Then the
@@ -470,6 +473,51 @@ def check_fps_levels(b, randn):
     return ms
 
 
+def check_bqg_levels(b, randn):
+    """K2 at the local step's four SA levels: exact against the plain
+    version, repeating bit for bit, its rows those grouped from K11's
+    balls; the time per level."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.ops.points import grouping
+    from lion_tpu_torch.profile_step import bqg_level_inputs
+    k2 = ops.KERNELS["ball_query_group"]
+    ms = {}
+    for label, args in bqg_level_inputs(b, randn):
+        p, c, f, r, k = args
+        got = _bit_equal(f"ball_query_group B{b} {label}",
+                         lambda a=args: k2(*a))[0]
+        _exact(got, k2.plain(*args))
+        idx = ops.ball_query(c, p, r, k)
+        _exact(got, torch.cat([grouping(p, idx) - c[:, :, None],
+                               grouping(f, idx)], -1))
+        ms[label] = cuda_time_ms(lambda a=args: k2(*a), 20)
+    log(f"[kernels] ball_query_group per level B{b} (exact, K11's balls): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; the four levels {sum(ms.values()):.4f} ms")
+    return ms
+
+
+def check_three_nn_levels(b, randn):
+    """K6 at the local step's four FP levels in fp32 and bf16, with its
+    indices and weights: exact against the plain version, repeating bit for
+    bit; the time per level."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.profile_step import three_nn_level_inputs
+    k6 = ops.KERNELS["three_nn_interpolate"]
+    ms = {}
+    for label, (p, c, f) in three_nn_level_inputs(b, randn):
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            x = f.to(dt)
+            got = _bit_equal(f"three_nn_interpolate B{b} {name} {label}",
+                             lambda x=x: k6(p, c, x, with_weights=True))
+            _exact(got, k6.plain(p, c, x, with_weights=True))
+            _exact(k6(p, c, x), got[0])
+            ms[f"{label} {name}"] = cuda_time_ms(lambda x=x: k6(p, c, x), 20)
+    log(f"[kernels] three_nn_interpolate per level B{b} (exact): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return ms
+
+
 def phase_kernels():
     import torch.nn.functional as F
     from lion_tpu_torch import ops
@@ -671,6 +719,9 @@ def phase_kernels():
             raise AssertionError(f"EMD of a permuted copy: {own.tolist()}")
         check_cf_backward(cloud, centers, f32c, randn(b, 32, 35, 1024))
         results["fps"]["ms_levels"] = check_fps_levels(b, randn)
+        results["ball_query_group"]["ms_levels"] = check_bqg_levels(b, randn)
+        results["three_nn_interpolate"]["ms_levels"] = \
+            check_three_nn_levels(b, randn)
         check_repeats(vox32, f64, sa0, sa3, checks)
     return results
 

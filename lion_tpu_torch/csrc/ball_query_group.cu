@@ -4,66 +4,285 @@
 // (_bqg_kernel).
 //
 // Semantics: for each center, the first K points (in index order) whose
-// squared distance is strictly below r^2. Slots past the hit count copy
-// slot 0; an empty ball takes point 0 in every slot. Each slot emits the
-// row [point - center (3), point features (C)] in fp32.
+// squared distance (lion::sq_dist) is strictly below r^2. Slots past the
+// hit count copy slot 0; an empty ball takes point 0 in every slot. Each
+// slot emits the row [point - center (3), point features (C)] in fp32.
+// The balls are K11's (csrc/ball_query.cu), which K2's backward replays.
 //
-// Bound on the H100: device-memory bandwidth on the output, which is
-// K * (3 + C) floats per center (K = 32), against N * 12 bytes of coords
-// read per center (L1/L2 resident).
-// Design: one warp per center finds the ball (ball_query.cuh, shared with
-// K11), and the rows are written with lanes over channels so each store is
-// contiguous.
-#include "ball_query.cuh"
+// Bound on the H100: device-memory bandwidth on the output, K (3 + C)
+// floats a center (0.0233 ms at B16 N2048 M1024 K32 C32), beside the
+// B M N distance tests of the scan (a sparse ball scans the whole cloud),
+// which take about as long as the writes at the top level.
+// Design: a block takes `cpb` consecutive centers of one item, whose
+// output tiles form one contiguous span. It stages the item's cloud in
+// shared memory as (x, y, z, 0), one 16-byte load a point, in tiles of up
+// to kTileN points (any N). A warp scans for two centers at a time, each
+// point it loads from shared memory tested against both (8 bytes of
+// shared-memory traffic a test): kChunks 32-point chunks a round, each
+// lane testing one point of each, so a round holds 2 kChunks independent
+// tests. Most balls hold a few of the cloud's points, so most rounds find
+// no hit: one vote skips them; otherwise one ballot a chunk and center
+// assigns the slots by prefix popcounts in index order. The scan stops
+// after the round in which both centers have K hits (a shortcut: the
+// slots are set by then). The pair's output tiles are one contiguous span:
+// its rows' point indices and point - center go to shared memory, and the
+// warp writes the span flat at once, lane l taking 16-byte chunks l,
+// l + 32, ... (4 floats, or single floats when K (3 + C) is not a multiple
+// of 4), the (row, channel) of each stepped without a divide, the features
+// gathered from the point's row; then its next pair. No barrier follows
+// the staging, so one warp's writes can overlap another's scan. A block of
+// a single pair (the small levels) writes it with all its threads. The
+// caller's plan (ops/points.py: bqg_plan, within the limits below) picks
+// cpb, the threads and the tile from (B, N, M, C, K) so that the small
+// levels fill the card.
+#include <climits>
+#include <cmath>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kMaxThreads = 256;     // threads a block, at most
+constexpr int kMaxCenters = 32;      // centers a block, at most
+constexpr int kTileN = 2048;         // cloud points a shared-memory tile
+constexpr int kChunks = 4;           // 32-point chunks a warp tests a round
+constexpr int kSmemMax = 232448;     // a block's shared memory on the H100
 
-__global__ void __launch_bounds__(kThreads)
-bqg_kernel(const float* __restrict__ points, const float* __restrict__ ctrs,
-           const float* __restrict__ feats, int n, int m, int c, int k,
-           float r2, float* __restrict__ out) {
-  extern __shared__ int slots[];  // kWarps * k point indices
-  const int warp = threadIdx.x >> 5;
+constexpr int kRound = 32 * kChunks;  // points a warp tests a round
+
+// Dynamic shared memory: the cloud tile padded to whole rounds (points at
+// infinity, in no ball) and each warp's 2 K rows (x, y, z, point index) as
+// float4, then the slots' point indices and the hit counts. (A block of
+// one pair writes it from warp 0's rows.)
+long long smem_bytes(int cpb, int k, int tile, int threads) {
+  return 16LL * (tile + kRound) + 16LL * (threads / 32) * 2 * k +
+         4LL * cpb * k + 4LL * cpb;
+}
+
+// One chunk of a center's scan: the lanes' hits take the next slots in
+// index order (prefix popcounts); hits past K are counted, not kept.
+__device__ __forceinline__ void take(bool hit, int j, unsigned below, int k,
+                                     int* count, int* sel) {
+  const unsigned mask = __ballot_sync(0xffffffffu, hit);
+  const int slot = *count + __popc(mask & below);
+  if (hit && slot < k) sel[slot] = j;
+  *count += __popc(mask);
+}
+
+// A warp's scan of the staged points scloud[0, cnt) (global index t0 + j)
+// for centers ca and cc (the same when the pair has one center, whose
+// twin counts as full).
+__device__ __forceinline__ void scan_pair(const float4* scloud, int cnt,
+                                          int t0, const float* cb, int ca,
+                                          int cc, int k, float r2,
+                                          int* ssel, int* scount) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int center = blockIdx.x * kWarps + warp;
-  if (center >= m) return;  // warp-uniform; no block barrier below
-
-  int* sel = slots + warp * k;
-  const float* ctr = ctrs + (static_cast<size_t>(b) * m + center) * 3;
-  const float* pts = points + static_cast<size_t>(b) * n * 3;
-  lion::warp_ball_query(ctr[0], ctr[1], ctr[2], pts, n, k, r2, sel);
-
-  const int width = 3 + c;
-  float* o = out + (static_cast<size_t>(b) * m + center) * k * width;
-  const float* f = feats + static_cast<size_t>(b) * n * c;
-  for (int s = 0; s < k; ++s) {
-    const int p = sel[s];
-    float* row = o + static_cast<size_t>(s) * width;
-    for (int ch = lane; ch < width; ch += 32) {
-      row[ch] = ch < 3 ? __fsub_rn(pts[3 * p + ch], ctr[ch])
-                       : f[static_cast<size_t>(p) * c + (ch - 3)];
+  const unsigned below = (1u << lane) - 1u;
+  const float ax = cb[3 * ca], ay = cb[3 * ca + 1], az = cb[3 * ca + 2];
+  const float bx = cb[3 * cc], by = cb[3 * cc + 1], bz = cb[3 * cc + 2];
+  int count_a = scount[ca];                        // warp-uniform
+  int count_b = cc != ca ? scount[cc] : k;
+  for (int j0 = 0; j0 < cnt && (count_a < k || count_b < k);
+       j0 += kRound) {
+    bool hit_a[kChunks], hit_b[kChunks], any = false;
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const float4 p = scloud[j0 + 32 * u + lane];
+      hit_a[u] = lion::sq_dist(ax, ay, az, p.x, p.y, p.z) < r2;
+      hit_b[u] = lion::sq_dist(bx, by, bz, p.x, p.y, p.z) < r2;
+      any = any || hit_a[u] || hit_b[u];
+    }
+    if (!__any_sync(0xffffffffu, any)) continue;   // most rounds
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int j = t0 + j0 + 32 * u + lane;
+      take(hit_a[u], j, below, k, &count_a, ssel + ca * k);
+      take(hit_b[u], j, below, k, &count_b, ssel + cc * k);
     }
   }
+  __syncwarp();
+  if (lane == 0) {
+    scount[ca] = count_a;
+    if (cc != ca) scount[cc] = count_b;
+  }
+  __syncwarp();
+}
+
+// The team's barrier: the block's, or the warp's.
+__device__ __forceinline__ void team_sync(bool block) {
+  if (block) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+}
+
+// A pair of scanned centers ca, ca + nc - 1 of the block, written by a
+// team (a warp, or the whole block when it holds one pair): their rows (a
+// slot past the hit count copies slot 0, an empty ball takes point 0;
+// point - center in fp32) into `rows`, then the pair's span of the output,
+// nc K (3 + C) floats, flat: team thread l takes the V-float chunks l,
+// l + size, ..., the (row, channel) of each stepped without a divide, the
+// features gathered from the row's point.
+template <int V>
+__device__ __forceinline__ void write_pair(
+    const float* pts, const float* cb, const float* __restrict__ fb, int ca,
+    int nc, int k, int c, const int* ssel, const int* scount, float4* rows,
+    float* __restrict__ ob, int l, int size, bool block) {
+  for (int r = l; r < nc * k; r += size) {
+    const int cc = ca + (r >= k ? 1 : 0), s = r >= k ? r - k : r;
+    const int found = min(scount[cc], k);
+    const int p = s < found ? ssel[cc * k + s]
+                            : (found > 0 ? ssel[cc * k] : 0);
+    const float* pp = pts + 3 * static_cast<size_t>(p);
+    rows[r] = make_float4(__fsub_rn(pp[0], cb[3 * cc]),
+                          __fsub_rn(pp[1], cb[3 * cc + 1]),
+                          __fsub_rn(pp[2], cb[3 * cc + 2]),
+                          __int_as_float(p));
+  }
+  team_sync(block);
+  const int w = 3 + c;
+  const int span = nc * k * w;
+  const int drow = size * V / w, dch = size * V - drow * w;
+  int row = V * l / w, ch = V * l - row * w;
+  for (int e = V * l; e < span; e += size * V) {
+    float v[V];
+    int rr = row, cch = ch;
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const float4 rw = rows[rr];
+      const int p = __float_as_int(rw.w);
+      v[u] = cch >= 3 ? __ldg(fb + static_cast<size_t>(p) * c + (cch - 3))
+                      : (cch == 0 ? rw.x : (cch == 1 ? rw.y : rw.z));
+      if (++cch == w) {
+        cch = 0;
+        ++rr;
+      }
+    }
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(ob + e) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      ob[e] = v[0];
+    }
+    row += drow;
+    ch += dch;
+    if (ch >= w) {
+      ch -= w;
+      ++row;
+    }
+  }
+  team_sync(block);   // the rows are free for the team's next pair
+}
+
+// grid (ceil(M / cpb), B); V floats a chunk of the flat write (4 when
+// K (3 + C) is a multiple of 4). Warp w takes the block's pairs of
+// centers (2w, 2w + 1), (2w + 2 warps, ...), ... With the cloud in one tile
+// (N <= tile) every warp runs on its own after the staging: scan a pair,
+// write it, next pair. A block of one pair (cpb <= 2) writes it with all
+// its threads after warp 0's scan; with several tiles the block stages
+// tile by tile, the warps scanning all their pairs on each, and writes
+// after the last.
+template <int V>
+__global__ void __launch_bounds__(kMaxThreads)
+bqg_kernel(const float* __restrict__ points, const float* __restrict__ ctrs,
+           const float* __restrict__ feats, int n, int m, int c, int k,
+           float r2, int cpb, int tile, float* __restrict__ out) {
+  extern __shared__ float4 smem[];
+  const int t = threadIdx.x, warp = t >> 5, warps = blockDim.x >> 5;
+  const int lane = t & 31;
+  float4* scloud = smem;                               // tile points
+  float4* rows = scloud + tile + kRound;               // 2 K rows a warp
+  int* ssel = reinterpret_cast<int*>(rows + warps * 2 * k);  // cpb K slots
+  int* scount = ssel + cpb * k;                        // cpb hit counts
+
+  const int b = blockIdx.y, m0 = blockIdx.x * cpb;
+  const int ncent = min(cpb, m - m0);
+  const float* pts = points + static_cast<size_t>(b) * n * 3;
+  const float* cb = ctrs + (static_cast<size_t>(b) * m + m0) * 3;
+  const float* fb = feats + static_cast<size_t>(b) * n * c;
+  const size_t row_floats = static_cast<size_t>(k) * (3 + c);
+  float* ob = out + (static_cast<size_t>(b) * m + m0) * row_floats;
+  const bool block = cpb <= 2;      // one pair: the block writes it
+  const bool now = n <= tile && !block;   // a warp writes each pair at once
+  if (t < ncent) scount[t] = 0;
+
+  for (int t0 = 0; t0 < n; t0 += tile) {
+    const int cnt = min(tile, n - t0);
+    __syncthreads();   // the counts are set; the last tile is scanned
+    const int padded = (cnt + kRound - 1) / kRound * kRound;
+    for (int j = t; j < padded; j += blockDim.x) {
+      float4 v = make_float4(INFINITY, INFINITY, INFINITY, 0.0f);
+      if (j < cnt) {
+        const float* p = pts + 3 * static_cast<size_t>(t0 + j);
+        v = make_float4(p[0], p[1], p[2], 0.0f);
+      }
+      scloud[j] = v;
+    }
+    __syncthreads();
+    for (int ca = 2 * warp; ca < ncent; ca += 2 * warps) {
+      const int nc = min(2, ncent - ca);
+      scan_pair(scloud, cnt, t0, cb, ca, ca + nc - 1, k, r2, ssel, scount);
+      if (now) {
+        write_pair<V>(pts, cb, fb, ca, nc, k, c, ssel, scount,
+                      rows + warp * 2 * k, ob + ca * row_floats, lane, 32,
+                      false);
+      }
+    }
+  }
+  if (block) {
+    __syncthreads();
+    write_pair<V>(pts, cb, fb, 0, ncent, k, c, ssel, scount, rows, ob, t,
+                  blockDim.x, true);
+  } else if (!now) {
+    for (int ca = 2 * warp; ca < ncent; ca += 2 * warps) {
+      write_pair<V>(pts, cb, fb, ca, min(2, ncent - ca), k, c, ssel, scount,
+                    rows + warp * 2 * k, ob + ca * row_floats, lane, 32,
+                    false);
+    }
+  }
+}
+
+template <int V>
+int launch(const void* points, const void* centers, const void* feats,
+           void* out, int b, int n, int m, int c, int k, float r2, int cpb,
+           int threads, int tile, int smem, cudaStream_t s) {
+  static unsigned done = 0;
+  const cudaError_t e = lion::set_smem_once(
+      reinterpret_cast<const void*>(bqg_kernel<V>), kSmemMax, &done);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(lion::ceil_div(m, cpb), b);
+  bqg_kernel<V><<<grid, threads, smem, s>>>(
+      static_cast<const float*>(points), static_cast<const float*>(centers),
+      static_cast<const float*>(feats), n, m, c, k, r2, cpb, tile,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // points (B, N, 3), centers (B, M, 3), feats (B, N, C) f32
 // -> out (B, M, K, 3 + C) f32. r2 is the squared radius in fp32.
+// (cpb, threads, tile) is the plan (ops/points.py: bqg_plan): blocks of
+// `threads` threads taking `cpb` centers each and the cloud `tile` points
+// at a time; every pointer 16-byte aligned.
 LION_EXPORT int lion_ball_query_group(const void* points, const void* centers,
                                       const void* feats, void* out, int b,
-                                      int n, int m, int c, int k,
-                                      float r2, void* stream) {
-  const dim3 grid(lion::ceil_div(m, kWarps), b);
-  const size_t smem = static_cast<size_t>(kWarps) * k * sizeof(int);
-  bqg_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(points), static_cast<const float*>(centers),
-      static_cast<const float*>(feats), n, m, c, k, r2,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+                                      int n, int m, int c, int k, float r2,
+                                      int cpb, int threads, int tile,
+                                      void* stream) {
+  const long long smem = smem_bytes(cpb, k, tile, threads);
+  if (n < 1 || k < 1 || c < 0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || cpb < 1 || cpb > kMaxCenters || tile < 1 ||
+      tile > kTileN || smem > kSmemMax ||
+      static_cast<long long>(cpb) * k * (3 + c) > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || m == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(k) * (3 + c) % 4 == 0) {
+    return launch<4>(points, centers, feats, out, b, n, m, c, k, r2, cpb,
+                     threads, tile, static_cast<int>(smem), s);
+  }
+  return launch<1>(points, centers, feats, out, b, n, m, c, k, r2, cpb,
+                   threads, tile, static_cast<int>(smem), s);
 }

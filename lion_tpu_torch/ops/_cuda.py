@@ -40,7 +40,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaGetLastError() as an int.
 _SIGNATURES = {
     "lion_fps": (_P, _P, _P, _I, _I, _I, _P),
-    "lion_ball_query_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "lion_ball_query_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                              _I, _I, _P),
     "lion_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "lion_ball_query_group_cf": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                  _P),
@@ -53,7 +54,7 @@ _SIGNATURES = {
     "lion_sa_fused": (_P,) * 9 + (_I,) + (_P,) * 5 + (_I,) * 9 + (_F, _P),
     "lion_trilinear_devoxelize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _P),
+                                  _I, _I, _I, _P),
 }
 
 # name -> wrapper, in registration order (one entry per kernel)
@@ -131,9 +132,10 @@ def build() -> Path:
 
 def build_probe(src: Path) -> ctypes.CDLL:
     """Compile a measurement probe (a source under csrc/probe/ that
-    includes a kernel's source) on its own into a library beside the
-    kernels' library, unless one for this source exists, and load it. The
-    kernels' library never contains a probe."""
+    includes a kernel's source, or a patched copy of a kernel's source
+    anywhere, its includes resolved against csrc/) on its own into a
+    library beside the kernels' library, unless one for this source
+    exists, and load it. The kernels' library never contains a probe."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (src, *_sources()):
         h.update(f.read_bytes())
@@ -142,8 +144,8 @@ def build_probe(src: Path) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.so.tmp")
         try:
-            _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                       str(src)]])
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared",
+                       "-o", str(tmp), str(src)]])
             os.replace(tmp, out)
         finally:
             tmp.unlink(missing_ok=True)

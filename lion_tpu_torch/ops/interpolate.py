@@ -3,7 +3,8 @@ lion_tpu/ops/interpolate.py).
 
 Kernel here:
   K6 `three_nn_interpolate` (csrc/three_nn.cu), which can also return each
-     point's neighbour indices and weights.
+     point's neighbour indices and weights. `three_nn_plan` sizes its
+     blocks.
 
 `nearest_neighbor_interpolate` has a gradient to the centers' features
 only, as the JAX VJP (lion_tpu/ops/interpolate.py:51-81): a scatter-add of
@@ -64,6 +65,32 @@ def three_nn(points: torch.Tensor, centers: torch.Tensor):
     return torch.stack(dists, -1), torch.stack(idxs, -1)
 
 
+# K6's limits (csrc/three_nn.cu, whose constants these equal): threads a
+# block, lanes a point, centers a shared-memory tile, centers a lane takes
+# a step, output chunks in flight a thread. The plan's targets: B N L
+# threads in all (about 15 resident warps an SM on the H100's 132 SMs) and
+# a full wave of blocks.
+THREE_NN_MAX_THREADS, THREE_NN_MAX_LANES = 256, 32
+THREE_NN_TILE, THREE_NN_GROUP, THREE_NN_UNROLL = 1024, 4, 2
+THREE_NN_FILL_THREADS, THREE_NN_MIN_BLOCKS = 1 << 16, 132
+
+
+def three_nn_plan(b: int, n: int):
+    """(threads a block, lanes a point) of K6 for B clouds of N points: the
+    fewest lanes (a power of two, at most a warp) that give B N L >=
+    THREE_NN_FILL_THREADS threads, then the most threads (a power of two
+    from 32 to THREE_NN_MAX_THREADS) whose blocks of threads / L points
+    still number THREE_NN_MIN_BLOCKS. A lane scans M / L centers (none
+    when L > M), so the plan needs no M."""
+    lanes = 1
+    while lanes < THREE_NN_MAX_LANES and b * n * lanes < THREE_NN_FILL_THREADS:
+        lanes *= 2
+    threads = THREE_NN_MAX_THREADS
+    while threads > 32 and -(-n * lanes // threads) * b < THREE_NN_MIN_BLOCKS:
+        threads //= 2
+    return threads, lanes
+
+
 def _three_nn_interpolate_plain(points, centers, centers_features,
                                 with_weights: bool = False):
     d2, idx = three_nn(points, centers)
@@ -110,7 +137,7 @@ def three_nn_interpolate(points: torch.Tensor, centers: torch.Tensor,
         w = torch.empty((b, n, 3), device=points.device)
     launch("lion_three_nn_interpolate", ptr(points), ptr(centers),
            ptr(centers_features), ptr(out), ptr(idx), ptr(w), b, n, m, c,
-           int(dt == torch.bfloat16), stream_of(points))
+           int(dt == torch.bfloat16), *three_nn_plan(b, n), stream_of(points))
     return (out, idx, w) if with_weights else out
 
 

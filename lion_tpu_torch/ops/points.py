@@ -6,7 +6,7 @@ Kernels here:
   K1 `fps` (csrc/fps.cu): furthest point sampling, indices and the picked
      coords in one launch.
   K2 `ball_query_group` (csrc/ball_query_group.cu): ball query fused with
-     the grouping gather.
+     the grouping gather; `bqg_plan` sizes its blocks.
   K11 `ball_query` (csrc/ball_query.cu): the index-only ball query.
   K13 `ball_query_group_cf` (csrc/ball_query_group_cf.cu): K2 with the
      channel-first (B, K, 3 + C, M) output, fp32 or bf16 features.
@@ -179,6 +179,46 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
 # --------------------------------------------------------------------------
 # K2: ball query + grouping
 # --------------------------------------------------------------------------
+# K2's limits (csrc/ball_query_group.cu, whose constants these equal):
+# threads a block, centers a block, cloud points a shared-memory tile,
+# 32-point chunks a warp tests a round, a block's shared memory. The plan's
+# target: two waves of blocks on the H100's 132 SMs.
+BQG_MAX_THREADS, BQG_MAX_CENTERS, BQG_TILE, BQG_CHUNKS = 256, 32, 2048, 4
+BQG_SMEM_MAX, BQG_MIN_BLOCKS = 232448, 264
+
+
+def bqg_smem(cpb: int, k: int, tile: int, threads: int) -> int:
+    """K2's dynamic shared bytes: the cloud tile (padded by a round of
+    32 BQG_CHUNKS points) and each warp's 2 K rows as float4, the cpb K
+    slots' indices and the cpb hit counts as int32."""
+    return 16 * (tile + 32 * BQG_CHUNKS) + 16 * (threads // 32) * 2 * k \
+        + 4 * cpb * k + 4 * cpb
+
+
+def bqg_plan(b: int, n: int, m: int, c: int, k: int):
+    """(centers a block, threads, cloud tile, shared bytes) of K2: the most
+    centers a block (a power of two up to BQG_MAX_CENTERS, and below 2 M)
+    whose blocks still number BQG_MIN_BLOCKS and fit the shared memory;
+    a warp for each pair of them, up to BQG_MAX_THREADS threads, which a
+    block of one pair (cpb <= 2) takes all to write it."""
+    if n < 1 or k < 1:
+        raise ValueError(f"ball_query_group: unsupported N={n}, K={k}")
+    tile = min(n, BQG_TILE)
+
+    def threads(cpb):
+        return BQG_MAX_THREADS if cpb <= 2 else min(BQG_MAX_THREADS,
+                                                    32 * -(-cpb // 2))
+    cpb = BQG_MAX_CENTERS
+    while cpb > 1 and (cpb >= 2 * m or -(-m // cpb) * b < BQG_MIN_BLOCKS
+                       or bqg_smem(cpb, k, tile, threads(cpb))
+                       > BQG_SMEM_MAX):
+        cpb //= 2
+    smem = bqg_smem(cpb, k, tile, threads(cpb))
+    if smem > BQG_SMEM_MAX:
+        raise ValueError(f"ball_query_group: K={k} beyond shared memory")
+    return cpb, threads(cpb), tile, smem
+
+
 def _ball_query_group_plain(points_coords, centers_coords, points_features,
                             radius: float, num_neighbors: int):
     idx = _ball_query_plain(centers_coords, points_coords, radius,
@@ -202,10 +242,11 @@ def ball_query_group_kernel(points_coords: torch.Tensor,
     m = centers_coords.shape[1]
     c = points_features.shape[-1]
     k = num_neighbors
+    cpb, threads, tile, _ = bqg_plan(b, n, m, c, k)
     out = torch.empty((b, m, k, 3 + c), device=points_coords.device)
     launch("lion_ball_query_group", ptr(points_coords), ptr(centers_coords),
-           ptr(points_features), ptr(out), b, n, m, c, k, _r2(radius),
-           stream_of(points_coords))
+           ptr(points_features), ptr(out), b, n, m, c, k, _r2(radius), cpb,
+           threads, tile, stream_of(points_coords))
     return out
 
 

@@ -6,6 +6,7 @@ two-prior training step, on one GPU.
     python -m lion_tpu_torch.profile_step --convs [--batch 16]
     python -m lion_tpu_torch.profile_step --split [--batch 16]
     python -m lion_tpu_torch.profile_step --fps-clock [--batch 16]
+    python -m lion_tpu_torch.profile_step --plans [--batch 16] [--source X.cu]
 
 Builds the flagship LION (fp32, or with `tpu.bf16 = True` under --bf16;
 random weights from a seed), warms up, then
@@ -30,13 +31,17 @@ computes the pair), and K9 at r8 C128 N256 at the batch and at batch 1
 (one cluster of 8 blocks alone).
 
 With --split it prints, for K1 (`fps`) at the local step's four levels
-(N 2048 -> 1024, 1024 -> 256, 256 -> 64, 64 -> 16), for K7 (`sa_fused`) at
-the bf16 local step's SA0 and SA3 shapes and for K3 (`avg_voxelize`) at
+(N 2048 -> 1024, 1024 -> 256, 256 -> 64, 64 -> 16), for K2
+(`ball_query_group`) at its four SA levels and K6 (`three_nn_interpolate`,
+fp32 and bf16) at its four FP levels on those clouds, for K11
+(`ball_query`) and K13 (`ball_query_group_cf`) at SA0's, for K7 (`sa_fused`)
+at the bf16 local step's SA0 and SA3 shapes and for K3 (`avg_voxelize`) at
 r32 C64 in fp32 and bf16, the device ms per call of every CUDA kernel and
 memset the call runs, by name, beside the call's CUDA-event ms and the
 host ms the wrapper takes to enqueue it. Then it profiles the bf16 local
-step at the batch and prints the device ms per step of K1, K4, K8 and K9
-and their sum, beside the step's device ms and device ops.
+step at the batch and the fp32 local step at batch 4 (the two sampling
+paths) and prints the device ms and launches per step of K1, K2, K4, K6,
+K8 and K9, beside the step's device ms and device ops.
 
 With --fps-clock it builds the K1 probe (csrc/probe/fps_probe.cu) and, at
 each of the four levels, runs K1's kernel on every plan of whole warps
@@ -50,6 +55,17 @@ barrier, two redux.sync, one shared store and load) on 32 to 1024
 threads, in cycles per round and, for the N2048 plan's threads, CUDA-event
 ms; and the cycles a step of dependent redux.sync, dependent shared loads
 and barriers take, on 32 to 1024 threads.
+
+With --plans it runs K6 (fp32) at its four FP levels on every plan of
+32-256 threads and 1-32 lanes a point, and K2 at its four SA levels on
+every plan of 1-32 centers a block and 64-256 threads: the device ms of
+each, whether its output equals the wrapper's plan's bit for bit, and
+which plan the wrapper takes; then, on the wrapper's plan at the top
+level, the scan alone (C = 0) and the output alone (K6: 4 centers; K2: a
+cloud of 128 points). --source X.cu times the kernels of a patched copy
+of csrc/three_nn.cu or csrc/ball_query_group.cu (built on its own, like
+the K1 probe; its includes resolve against csrc/) in place of the
+library's.
 """
 import argparse
 import functools
@@ -283,11 +299,43 @@ def fps_level_inputs(batch, randn):
     return out
 
 
+# (N, M, C, radius) of K2 at the local step's four SA levels (K = 32) and
+# C of K6 at its four FP levels (nn/unet.py: 128 features beside the 64-d
+# time embedding, but SA0's 32 features)
+SA_LEVELS = ((2048, 1024, 32, 0.1), (1024, 256, 64, 0.2),
+             (256, 64, 128, 0.4), (64, 16, 192, 0.8))
+FP_C = 192
+
+
+def bqg_level_inputs(batch, randn):
+    """[(label, (points, centers, features, radius, K))] of K2 at the four
+    SA levels, on fps_level_inputs' clouds and their picks."""
+    from . import ops
+    out = []
+    for (n, m, cloud), (_, _, c, r) in zip(fps_level_inputs(batch, randn),
+                                           SA_LEVELS):
+        centers = ops.KERNELS["fps"].plain(cloud, m)[1].contiguous()
+        out.append((f"N{n} M{m} C{c} r{r}",
+                    (cloud, centers, randn(batch, n, c), r, 32)))
+    return out
+
+
+def three_nn_level_inputs(batch, randn):
+    """[(label, (points, centers, features))] of K6 at the four FP levels
+    (points: a level's cloud, centers: its picks), fp32 features."""
+    from . import ops
+    return [(f"N{n} M{m} C{FP_C}",
+             (cloud, ops.KERNELS["fps"].plain(cloud, m)[1].contiguous(),
+              randn(batch, m, FP_C)))
+            for n, m, cloud in fps_level_inputs(batch, randn)]
+
+
 def _split_cases(batch, randn):
-    """(label, call) of K1 at its four levels, K7 at SA0 and SA3 (K = 32;
-    bf16 local step's widths) and K3 at r32 C64 (its wrapper without the
-    autograd Function, as chip_smoke.py times it), on random inputs at the
-    batch."""
+    """(label, call) of K1 at its four levels, K2 at the four SA levels, K6
+    at the four FP levels (fp32 and bf16), K11 and K13 at SA0's level, K7
+    at SA0 and SA3 (K = 32; bf16 local step's widths) and K3 at r32 C64
+    (its wrapper without the autograd Function, as chip_smoke.py times it),
+    on random inputs at the batch."""
     from . import ops
     from .ops.voxel import normalize_coords
     bf = torch.bfloat16
@@ -309,7 +357,21 @@ def _split_cases(batch, randn):
     f64 = randn(batch, 2048, 64)
     fps = [(f"K1 N{n}->M{m}", functools.partial(ops.KERNELS["fps"], c, m))
            for n, m, c in fps_level_inputs(batch, randn)]
-    return fps + [
+    bqg = [(f"K2 {label}", functools.partial(ops.KERNELS["ball_query_group"],
+                                             *args))
+           for label, args in bqg_level_inputs(batch, randn)]
+    nn = [(f"K6 {name} {label}",
+           functools.partial(ops.KERNELS["three_nn_interpolate"], p, c,
+                             f.to(dt)))
+          for label, (p, c, f) in three_nn_level_inputs(batch, randn)
+          for name, dt in (("fp32", torch.float32), ("bf16", bf))]
+    k11 = [(f"K11 {label}", functools.partial(ops.KERNELS["ball_query"], c,
+                                               p, r, k))
+           for label, (p, c, _, r, k) in bqg_level_inputs(batch, randn)[:1]]
+    k13 = [(f"K13 {label}", functools.partial(
+        ops.KERNELS["ball_query_group_cf"], *args))
+        for label, args in bqg_level_inputs(batch, randn)[:1]]
+    return fps + bqg + nn + k11 + k13 + [
             ("K7 SA0 N2048 M1024 K32 C32,64", sa(2048, 1024, (32, 64), 0.1)),
             ("K7 SA3 N64 M16 K32 C128x3", sa(64, 16, (128,) * 3, 0.8)),
             ("K3 fp32 N2048 r32 C64",
@@ -366,19 +428,120 @@ def profile_split(batch: int, steps: int) -> None:
         print("[split]   in order: " + ", ".join(
             f"{e.time_range.elapsed_us() / 1e3:.4f}"
             for e in launches[-per_call:]) + " ms")
-    _split_step(batch, steps)
+    _split_step(batch, steps, bf16=True)
+    _split_step(4, steps, bf16=False)
 
 
-# the wrappers whose device time per bf16 step --split sums: K1, K4, K8, K9
-_SPLIT_STEP = ("fps", "conv3d_3x3_fused", "conv3d_pair", "pvconv_block_pair")
+def profile_plans(batch: int, steps: int, source=None) -> None:
+    """K6 (fp32) at the four FP levels on every plan (threads, lanes) and
+    K2 at the four SA levels on every plan (centers a block, threads):
+    device ms, and whether the output equals the wrapper's plan's bit for
+    bit; the wrapper's plan is starred. Then both on the wrapper's plan at
+    the top level's N and M with the output cut to 3 floats a row (C = 0:
+    the scan alone) and with the scan cut short (K6: M = 4 centers; K2: a
+    cloud of 128 points: the output alone). With `source`, the kernels of
+    that file (a patched copy of csrc/three_nn.cu or ball_query_group.cu,
+    built on its own) are timed instead of the library's; the references
+    stay the library's."""
+    from pathlib import Path
+    from .ops import _cuda
+    from .ops._cuda import ptr, stream_of
+    from .ops.interpolate import three_nn_interpolate, three_nn_plan
+    from .ops.points import _r2, ball_query_group_kernel, bqg_plan
+    lib = _cuda.build_probe(Path(source)) if source else _cuda.library()
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def device_ms(fn):
+        return sum(v[0] for v in _device_groups(fn, steps)[1].values())
+
+    def entry(name, *args):
+        fn = getattr(lib, name, None)
+        if fn is None:
+            return None
+        fn.argtypes = _cuda._SIGNATURES[name]
+        return functools.partial(fn, *args)
+
+    def row(plan, chosen, fn, out, ref):
+        fn()
+        same = torch.equal(out, ref)
+        mark = ("" if same else " DIFFERS") + (" *" if plan == chosen else "")
+        return "x".join(map(str, plan)) + f" {device_ms(fn):.4f}{mark}"
+
+    def k6(p, c, f, plan):
+        (b, n, _), (m, ch) = p.shape, f.shape[1:]
+        out = torch.empty(b, n, ch, device="cuda")
+        return out, entry("lion_three_nn_interpolate", ptr(p), ptr(c), ptr(f),
+                          ptr(out), None, None, b, n, m, ch, 0, *plan,
+                          stream_of(p))
+
+    def k2(p, c, f, r, k, plan):
+        (b, n, _), m, ch = p.shape, c.shape[1], f.shape[2]
+        out = torch.empty(b, m, k, 3 + ch, device="cuda")
+        return out, entry("lion_ball_query_group", ptr(p), ptr(c), ptr(f),
+                          ptr(out), b, n, m, ch, k, _r2(r), *plan,
+                          stream_of(p))
+
+    print(f"[setup] {torch.cuda.get_device_name(0)}, batch {batch}, "
+          f"{steps} profiled calls per plan"
+          + (f", kernels from {source}" if source else ""))
+    nn = three_nn_level_inputs(batch, randn)
+    if entry("lion_three_nn_interpolate") is not None:
+        for label, (p, c, f) in nn:
+            chosen = three_nn_plan(p.shape[0], p.shape[1])
+            ref = three_nn_interpolate(p, c, f)
+            rows = [row((threads, lanes), chosen,
+                        *k6(p, c, f, (threads, lanes))[::-1], ref)
+                    for threads in (32, 64, 128, 256)
+                    for lanes in (1, 2, 4, 8, 16, 32)]
+            print(f"[plans] K6 fp32 {label} B{batch} (threads x lanes ms): "
+                  + ", ".join(rows))
+        p, c, f = nn[0][1]
+        plan = three_nn_plan(p.shape[0], p.shape[1])
+        parts = [("full", (p, c, f)), ("C 0", (p, c, f[..., :0])),
+                 ("M 4", (p, c[:, :4].contiguous(),
+                          f[:, :4].contiguous()))]
+        print(f"[plans] K6 fp32 {nn[0][0]} B{batch} on {plan}: " + ", ".join(
+            f"{name} {device_ms(k6(*args, plan)[1]):.4f}"
+            for name, args in parts) + " ms")
+    bq = bqg_level_inputs(batch, randn)
+    if entry("lion_ball_query_group") is not None:
+        for label, (p, c, f, r, k) in bq:
+            (b, n, _), m, ch = p.shape, c.shape[1], f.shape[2]
+            cpb0, threads0, tile, _ = bqg_plan(b, n, m, ch, k)
+            ref = ball_query_group_kernel(p, c, f, r, k)
+            rows = [row((cpb, threads), (cpb0, threads0),
+                        *k2(p, c, f, r, k, (cpb, threads, tile))[::-1], ref)
+                    for cpb in (1, 2, 4, 8, 16, 32)
+                    for threads in (64, 128, 256)]
+            print(f"[plans] K2 {label} B{batch} (centers x threads ms): "
+                  + ", ".join(rows))
+        p, c, f, r, k = bq[0][1]
+        (b, n, _), m = p.shape, c.shape[1]
+        plan = bqg_plan(b, n, m, f.shape[2], k)[:3]
+        parts = [("full", (p, c, f)), ("C 0", (p, c, f[..., :0])),
+                 ("N 128", (p[:, :128].contiguous(), c,
+                            f[:, :128].contiguous()))]
+        print(f"[plans] K2 {bq[0][0]} B{batch} on {plan}: " + ", ".join(
+            f"{name} {device_ms(k2(*args, r, k, plan)[1]):.4f}"
+            for name, args in parts) + " ms")
 
 
-def _split_step(batch: int, steps: int) -> None:
-    """K1 + K4 + K8 + K9 device ms per bf16 local step at the batch."""
+# the wrappers whose device time per local step --split sums: K1, K2, K4,
+# K6, K8, K9 (K2 runs on the fp32 path, K8 and K9 on the bf16 path)
+_SPLIT_STEP = ("fps", "ball_query_group", "conv3d_3x3_fused",
+               "three_nn_interpolate", "conv3d_pair", "pvconv_block_pair")
+
+
+def _split_step(batch: int, steps: int, bf16: bool) -> None:
+    """The kernels' device ms and launches per local step at the batch, in
+    bf16 or fp32."""
     from .config import flagship_cfg
     from .models import LION
     cfg = flagship_cfg()
-    cfg.tpu.bf16 = True
+    cfg.tpu.bf16 = bf16
     lion = LION(cfg).init_params(torch.Generator().manual_seed(0)).eval()
     g = torch.Generator(device="cuda").manual_seed(0)
     z = torch.randn(batch, lion.style_dim, generator=g, device="cuda")
@@ -391,10 +554,9 @@ def _split_step(batch: int, steps: int) -> None:
             500, noise), steps)
     parts = {k: groups.get(f"K {k}", [0.0, 0]) for k in _SPLIT_STEP}
     device = sum(v[0] for v in groups.values())
-    print(f"[split] bf16 local step B{batch}: device {device:.3f} ms, "
-          f"{sum(v[1] for v in groups.values())} device ops, wall "
-          f"{wall:.3f} ms; K1 + K4 + K8 + K9 "
-          f"{sum(v[0] for v in parts.values()):.3f} ms = " + " + ".join(
+    print(f"[split] {'bf16' if bf16 else 'fp32'} local step B{batch}: device "
+          f"{device:.3f} ms, {sum(v[1] for v in groups.values())} device "
+          f"ops, wall {wall:.3f} ms; kernels " + ", ".join(
               f"{k} {v[0]:.3f} ({v[1]} ops)" for k, v in parts.items()))
 
 
@@ -535,10 +697,15 @@ def main(argv=None):
     ap.add_argument("--convs", action="store_true",
                     help="device ms of every K4 / K10 case and cuDNN's conv")
     ap.add_argument("--split", action="store_true",
-                    help="K1's, K7's and K3's device ms by launch, events "
-                    "and host time; K1 + K4 + K8 + K9 per bf16 step")
+                    help="K1's, K2's, K6's, K7's and K3's device ms by "
+                    "launch, events and host time; the kernels per step")
     ap.add_argument("--fps-clock", action="store_true",
                     help="K1's plans timed and split into phases by clock64")
+    ap.add_argument("--plans", action="store_true",
+                    help="K6's and K2's device ms on every plan at the levels")
+    ap.add_argument("--source", default=None,
+                    help="with --plans: time the kernels of this patched "
+                    "copy of a K6 or K2 source instead of the library's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -555,6 +722,9 @@ def main(argv=None):
         return
     if args.fps_clock:
         profile_fps_clock(args.batch, args.steps)
+        return
+    if args.plans:
+        profile_plans(args.batch, args.steps, args.source)
         return
 
     from .config import flagship_cfg

@@ -63,7 +63,9 @@ def test_fps_kernel(gen, b, n, m, kind):
 
 
 @pytest.mark.parametrize("n,m,k,c,r", [(128, 24, 8, 5, 0.2), (300, 50, 32, 0, 0.5),
-                                       (2048, 64, 32, 131, 0.4)])
+                                       (2048, 64, 32, 131, 0.4),
+                                       (5000, 300, 32, 16, 0.1),
+                                       (4100, 37, 13, 2, 0.3)])
 def test_ball_query_group_kernel(gen, n, m, k, c, r):
     pts = _randn(gen, 2, n, 3, scale=0.3)
     ctr = pts[:, :m].clone()
@@ -71,6 +73,55 @@ def test_ball_query_group_kernel(gen, n, m, k, c, r):
     feats = _randn(gen, 2, n, c)
     got, ref = _both("ball_query_group", pts, ctr, feats, r, k)
     assert torch.equal(got, ref)
+
+
+def _level_randn(gen):
+    return lambda *shape, scale=1.0: _randn(gen, *shape, scale=scale)
+
+
+@pytest.mark.parametrize("b", [4, 16])
+def test_ball_query_group_kernel_at_the_sa_levels(gen, b):
+    """K2 at the local step's four SA levels (profile_step's inputs): equal
+    to its plain version, repeating bit for bit, and its balls K11's: the
+    rows grouped from `ops.ball_query`'s indices are K2's rows."""
+    from lion_tpu_torch.ops.points import grouping
+    from lion_tpu_torch.profile_step import bqg_level_inputs
+    for label, (p, c, f, r, k) in bqg_level_inputs(b, _level_randn(gen)):
+        got, ref = _both("ball_query_group", p, c, f, r, k)
+        assert torch.equal(got, ref), label
+        again = ops.KERNELS["ball_query_group"](p, c, f, r, k)
+        assert torch.equal(got, again), label
+        idx = ops.ball_query(c, p, r, k)
+        rows = torch.cat([grouping(p, idx) - c[:, :, None], grouping(f, idx)],
+                         -1)
+        assert torch.equal(got, rows), label
+
+
+def _with_plan(entry, *args):
+    from lion_tpu_torch.ops._cuda import launch
+    launch(entry, *args)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cpb,threads", [(1, 32), (3, 64), (32, 256),
+                                         (8, 128), (16, 32), (2, 256)])
+def test_ball_query_group_kernel_on_other_plans(gen, cpb, threads):
+    """Any plan the kernel takes (centers a block, threads; the cloud in
+    one tile or in tiles of 256 points) gives the plain version's rows."""
+    from lion_tpu_torch.ops._cuda import ptr, stream_of
+    from lion_tpu_torch.ops.points import _r2
+    pts = _randn(gen, 2, 900, 3, scale=0.3)
+    ctr = pts[:, :77].clone()
+    ctr[:, 0] = 5.0
+    for c in (0, 5, 32):
+        f = _randn(gen, 2, 900, c)
+        ref = ops.KERNELS["ball_query_group"].plain(pts, ctr, f, 0.2, 32)
+        for tile in (256, 900):
+            out = torch.empty(2, 77, 32, 3 + c, device="cuda")
+            _with_plan("lion_ball_query_group", ptr(pts), ptr(ctr), ptr(f),
+                       ptr(out), 2, 900, 77, c, 32, _r2(0.2), cpb, threads,
+                       tile, stream_of(pts))
+            assert torch.equal(out, ref)
 
 
 def _ordered_mean(feats, vox, r):
@@ -228,7 +279,8 @@ def test_voxelize_kernels_bf16(gen, r, c):
 
 
 @pytest.mark.parametrize("n,m,c", [(200, 64, 7), (50, 2, 4),
-                                   (2048, 1024, 192)])
+                                   (2048, 1024, 192), (300, 100, 12),
+                                   (77, 33, 100), (64, 3, 1)])
 def test_three_nn_kernel_bf16(gen, n, m, c):
     p = _randn(gen, 2, n, 3, scale=0.3)
     ctr = _randn(gen, 2, m, 3, scale=0.3)
@@ -507,6 +559,50 @@ def test_ball_query_kernel(gen, n, m, k, r):
     got, ref = _both("ball_query", ctr, pts, r, k)
     assert got.dtype == torch.int32 and torch.equal(got, ref)
     assert (got[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("b", [4, 16])
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_three_nn_kernel_at_the_fp_levels(gen, b, dt):
+    """K6 at the local step's four FP levels (profile_step's inputs), with
+    and without (idx, w): equal to its plain version, repeating bit for
+    bit."""
+    from lion_tpu_torch.profile_step import three_nn_level_inputs
+    for label, (p, c, f) in three_nn_level_inputs(b, _level_randn(gen)):
+        f = f.to(dt)
+        got, ref = _both("three_nn_interpolate", p, c, f)
+        assert got.dtype == dt and torch.equal(got, ref), label
+        again = ops.KERNELS["three_nn_interpolate"](p, c, f)
+        assert torch.equal(again, got), label
+        gw, rw = _both("three_nn_interpolate", p, c, f, with_weights=True)
+        assert torch.equal(gw[0], got), label
+        for a, r in zip(gw, rw):
+            assert a.dtype == r.dtype and torch.equal(a, r), label
+
+
+@pytest.mark.parametrize("threads,lanes", [(32, 1), (32, 32), (64, 8),
+                                           (128, 2), (256, 16), (256, 4)])
+@pytest.mark.parametrize("m", [700, 1100])
+def test_three_nn_kernel_on_other_plans(gen, threads, lanes, m):
+    """Any plan the kernel takes (threads, lanes a point), with the centers
+    in one tile or two, gives the plain version's output, indices and
+    weights, on the chunked and the generic output paths, fp32 and bf16."""
+    from lion_tpu_torch.ops._cuda import ptr, stream_of
+    p = _randn(gen, 2, 333, 3, scale=0.3)
+    ctr = _randn(gen, 2, m, 3, scale=0.3)
+    for c, dt in ((192, torch.float32), (7, torch.float32), (192, BF16),
+                  (12, BF16)):
+        f = _randn(gen, 2, m, c).to(dt)
+        out = torch.empty(2, 333, c, device="cuda", dtype=dt)
+        idx = torch.empty(2, 333, 3, device="cuda", dtype=torch.int32)
+        w = torch.empty(2, 333, 3, device="cuda")
+        _with_plan("lion_three_nn_interpolate", ptr(p), ptr(ctr), ptr(f),
+                   ptr(out), ptr(idx), ptr(w), 2, 333, m, c,
+                   int(dt == BF16), threads, lanes, stream_of(p))
+        ref = ops.KERNELS["three_nn_interpolate"].plain(p, ctr, f,
+                                                        with_weights=True)
+        for a, r in zip((out, idx, w), ref):
+            assert torch.equal(a, r)
 
 
 def test_three_nn_kernel_weights_output(gen):
