@@ -13,13 +13,17 @@ non-zero:
      conv beside it (bf16 in channels-last, fp32 with TF32 off); K8 beside
      two cuDNN convs;
      K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
-     2048-point clouds, N != M both ways and a permuted copy; K13's
+     2048-point clouds (repeating bit for bit), N != M both ways and a
+     permuted copy; K13's
      backward against K2's backward of the permuted gradient; K1 at the
      local step's four levels (N 2048 -> 1024 -> 256 -> 64 -> 16), K2 at
      its four SA levels and K6 at its four FP levels (fp32 and bf16, with
      its indices and weights) on those clouds, exact, repeating bit for
      bit, with K2's balls equal to K11's, and their times per level
-     (`ms_levels`); K3 (fp32, bf16), K4 (every case above), K7 (SA0, SA3),
+     (`ms_levels`); K5 at the local step's devoxelizing levels in fp32
+     and bf16, with and without its affine epilogue, exact, repeating bit
+     for bit, with its times per level; K3 (fp32, bf16), K4 (every case
+     above), K7 (SA0, SA3),
      K8 and K9 run twice and must repeat bit for bit, and K3 must equal the
      float32 sum in point order over the count.
   4. forward parity: one full-width local-prior forward (batch 2) on the
@@ -518,6 +522,27 @@ def check_three_nn_levels(b, randn):
     return ms
 
 
+def check_devox_levels(b, randn):
+    """K5 at the local step's devoxelizing levels in fp32 and bf16, with and
+    without the affine epilogue: exact against the plain version, repeating
+    bit for bit; the time per level."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.profile_step import devox_level_inputs
+    k5 = ops.KERNELS["trilinear_devoxelize"]
+    ms = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, args, affine in devox_level_inputs(b, randn, dt):
+            for tag, extra in (("", ()), (" affine", affine)):
+                got = _bit_equal(f"trilinear_devoxelize B{b} {name} {label}"
+                                 f"{tag}", lambda e=extra: k5(*args, *e))
+                _exact(got, k5.plain(*args, *extra))
+                ms[f"{label} {name}{tag}"] = cuda_time_ms(
+                    lambda e=extra: k5(*args, *e), 20)
+    log(f"[kernels] trilinear_devoxelize per level B{b} (exact): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return ms
+
+
 def phase_kernels():
     import torch.nn.functional as F
     from lion_tpu_torch import ops
@@ -551,6 +576,7 @@ def phase_kernels():
     cells = ((vox32[..., 0] * 32 + vox32[..., 1]) * 32 + vox32[..., 2]).long()
     cells = cells[:, :, None].expand(-1, -1, 64)
     grid64 = randn(b, 32, 32, 32, 64)
+    affine64 = (1.0 + randn(b, 64, scale=0.2), randn(b, 64, scale=0.2))
     # grid_sample reads (x, y, z) as (W, H, D) in [-1, 1]: the port's grid
     # is indexed (ix, iy, iz) = (D, H, W)
     gs_grid = (nc32 / 31 * 2 - 1).flip(-1).reshape(b, 1, 1, 2048, 3)
@@ -607,6 +633,12 @@ def phase_kernels():
         KernelCheck("trilinear_devoxelize", "bf16 B16 N2048 r32 C64",
                     (randn(b, 32, 32, 32, 64).to(bf), nc32, 32), {}, _exact,
                     20, 5),
+        # with the per-(item, channel) affine of PVConv's eval flow
+        KernelCheck("trilinear_devoxelize", "affine B16 N2048 r32 C64",
+                    (grid64, nc32, 32, *affine64), {}, _exact, 20, 5),
+        KernelCheck("trilinear_devoxelize", "affine bf16 B16 N2048 r32 C64",
+                    (grid64.to(bf), nc32, 32, *affine64), {}, _exact, 20,
+                    5),
         # K4 at the main paths' shapes (the bf16 path's twelve K4 calls
         # per local step and the fp32 path's widest ones; the first is the
         # report's)
@@ -717,11 +749,15 @@ def phase_kernels():
             f"{own.tolist()} (limit 1e-3)")
         if not float(own.max()) < 1e-3:
             raise AssertionError(f"EMD of a permuted copy: {own.tolist()}")
+        _bit_equal("emd_cost 16 x 33 pairs N2048 M2048",
+                   lambda: ops.emd_cost(*emd_block))
         check_cf_backward(cloud, centers, f32c, randn(b, 32, 35, 1024))
         results["fps"]["ms_levels"] = check_fps_levels(b, randn)
         results["ball_query_group"]["ms_levels"] = check_bqg_levels(b, randn)
         results["three_nn_interpolate"]["ms_levels"] = \
             check_three_nn_levels(b, randn)
+        results["trilinear_devoxelize"]["ms_levels"] = \
+            check_devox_levels(b, randn)
         check_repeats(vox32, f64, sa0, sa3, checks)
     return results
 

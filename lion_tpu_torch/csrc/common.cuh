@@ -57,15 +57,16 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
                    __fmul_rn(az, bz));
 }
 
-// Trilinear interpolation at continuous voxel coords p[0..2] in [0, r-1] of
-// the values load(cell), cell = (x * r + y) * r + z: lo = floor(p),
-// frac = p - lo, hi = lo + (frac > 0), so the hi corner collapses onto lo when
-// frac is exactly 0 and no index leaves the grid. The corners are summed in
-// the order (dx, dy, dz) = (0,0,0), (0,0,1), ..., (1,1,1), each weight
-// (wx * wy) * wz rounded to the precision of T, unfused in float32.
-template <typename T, class Load>
-__device__ __forceinline__ float trilinear(const float* p, int r,
-                                           const Load& load) {
+// The 8 trilinear corners of continuous voxel coords p[0..2] in [0, r-1]:
+// flat cells (x * r + y) * r + z and weights, in the order (dx, dy, dz) =
+// (0,0,0), (0,0,1), ..., (1,1,1). lo = floor(p), frac = p - lo,
+// hi = lo + (frac > 0), so the hi corner collapses onto lo when frac is
+// exactly 0 and no index leaves the grid; each weight (wx * wy) * wz is
+// rounded to the precision of T, unfused in float32.
+template <typename T>
+__device__ __forceinline__ void trilinear_corners(const float* p, int r,
+                                                  size_t (&cell)[8],
+                                                  float (&w)[8]) {
   int lo[3], hi[3];
   float w1[3], w0[3];
 #pragma unroll
@@ -78,23 +79,28 @@ __device__ __forceinline__ float trilinear(const float* p, int r,
     w1[a] = f;
     w0[a] = __fsub_rn(1.0f, f);
   }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    w[k] = round_to<T>(
+        __fmul_rn(__fmul_rn(dx ? w1[0] : w0[0], dy ? w1[1] : w0[1]),
+                  dz ? w1[2] : w0[2]));
+    cell[k] = (static_cast<size_t>(dx ? hi[0] : lo[0]) * r +
+               (dy ? hi[1] : lo[1])) * r + (dz ? hi[2] : lo[2]);
+  }
+}
+
+// Trilinear interpolation of the values load(cell) at p (trilinear_corners):
+// the 8 products summed in the corners' order, unfused in float32.
+template <typename T, class Load>
+__device__ __forceinline__ float trilinear(const float* p, int r,
+                                           const Load& load) {
+  size_t cell[8];
+  float w[8];
+  trilinear_corners<T>(p, r, cell, w);
   float acc = 0.0f;
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const float w = round_to<T>(
-            __fmul_rn(__fmul_rn(dx ? w1[0] : w0[0], dy ? w1[1] : w0[1]),
-                      dz ? w1[2] : w0[2]));
-        const size_t cell =
-            (static_cast<size_t>(dx ? hi[0] : lo[0]) * r +
-             (dy ? hi[1] : lo[1])) * r + (dz ? hi[2] : lo[2]);
-        acc = __fadd_rn(acc, __fmul_rn(load(cell), w));
-      }
-    }
-  }
+  for (int k = 0; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(load(cell[k]), w[k]));
   return acc;
 }
 

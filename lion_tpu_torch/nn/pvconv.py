@@ -24,7 +24,8 @@ Then the second norm and the SE gate (its pooled input is the grid mean,
 known from the stats) fold into a per-channel affine. The norm after the
 last conv commutes with devoxelization (the trilinear weights sum to 1 and
 the affine is per-channel), so it is applied to the (B, N, C) points
-instead of the (B, R^3, C) grid. Then the per-point SharedMLP branch is
+instead of the (B, R^3, C) grid: in K5's epilogue, before its one rounding
+to the compute dtype, or after K9. Then the per-point SharedMLP branch is
 added and the optional LinearAttention applied.
 """
 from __future__ import annotations
@@ -102,6 +103,8 @@ class PVConv(nn.Module):
                 features.to(dt).contiguous(),
                 torch.round(norm_coords).to(torch.int32), norm_coords, w0,
                 b0, ca0, cb0, w1, r)
+            sc1, bi1 = self._out_affine(style, st1, count)
+            fused = (pts.float() * sc1[:, None, :] + bi1[:, None, :]).to(dt)
         else:
             grid, norm_coords = voxelize(features, xyz, r)
             grid = grid.to(dt)
@@ -112,14 +115,19 @@ class PVConv(nn.Module):
                 sc0, bi0 = self.vnorm0.fold(style, st0, count, conv_bias=b0)
                 y1, st1, _ = self.vconv1(y0, in_affine=(sc0, bi0),
                                          pre_swish=True)
-            pts = trilinear_devoxelize(y1, norm_coords.contiguous(), r)
+            # the affine in K5's epilogue, before its one rounding
+            fused = trilinear_devoxelize(y1, norm_coords.contiguous(), r,
+                                         *self._out_affine(style, st1, count))
+        return self._point_branch(fused, features, style)
+
+    def _out_affine(self, style, st1, count):
+        """The second norm and the SE gate folded into one per-(item,
+        channel) affine (B, C) f32; the gate's pooled input is the grid mean
+        of the normed output, known from the statistics."""
         sc1, bi1 = self.vnorm1.fold(style, st1, count,
                                     conv_bias=self.vconv1.bias)
-        # SE gate from the grid mean of the normed output, known from stats
         gate = self.se.gate(sc1 * (st1[:, 0, :] / count) + bi1)
-        sc1, bi1 = sc1 * gate, bi1 * gate
-        fused = (pts.float() * sc1[:, None, :] + bi1[:, None, :]).to(dt)
-        return self._point_branch(fused, features, style)
+        return sc1 * gate, bi1 * gate
 
     def _point_branch(self, fused, features, style):
         fused = fused + self.point_features(features, style)

@@ -52,7 +52,8 @@ _SIGNATURES = {
     "lion_pvconv_block_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _P),
     "lion_sa_fused": (_P,) * 9 + (_I,) + (_P,) * 5 + (_I,) * 9 + (_F, _P),
-    "lion_trilinear_devoxelize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lion_trilinear_devoxelize": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _P),
     "lion_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P),
 }

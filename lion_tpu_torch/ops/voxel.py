@@ -7,7 +7,8 @@ Kernels here:
      as a stable cell order of the points (one block per item) and one
      write per output element; bit-reproducible, no zero fill.
   K5 `trilinear_devoxelize` (csrc/devoxelize.cu): 8-corner trilinear
-     gather.
+     gather, a lane group a point (`devox_plan`), with an optional
+     per-(item, channel) affine in its epilogue.
 Both take float32 or bfloat16 features and emit their dtype. K3 sums in
 float32 and rounds the mean once (lion_tpu/ops/voxel.py:61,92); K5 rounds
 each corner weight to the grid's dtype, as the JAX form casts its weights
@@ -20,6 +21,8 @@ of g / count per point, devoxelize's a scatter-add of the 8 weighted
 corners into the grid's gradient.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -178,7 +181,8 @@ def _corners(norm_coords: torch.Tensor, r: int, dtype: torch.dtype):
 
 
 def _trilinear_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
-                                resolution: int) -> torch.Tensor:
+                                resolution: int, scale=None,
+                                bias=None) -> torch.Tensor:
     r = resolution
     b, c = grid.shape[0], grid.shape[-1]
     flat_grid = grid.reshape(b, r ** 3, c)
@@ -186,24 +190,57 @@ def _trilinear_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
     for idx, w in _corners(norm_coords, r, grid.dtype):
         corner = torch.gather(flat_grid, 1, idx[:, :, None].expand(-1, -1, c))
         out = out + corner.float() * w[:, :, None]
+    if scale is not None:
+        out = out * scale[:, None, :] + bias[:, None, :]
     return out.to(grid.dtype)
+
+
+# K5's plan limits (csrc/devoxelize.cu kMaxThreads; a warp; the H100's SMs)
+DEVOX_MAX_THREADS, DEVOX_MAX_LANES, DEVOX_MIN_BLOCKS = 256, 32, 132
+
+
+@functools.lru_cache(maxsize=None)
+def devox_plan(b: int, n: int, c: int, elem: int):
+    """(threads a block, lanes a point) of K5 for B clouds of N points with
+    C channels of `elem` bytes. A lane sums 16 bytes of channels a step
+    (one channel when C * elem is not a multiple of 16); a point takes the
+    fewest lanes (a power of two, at most a warp) that cover its row in one
+    step, then the most threads (a power of two from 32 to
+    DEVOX_MAX_THREADS) whose blocks still number DEVOX_MIN_BLOCKS."""
+    vec = 16 // elem if c * elem % 16 == 0 else 1
+    lanes = 1
+    while lanes < DEVOX_MAX_LANES and lanes * vec < c:
+        lanes *= 2
+    threads = DEVOX_MAX_THREADS
+    while threads > 32 and -(-b * n * lanes // threads) < DEVOX_MIN_BLOCKS:
+        threads //= 2
+    return threads, lanes
 
 
 @kernel("trilinear_devoxelize", _trilinear_devoxelize_plain,
         "lion_tpu_torch/csrc/devoxelize.cu",
         "lion_tpu/ops/pallas/devox.py:117")
 def trilinear_devoxelize_kernel(grid: torch.Tensor, norm_coords: torch.Tensor,
-                         resolution: int) -> torch.Tensor:
+                                resolution: int, scale=None,
+                                bias=None) -> torch.Tensor:
     """grid (B, R, R, R, C) f32 or bf16, norm_coords (B, N, 3) f32 ->
-    (B, N, C) of the grid's dtype."""
+    (B, N, C) of the grid's dtype. With `scale` and `bias` (B, C) f32 the
+    float32 sum becomes sum * scale + bias before its one rounding."""
     dt = check_float(grid, "trilinear_devoxelize")
     check_cuda(grid, dtype=dt)
-    check_cuda(norm_coords)
+    check_cuda(norm_coords, scale, bias, device=grid.device)
     b, c = grid.shape[0], grid.shape[-1]
     n = norm_coords.shape[1]
+    if (scale is None) != (bias is None) or scale is not None and not (
+            scale.shape == bias.shape == (b, c)):
+        raise ValueError(f"trilinear_devoxelize: scale and bias must both "
+                         f"be (B, C) = {(b, c)} or both be absent")
     out = torch.empty((b, n, c), device=grid.device, dtype=dt)
-    launch("lion_trilinear_devoxelize", ptr(grid), ptr(norm_coords), ptr(out),
-           b, n, c, resolution, int(dt == torch.bfloat16), stream_of(grid))
+    threads, lanes = devox_plan(b, n, c, grid.element_size())
+    launch("lion_trilinear_devoxelize", ptr(grid), ptr(norm_coords),
+           ptr(scale), ptr(bias), ptr(out), b, n, c, resolution,
+           int(dt == torch.bfloat16), threads, lanes.bit_length() - 1,
+           stream_of(grid))
     return out
 
 
@@ -229,7 +266,15 @@ class _TrilinearDevoxelize(torch.autograd.Function):
 
 
 def trilinear_devoxelize(grid: torch.Tensor, norm_coords: torch.Tensor,
-                         resolution: int) -> torch.Tensor:
+                         resolution: int, scale=None,
+                         bias=None) -> torch.Tensor:
     """grid (B, R, R, R, C), norm_coords (B, N, 3) -> (B, N, C), with a
-    gradient to the grid."""
-    return _TrilinearDevoxelize.apply(grid, norm_coords, resolution)
+    gradient to the grid. With `scale` and `bias` (B, C) f32, the per-(item,
+    channel) affine sum * scale + bias applied before the one rounding to
+    the grid's dtype, and no gradient (PVConv's eval flow, whose convs have
+    none either)."""
+    if scale is None and bias is None:
+        return _TrilinearDevoxelize.apply(grid, norm_coords, resolution)
+    with torch.no_grad():
+        return trilinear_devoxelize_kernel(grid, norm_coords, resolution,
+                                           scale, bias)

@@ -4,7 +4,9 @@ two-prior training step, on one GPU.
     python -m lion_tpu_torch.profile_step [--batch 4] [--steps 5] [--bf16]
     python -m lion_tpu_torch.profile_step --train [--batch 16] [--steps 3]
     python -m lion_tpu_torch.profile_step --convs [--batch 16]
-    python -m lion_tpu_torch.profile_step --split [--batch 16]
+    python -m lion_tpu_torch.profile_step --split [--batch 16] [--only K5,K12]
+    python -m lion_tpu_torch.profile_step --given-noise PATH
+    python -m lion_tpu_torch.profile_step --emd [X.cu ...]
     python -m lion_tpu_torch.profile_step --fps-clock [--batch 16]
     python -m lion_tpu_torch.profile_step --plans [--batch 16] [--source X.cu]
 
@@ -36,12 +38,26 @@ With --split it prints, for K1 (`fps`) at the local step's four levels
 fp32 and bf16) at its four FP levels on those clouds, for K11
 (`ball_query`) and K13 (`ball_query_group_cf`) at SA0's, for K7 (`sa_fused`)
 at the bf16 local step's SA0 and SA3 shapes and for K3 (`avg_voxelize`) at
-r32 C64 in fp32 and bf16, the device ms per call of every CUDA kernel and
-memset the call runs, by name, beside the call's CUDA-event ms and the
-host ms the wrapper takes to enqueue it. Then it profiles the bf16 local
-step at the batch and the fp32 local step at batch 4 (the two sampling
-paths) and prints the device ms and launches per step of K1, K2, K4, K6,
-K8 and K9, beside the step's device ms and device ops.
+r32 C64 in fp32 and bf16, for K5 (`trilinear_devoxelize`) at the local
+step's devoxelizing levels in fp32 and bf16 (alone, followed by the
+per-(item, channel) affine as a separate op, and with the affine in its
+epilogue) and for K12 (`emd_cost`) on one 16 x 33 block of 2048-point
+pairs, the device ms per call of every CUDA kernel and memset the call
+runs, by name, beside the call's CUDA-event ms and the host ms the
+wrapper takes to enqueue it (`--only` keeps the cases whose labels start
+with the given prefixes). Then it profiles the bf16 local step at the
+batch and the fp32 local step at batch 4 (the two sampling paths) and
+prints the device ms and launches per step of K1, K2, K4, K5, K6, K8, K9
+and the elementwise ops, beside the step's device ms and device ops.
+
+With --given-noise PATH it samples 10 steps under `given_noise` on both
+paths (chip_smoke.py phase 4's weights and noise) and writes the outputs
+to PATH, or compares them bit for bit with those of an earlier run.
+
+With --emd it times K12 on one 16 x 33 block of 2048-point pairs, and
+each patched copy of csrc/emd.cu named after it (built on its own; its
+includes resolve against csrc/), with each copy's costs against the
+library's and their repeat.
 
 With --fps-clock it builds the K1 probe (csrc/probe/fps_probe.cu) and, at
 each of the four levels, runs K1's kernel on every plan of whole warps
@@ -286,6 +302,31 @@ def profile_pair(batch, device_ms, randn) -> None:
 FPS_LEVELS = ((2048, 1024), (1024, 256), (256, 64), (64, 16))
 
 
+# one block of the evaluation's EMD matrix (eval/metrics.py EMD_BLOCK)
+EMD_PAIRS = (16, 33)
+# (r, C, N) at which the local step's PVConvs devoxelize (K5): SA0-SA2's
+# convs at N 2048, 1024, 256 and FP3-FP0's at 2048, 1024, 256, 64
+# (models/priors.py); the bf16 step runs K9 in place of K5 at r8 C128
+# where C_in == C_out
+DEVOX_LEVELS = ((32, 32, 2048), (32, 64, 2048), (16, 64, 1024),
+                (16, 128, 1024), (8, 128, 256), (8, 128, 64))
+
+
+def devox_level_inputs(batch, randn, dtype):
+    """[(label, (grid, norm_coords, r), (scale, bias))] of K5 at the
+    DEVOX_LEVELS: a random grid of `dtype`, the normalized coordinates of
+    a random cloud, and a per-(item, channel) affine."""
+    from .ops.voxel import normalize_coords
+    out = []
+    for r, c, n in DEVOX_LEVELS:
+        nc = normalize_coords(randn(batch, n, 3, scale=0.3), r).contiguous()
+        out.append((f"r{r} C{c} N{n}",
+                    (randn(batch, r, r, r, c).to(dtype), nc, r),
+                    (1.0 + randn(batch, c, scale=0.2),
+                     randn(batch, c, scale=0.2))))
+    return out
+
+
 def fps_level_inputs(batch, randn):
     """[(N, M, cloud)] of the four levels: a random cloud of 2048 points,
     then each level's cloud is the previous level's picks (the plain
@@ -337,6 +378,7 @@ def _split_cases(batch, randn):
     (its wrapper without the autograd Function, as chip_smoke.py times it),
     on random inputs at the batch."""
     from . import ops
+    from .eval.metrics import block_pairs
     from .ops.voxel import normalize_coords
     bf = torch.bfloat16
 
@@ -378,10 +420,39 @@ def _split_cases(batch, randn):
              functools.partial(ops.KERNELS["avg_voxelize"], f64, vox, 32)),
             ("K3 bf16 N2048 r32 C64",
              functools.partial(ops.KERNELS["avg_voxelize"], f64.to(bf), vox,
-                               32))]
+                               32))] + _devox_cases(batch, randn) + [
+            (f"K12 {EMD_PAIRS[0]} x {EMD_PAIRS[1]} pairs N2048 M2048",
+             functools.partial(ops.emd_cost, randn(EMD_PAIRS[0], 2048, 3,
+                                                   scale=0.3),
+                               randn(EMD_PAIRS[1], 2048, 3, scale=0.3),
+                               block_pairs(0, 0, *EMD_PAIRS, "cuda")))]
 
 
-def profile_split(batch: int, steps: int) -> None:
+def _devox_cases(batch, randn):
+    """(label, call) of K5 at the DEVOX_LEVELS in fp32 and bf16: alone, then
+    followed by the per-(item, channel) affine as PVConv applied it before
+    K5 took it (`pts.float() * scale + bias`, cast to the dtype), then with
+    the affine in its epilogue where the wrapper takes one (`--split` also
+    reads a checkout of an older tree)."""
+    import inspect
+
+    from . import ops
+    k5 = ops.KERNELS["trilinear_devoxelize"]
+    epilogue = "scale" in inspect.signature(k5).parameters
+    cases = []
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, args, (sc, bi) in devox_level_inputs(batch, randn, dt):
+            def then_affine(args=args, sc=sc, bi=bi, dt=dt):
+                return (k5(*args).float() * sc[:, None] + bi[:, None]).to(dt)
+            cases += [(f"K5 {name} {label}", functools.partial(k5, *args)),
+                      (f"K5 + affine {name} {label}", then_affine)]
+            if epilogue:
+                cases.append((f"K5 epilogue {name} {label}",
+                              functools.partial(k5, *args, sc, bi)))
+    return cases
+
+
+def profile_split(batch: int, steps: int, only=None) -> None:
     import time
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -391,6 +462,8 @@ def profile_split(batch: int, steps: int) -> None:
     print(f"[setup] {torch.cuda.get_device_name(0)}, batch {batch}, bf16 K7, "
           f"{steps} profiled calls per case")
     for label, fn in _split_cases(batch, randn):
+        if only and not label.startswith(tuple(only)):
+            continue
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -530,9 +603,10 @@ def profile_plans(batch: int, steps: int, source=None) -> None:
 
 
 # the wrappers whose device time per local step --split sums: K1, K2, K4,
-# K6, K8, K9 (K2 runs on the fp32 path, K8 and K9 on the bf16 path)
+# K5, K6, K8, K9 (K2 runs on the fp32 path, K8 and K9 on the bf16 path)
 _SPLIT_STEP = ("fps", "ball_query_group", "conv3d_3x3_fused",
-               "three_nn_interpolate", "conv3d_pair", "pvconv_block_pair")
+               "trilinear_devoxelize", "three_nn_interpolate", "conv3d_pair",
+               "pvconv_block_pair")
 
 
 def _split_step(batch: int, steps: int, bf16: bool) -> None:
@@ -553,6 +627,7 @@ def _split_step(batch: int, steps: int, bf16: bool) -> None:
             lambda xx, t: lion.local_prior(xx, t, condition_input=z), x,
             500, noise), steps)
     parts = {k: groups.get(f"K {k}", [0.0, 0]) for k in _SPLIT_STEP}
+    parts["torch elementwise"] = groups.get("torch elementwise", [0.0, 0])
     device = sum(v[0] for v in groups.values())
     print(f"[split] {'bf16' if bf16 else 'fp32'} local step B{batch}: device "
           f"{device:.3f} ms, {sum(v[1] for v in groups.values())} device "
@@ -675,6 +750,96 @@ def profile_fps_clock(batch: int, steps: int) -> None:
               + ", ".join(line))
 
 
+def given_noise_samples(path: str) -> None:
+    """A 10-step `LION.sample` under `given_noise` on the fp32 path (batch
+    4) and the bf16 path (batch 16), with the weights and noise of
+    chip_smoke.py phase 4; writes the outputs to `path` or, when it
+    exists, compares them with its contents bit for bit (a run of another
+    tree writes it)."""
+    import os
+
+    import numpy as np
+
+    from .config import flagship_cfg
+    from .models import LION
+    outs = {}
+    for bf16, batch in ((False, 4), (True, 16)):
+        cfg = flagship_cfg()
+        cfg.tpu.bf16 = bf16
+        cfg.ddpm.num_steps = 10
+        lion = LION(cfg).init_params(torch.Generator().manual_seed(3))
+        rs = np.random.RandomState(12)
+        noise = tuple(
+            (torch.from_numpy(rs.randn(batch, d).astype(np.float32)).cuda(),
+             torch.from_numpy(rs.randn(10, batch, d).astype(np.float32))
+             .cuda())
+            for d in (lion.style_dim, lion.local_dim))
+        out = lion.sample(batch, given_noise=noise)
+        for k in ("z_global", "z_local", "points"):
+            outs[f"{'bf16' if bf16 else 'fp32'} {k}"] = out[k].cpu()
+    if not os.path.exists(path):
+        torch.save(outs, path)
+        print(f"[given-noise] wrote {sorted(outs)} to {path}")
+        return
+    ref = torch.load(path)
+    for k, v in outs.items():
+        diff = float((v.double() - ref[k].double()).abs().max())
+        print(f"[given-noise] {k} {tuple(v.shape)}: bit-equal "
+              f"{torch.equal(v, ref[k])}, max |diff| {diff:.3e}, "
+              f"max |value| {float(ref[k].abs().max()):.3e}")
+
+
+def profile_emd(steps: int, sources) -> None:
+    """K12 on one 16 x 33 block of 2048-point pairs: CUDA-event ms a call
+    and a pair of the library's kernel and of each patched copy of
+    csrc/emd.cu in `sources` (built on its own, like the K1 probe), each
+    copy's costs against the library's (the gate, rtol 2e-3) and whether
+    they repeat bit for bit."""
+    import ctypes
+    from pathlib import Path
+
+    from . import ops
+    from .eval.metrics import block_pairs
+    from .ops import _cuda
+    g = torch.Generator(device="cuda").manual_seed(0)
+    s_n, r_n = EMD_PAIRS
+    a = torch.randn(s_n, 2048, 3, generator=g, device="cuda") * 0.3
+    b = torch.randn(r_n, 2048, 3, generator=g, device="cuda") * 0.3
+    pairs = block_pairs(0, 0, s_n, r_n, "cuda")
+    ref = ops.emd_cost(a, b, pairs)
+    print(f"[emd] {torch.cuda.get_device_name(0)}, {pairs.shape[0]} pairs "
+          f"N2048 M2048, {steps} timed calls")
+    for name, lib in [("library", _cuda.library())] + [
+            (src, _cuda.build_probe(Path(src))) for src in sources]:
+        fn = lib.lion_emd_cost
+        fn.argtypes = _cuda._SIGNATURES["lion_emd_cost"]
+        fn.restype = ctypes.c_int
+        outs = [torch.empty_like(ref) for _ in range(2)]
+
+        def run(out):
+            err = fn(a.data_ptr(), b.data_ptr(), pairs.data_ptr(),
+                     out.data_ptr(), pairs.shape[0], s_n, r_n, 2048, 2048,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        run(outs[0])
+        run(outs[1])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            run(outs[1])
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / steps
+        rel = float(((outs[0] - ref).abs() / ref.abs()).max())
+        print(f"[emd] {name}: {ms:.4f} ms a call, {ms / pairs.shape[0]:.5f} "
+              f"ms a pair; max relative difference from the library "
+              f"{rel:.3e}; repeats bit for bit "
+              f"{torch.equal(outs[0], outs[1])}")
+
+
 def profile_steps(step, steps: int, label: str) -> None:
     wall, groups = _device_groups(step, steps)
     busy = sum(v[0] for v in groups.values())
@@ -697,8 +862,18 @@ def main(argv=None):
     ap.add_argument("--convs", action="store_true",
                     help="device ms of every K4 / K10 case and cuDNN's conv")
     ap.add_argument("--split", action="store_true",
-                    help="K1's, K2's, K6's, K7's and K3's device ms by "
-                    "launch, events and host time; the kernels per step")
+                    help="K1's, K2's, K6's, K7's, K3's, K5's and K12's device "
+                    "ms by launch, events and host time; the kernels per "
+                    "step")
+    ap.add_argument("--only", default=None,
+                    help="with --split: the cases whose labels start with "
+                    "one of these comma-separated prefixes (e.g. 'K5,K12')")
+    ap.add_argument("--given-noise", metavar="PATH", default=None,
+                    help="write the 10-step given_noise samples of both "
+                    "paths to PATH, or compare them with it bit for bit")
+    ap.add_argument("--emd", nargs="*", metavar="X.cu", default=None,
+                    help="K12's ms a pair on one 16 x 33 block, and that of "
+                    "each patched copy of csrc/emd.cu given")
     ap.add_argument("--fps-clock", action="store_true",
                     help="K1's plans timed and split into phases by clock64")
     ap.add_argument("--plans", action="store_true",
@@ -718,7 +893,14 @@ def main(argv=None):
         profile_convs(args.batch, args.steps)
         return
     if args.split:
-        profile_split(args.batch, args.steps)
+        profile_split(args.batch, args.steps,
+                      args.only.split(",") if args.only else None)
+        return
+    if args.given_noise:
+        given_noise_samples(args.given_noise)
+        return
+    if args.emd is not None:
+        profile_emd(args.steps, args.emd)
         return
     if args.fps_clock:
         profile_fps_clock(args.batch, args.steps)

@@ -682,6 +682,56 @@ def test_training_ops_backward_on_card_matches_cpu(gen):
         assert w_.launches > 0 and w_.launches == w_.plain_calls, name
 
 
+# ----------------------------------------------------------- K5 redesign
+@pytest.mark.parametrize("b", [4, 16])
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_devoxelize_kernel_at_the_levels(gen, b, dt):
+    """K5 at the local step's levels (profile_step's inputs), with and
+    without the affine epilogue: equal to its plain version bit for bit,
+    repeating bit for bit; in fp32 the epilogue equals K5 followed by the
+    affine, as PVConv computed it before the epilogue."""
+    from lion_tpu_torch.profile_step import devox_level_inputs
+    for label, args, (sc, bi) in devox_level_inputs(b, _level_randn(gen),
+                                                     dt):
+        got, ref = _both("trilinear_devoxelize", *args)
+        assert got.dtype == dt and torch.equal(got, ref), label
+        fused, fref = _both("trilinear_devoxelize", *args, sc, bi)
+        assert fused.dtype == dt and torch.equal(fused, fref), label
+        for out, extra in ((got, ()), (fused, (sc, bi))):
+            again = ops.KERNELS["trilinear_devoxelize"](*args, *extra)
+            assert torch.equal(again, out), label
+        if dt == torch.float32:
+            assert torch.equal(fused, got * sc[:, None] + bi[:, None]), label
+
+
+@pytest.mark.parametrize("c", [3, 5, 33, 8, 192])
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_devoxelize_kernel_other_widths(gen, c, dt):
+    """Rows off 16 bytes (one channel a lane), rows wider than a warp's
+    chunks, and coordinates on the grid's cells and faces (frac == 0, the
+    hi corner collapsing onto lo), with and without the epilogue."""
+    r, n = 8, 777
+    nc = voxel.normalize_coords(_randn(gen, 3, n, 3, scale=0.3),
+                                r).contiguous()
+    nc[:, :50] = torch.floor(nc[:, :50])
+    nc[:, 50:60, 0] = float(r - 1)
+    grid = _randn(gen, 3, r, r, r, c).to(dt)
+    sc, bi = 1.0 + _randn(gen, 3, c, scale=0.2), _randn(gen, 3, c, scale=0.2)
+    for extra in ((), (sc, bi)):
+        got, ref = _both("trilinear_devoxelize", grid, nc, r, *extra)
+        assert got.dtype == dt and torch.equal(got, ref)
+
+
+def test_devoxelize_kernel_refuses_a_half_affine(gen):
+    grid = _randn(gen, 2, 4, 4, 4, 8)
+    nc = torch.full((2, 10, 3), 1.5, device="cuda")
+    sc = _randn(gen, 2, 8)
+    with pytest.raises(ValueError, match="scale and bias"):
+        ops.KERNELS["trilinear_devoxelize"](grid, nc, 4, sc, None)
+    with pytest.raises(ValueError, match="scale and bias"):
+        ops.KERNELS["trilinear_devoxelize"](grid, nc, 4, sc[:1], sc[:1])
+
+
 # ------------------------------------------------------- evaluation slice
 # K12 against its plain version: the JAX package's gate between its EMD
 # kernel and its XLA form (tests/test_ops.py:291); exp(level * d2) at |level|
@@ -705,6 +755,33 @@ def test_emd_cost_kernel(gen, s, n, r, m):
     torch.testing.assert_close(got, ref, rtol=EMD_RTOL, atol=EMD_ATOL)
     # a repeated pair gives the same cost bit for bit (fixed-order sums)
     assert got[-2] == got[(s - 1) * r] and got[-1] == got[r - 1]
+
+
+def test_emd_cost_kernel_eval_block_repeats_bit_for_bit(gen):
+    """The evaluation's block of 16 x 33 pairs of 2048-point clouds: within
+    the gate of the plain version, and the same pair list gives the same
+    costs twice (fixed-order sums, no atomics)."""
+    from lion_tpu_torch.eval.metrics import block_pairs
+    a = _randn(gen, 16, 2048, 3, scale=0.3)
+    b = _randn(gen, 33, 2048, 3, scale=0.3)
+    pairs = block_pairs(0, 0, 16, 33, "cuda")
+    got, ref = _both("emd_cost", a, b, pairs)
+    torch.testing.assert_close(got, ref, rtol=EMD_RTOL, atol=EMD_ATOL)
+    again = ops.emd_cost(a, b, pairs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("offset", [0.5, 1.5])
+def test_emd_cost_kernel_far_from_the_origin(gen, offset):
+    """Clouds away from the origin, where the matmul-form d2 cancels
+    |p|^2 + |q|^2: every walk forms d2 alike, so the gate holds."""
+    a = _randn(gen, 3, 2048, 3, scale=0.3) + offset
+    b = _randn(gen, 2, 2048, 3, scale=0.3) + offset
+    pairs = torch.tensor([[i, j] for i in range(3) for j in range(2)],
+                         dtype=torch.int32, device="cuda")
+    got, ref = _both("emd_cost", a, b, pairs)
+    torch.testing.assert_close(got, ref, rtol=EMD_RTOL, atol=EMD_ATOL)
 
 
 def test_emd_cost_kernel_identical_and_permuted_clouds(gen):
