@@ -16,11 +16,12 @@ non-zero:
      2048-point clouds (repeating bit for bit), N != M both ways and a
      permuted copy; K13's
      backward against K2's backward of the permuted gradient; K1 at the
-     local step's four levels (N 2048 -> 1024 -> 256 -> 64 -> 16), K2 at
-     its four SA levels and K6 at its four FP levels (fp32 and bf16, with
-     its indices and weights) on those clouds, exact, repeating bit for
-     bit, with K2's balls equal to K11's, and their times per level
-     (`ms_levels`); K5 at the local step's devoxelizing levels in fp32
+     local step's four levels (N 2048 -> 1024 -> 256 -> 64 -> 16), K2 and
+     K11 at its four SA levels, K13 at the first three (CF_SHAPES, fp32
+     and bf16) and K6 at its four FP levels (fp32 and bf16, with its
+     indices and weights) on those clouds, exact, repeating bit for bit,
+     with K2's rows those grouped from K11's balls (one scan, two
+     epilogues), and their times per level (`ms_levels`); K5 at the local step's devoxelizing levels in fp32
      and bf16, with and without its affine epilogue, exact, repeating bit
      for bit, with its times per level; K3 (fp32, bf16), K4 (every case
      above), K7 (SA0, SA3),
@@ -478,26 +479,53 @@ def check_fps_levels(b, randn):
 
 
 def check_bqg_levels(b, randn):
-    """K2 at the local step's four SA levels: exact against the plain
-    version, repeating bit for bit, its rows those grouped from K11's
-    balls; the time per level."""
+    """K2 and K11 at the local step's four SA levels: each exact against
+    its plain version and repeating bit for bit, K2's rows those grouped
+    from K11's balls; the time per level of each."""
     from lion_tpu_torch import ops
     from lion_tpu_torch.ops.points import grouping
     from lion_tpu_torch.profile_step import bqg_level_inputs
-    k2 = ops.KERNELS["ball_query_group"]
-    ms = {}
+    k2, k11 = ops.KERNELS["ball_query_group"], ops.KERNELS["ball_query"]
+    ms2, ms11 = {}, {}
     for label, args in bqg_level_inputs(b, randn):
         p, c, f, r, k = args
         got = _bit_equal(f"ball_query_group B{b} {label}",
                          lambda a=args: k2(*a))[0]
         _exact(got, k2.plain(*args))
-        idx = ops.ball_query(c, p, r, k)
+        idx = _bit_equal(f"ball_query B{b} {label}",
+                         lambda: k11(c, p, r, k))[0]
+        _exact(idx, k11.plain(c, p, r, k))
         _exact(got, torch.cat([grouping(p, idx) - c[:, :, None],
                                grouping(f, idx)], -1))
-        ms[label] = cuda_time_ms(lambda a=args: k2(*a), 20)
-    log(f"[kernels] ball_query_group per level B{b} (exact, K11's balls): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-        + f"; the four levels {sum(ms.values()):.4f} ms")
+        ms2[label] = cuda_time_ms(lambda a=args: k2(*a), 20)
+        ms11[label] = cuda_time_ms(lambda: k11(c, p, r, k), 20)
+    for name, ms in (("ball_query_group", ms2), ("ball_query", ms11)):
+        log(f"[kernels] {name} per level B{b} (exact; K2's rows from K11's "
+            f"balls): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; the four levels {sum(ms.values()):.4f} ms")
+    return ms2, ms11
+
+
+def check_cf_levels(b, randn):
+    """K13 at the SA levels of CF_SHAPES in fp32 and bf16: exact against
+    its plain version, repeating bit for bit; the time per level."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.profile_step import bqg_level_inputs
+    k13 = ops.KERNELS["ball_query_group_cf"]
+    ms = {}
+    levels = bqg_level_inputs(b, randn)[:len(CF_SHAPES)]
+    for (label, (p, c, f, r, k)), shape in zip(levels, CF_SHAPES):
+        if (p.shape[1], c.shape[1], f.shape[2], r) != shape:
+            raise AssertionError(f"{label} is not CF_SHAPES' {shape}")
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            x = f.to(dt)
+            got = _bit_equal(f"ball_query_group_cf B{b} {name} {label}",
+                             lambda x=x: k13(p, c, x, r, k))[0]
+            _exact(got, k13.plain(p, c, x, r, k))
+            ms[f"{label} {name}"] = cuda_time_ms(lambda x=x: k13(p, c, x, r, k),
+                                                 20)
+    log(f"[kernels] ball_query_group_cf per level B{b} (exact): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
     return ms
 
 
@@ -753,7 +781,10 @@ def phase_kernels():
                    lambda: ops.emd_cost(*emd_block))
         check_cf_backward(cloud, centers, f32c, randn(b, 32, 35, 1024))
         results["fps"]["ms_levels"] = check_fps_levels(b, randn)
-        results["ball_query_group"]["ms_levels"] = check_bqg_levels(b, randn)
+        (results["ball_query_group"]["ms_levels"],
+         results["ball_query"]["ms_levels"]) = check_bqg_levels(b, randn)
+        results["ball_query_group_cf"]["ms_levels"] = check_cf_levels(b,
+                                                                      randn)
         results["three_nn_interpolate"]["ms_levels"] = \
             check_three_nn_levels(b, randn)
         results["trilinear_devoxelize"]["ms_levels"] = \

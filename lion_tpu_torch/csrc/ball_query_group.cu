@@ -14,41 +14,34 @@
 // B M N distance tests of the scan (a sparse ball scans the whole cloud),
 // which take about as long as the writes at the top level.
 // Design: a block takes `cpb` consecutive centers of one item, whose
-// output tiles form one contiguous span. It stages the item's cloud in
-// shared memory as (x, y, z, 0), one 16-byte load a point, in tiles of up
-// to kTileN points (any N). A warp scans for two centers at a time, each
-// point it loads from shared memory tested against both (8 bytes of
-// shared-memory traffic a test): kChunks 32-point chunks a round, each
-// lane testing one point of each, so a round holds 2 kChunks independent
-// tests. Most balls hold a few of the cloud's points, so most rounds find
-// no hit: one vote skips them; otherwise one ballot a chunk and center
-// assigns the slots by prefix popcounts in index order. The scan stops
-// after the round in which both centers have K hits (a shortcut: the
-// slots are set by then). The pair's output tiles are one contiguous span:
-// its rows' point indices and point - center go to shared memory, and the
-// warp writes the span flat at once, lane l taking 16-byte chunks l,
-// l + 32, ... (4 floats, or single floats when K (3 + C) is not a multiple
-// of 4), the (row, channel) of each stepped without a divide, the features
-// gathered from the point's row; then its next pair. No barrier follows
-// the staging, so one warp's writes can overlap another's scan. A block of
-// a single pair (the small levels) writes it with all its threads. The
-// caller's plan (ops/points.py: bqg_plan, within the limits below) picks
-// cpb, the threads and the tile from (B, N, M, C, K) so that the small
-// levels fill the card.
+// output tiles form one contiguous span, and finds their balls by the
+// shared scan (ball_scan.cuh: the cloud staged in shared memory as float4
+// tiles, two centers a warp, four 32-point chunks a round, one vote that
+// skips the rounds without a hit, slots by prefix popcounts in index
+// order). The pair's output tiles are one contiguous span: right after a
+// warp's pair is scanned, its rows' point indices and point - center go
+// to shared memory, and the warp writes the span flat at once, lane l
+// taking 16-byte chunks l, l + 32, ... (4 floats, or single floats when
+// K (3 + C) is not a multiple of 4), the (row, channel) of each stepped
+// without a divide, the features gathered from the point's row; then its
+// next pair. No barrier follows the staging, so one warp's writes can
+// overlap another's scan. A block of a single pair (the small levels)
+// writes it with all its threads. The caller's plan (ops/points.py:
+// bqg_plan, within the limits below) picks cpb, the threads and the tile
+// from (B, N, M, C, K) so that the small levels fill the card.
 #include <climits>
-#include <cmath>
 
+#include "ball_scan.cuh"
 #include "common.cuh"
 
 namespace {
 
+using lion::kRound;
+using lion::kTileN;
+
 constexpr int kMaxThreads = 256;     // threads a block, at most
 constexpr int kMaxCenters = 32;      // centers a block, at most
-constexpr int kTileN = 2048;         // cloud points a shared-memory tile
-constexpr int kChunks = 4;           // 32-point chunks a warp tests a round
 constexpr int kSmemMax = 232448;     // a block's shared memory on the H100
-
-constexpr int kRound = 32 * kChunks;  // points a warp tests a round
 
 // Dynamic shared memory: the cloud tile padded to whole rounds (points at
 // infinity, in no ball) and each warp's 2 K rows (x, y, z, point index) as
@@ -57,55 +50,6 @@ constexpr int kRound = 32 * kChunks;  // points a warp tests a round
 long long smem_bytes(int cpb, int k, int tile, int threads) {
   return 16LL * (tile + kRound) + 16LL * (threads / 32) * 2 * k +
          4LL * cpb * k + 4LL * cpb;
-}
-
-// One chunk of a center's scan: the lanes' hits take the next slots in
-// index order (prefix popcounts); hits past K are counted, not kept.
-__device__ __forceinline__ void take(bool hit, int j, unsigned below, int k,
-                                     int* count, int* sel) {
-  const unsigned mask = __ballot_sync(0xffffffffu, hit);
-  const int slot = *count + __popc(mask & below);
-  if (hit && slot < k) sel[slot] = j;
-  *count += __popc(mask);
-}
-
-// A warp's scan of the staged points scloud[0, cnt) (global index t0 + j)
-// for centers ca and cc (the same when the pair has one center, whose
-// twin counts as full).
-__device__ __forceinline__ void scan_pair(const float4* scloud, int cnt,
-                                          int t0, const float* cb, int ca,
-                                          int cc, int k, float r2,
-                                          int* ssel, int* scount) {
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  const float ax = cb[3 * ca], ay = cb[3 * ca + 1], az = cb[3 * ca + 2];
-  const float bx = cb[3 * cc], by = cb[3 * cc + 1], bz = cb[3 * cc + 2];
-  int count_a = scount[ca];                        // warp-uniform
-  int count_b = cc != ca ? scount[cc] : k;
-  for (int j0 = 0; j0 < cnt && (count_a < k || count_b < k);
-       j0 += kRound) {
-    bool hit_a[kChunks], hit_b[kChunks], any = false;
-#pragma unroll
-    for (int u = 0; u < kChunks; ++u) {
-      const float4 p = scloud[j0 + 32 * u + lane];
-      hit_a[u] = lion::sq_dist(ax, ay, az, p.x, p.y, p.z) < r2;
-      hit_b[u] = lion::sq_dist(bx, by, bz, p.x, p.y, p.z) < r2;
-      any = any || hit_a[u] || hit_b[u];
-    }
-    if (!__any_sync(0xffffffffu, any)) continue;   // most rounds
-#pragma unroll
-    for (int u = 0; u < kChunks; ++u) {
-      const int j = t0 + j0 + 32 * u + lane;
-      take(hit_a[u], j, below, k, &count_a, ssel + ca * k);
-      take(hit_b[u], j, below, k, &count_b, ssel + cc * k);
-    }
-  }
-  __syncwarp();
-  if (lane == 0) {
-    scount[ca] = count_a;
-    if (cc != ca) scount[cc] = count_b;
-  }
-  __syncwarp();
 }
 
 // The team's barrier: the block's, or the warp's.
@@ -131,9 +75,7 @@ __device__ __forceinline__ void write_pair(
     float* __restrict__ ob, int l, int size, bool block) {
   for (int r = l; r < nc * k; r += size) {
     const int cc = ca + (r >= k ? 1 : 0), s = r >= k ? r - k : r;
-    const int found = min(scount[cc], k);
-    const int p = s < found ? ssel[cc * k + s]
-                            : (found > 0 ? ssel[cc * k] : 0);
+    const int p = lion::ball_slot(ssel + cc * k, scount[cc], k, s);
     const float* pp = pts + 3 * static_cast<size_t>(p);
     rows[r] = make_float4(__fsub_rn(pp[0], cb[3 * cc]),
                           __fsub_rn(pp[1], cb[3 * cc + 1]),
@@ -176,13 +118,10 @@ __device__ __forceinline__ void write_pair(
 }
 
 // grid (ceil(M / cpb), B); V floats a chunk of the flat write (4 when
-// K (3 + C) is a multiple of 4). Warp w takes the block's pairs of
-// centers (2w, 2w + 1), (2w + 2 warps, ...), ... With the cloud in one tile
-// (N <= tile) every warp runs on its own after the staging: scan a pair,
-// write it, next pair. A block of one pair (cpb <= 2) writes it with all
-// its threads after warp 0's scan; with several tiles the block stages
-// tile by tile, the warps scanning all their pairs on each, and writes
-// after the last.
+// K (3 + C) is a multiple of 4). The block finds its balls by
+// lion::scan_block; a warp writes each of its pairs right after the
+// pair's scan of the last tile. A block of one pair (cpb <= 2) writes it
+// with all its threads after warp 0's scan.
 template <int V>
 __global__ void __launch_bounds__(kMaxThreads)
 bqg_kernel(const float* __restrict__ points, const float* __restrict__ ctrs,
@@ -204,42 +143,20 @@ bqg_kernel(const float* __restrict__ points, const float* __restrict__ ctrs,
   const size_t row_floats = static_cast<size_t>(k) * (3 + c);
   float* ob = out + (static_cast<size_t>(b) * m + m0) * row_floats;
   const bool block = cpb <= 2;      // one pair: the block writes it
-  const bool now = n <= tile && !block;   // a warp writes each pair at once
   if (t < ncent) scount[t] = 0;
 
-  for (int t0 = 0; t0 < n; t0 += tile) {
-    const int cnt = min(tile, n - t0);
-    __syncthreads();   // the counts are set; the last tile is scanned
-    const int padded = (cnt + kRound - 1) / kRound * kRound;
-    for (int j = t; j < padded; j += blockDim.x) {
-      float4 v = make_float4(INFINITY, INFINITY, INFINITY, 0.0f);
-      if (j < cnt) {
-        const float* p = pts + 3 * static_cast<size_t>(t0 + j);
-        v = make_float4(p[0], p[1], p[2], 0.0f);
-      }
-      scloud[j] = v;
+  lion::scan_block(scloud, pts, n, tile, cb, ncent, k, r2, ssel, scount,
+                   [&](int ca, int nc) {
+    if (!block) {
+      write_pair<V>(pts, cb, fb, ca, nc, k, c, ssel, scount,
+                    rows + warp * 2 * k, ob + ca * row_floats, lane, 32,
+                    false);
     }
-    __syncthreads();
-    for (int ca = 2 * warp; ca < ncent; ca += 2 * warps) {
-      const int nc = min(2, ncent - ca);
-      scan_pair(scloud, cnt, t0, cb, ca, ca + nc - 1, k, r2, ssel, scount);
-      if (now) {
-        write_pair<V>(pts, cb, fb, ca, nc, k, c, ssel, scount,
-                      rows + warp * 2 * k, ob + ca * row_floats, lane, 32,
-                      false);
-      }
-    }
-  }
+  });
   if (block) {
     __syncthreads();
     write_pair<V>(pts, cb, fb, 0, ncent, k, c, ssel, scount, rows, ob, t,
                   blockDim.x, true);
-  } else if (!now) {
-    for (int ca = 2 * warp; ca < ncent; ca += 2 * warps) {
-      write_pair<V>(pts, cb, fb, ca, min(2, ncent - ca), k, c, ssel, scount,
-                    rows + warp * 2 * k, ob + ca * row_floats, lane, 32,
-                    false);
-    }
   }
 }
 

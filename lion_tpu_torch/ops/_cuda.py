@@ -42,9 +42,9 @@ _SIGNATURES = {
     "lion_fps": (_P, _P, _P, _I, _I, _I, _P),
     "lion_ball_query_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                               _I, _I, _P),
-    "lion_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "lion_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "lion_ball_query_group_cf": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                                 _P),
+                                 _I, _I, _I, _I, _P),
     "lion_emd_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_avg_voxelize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_conv3d_brick": (_P,) * 8 + (_I,) * 18 + (_P,),

@@ -7,9 +7,13 @@ Kernels here:
      coords in one launch.
   K2 `ball_query_group` (csrc/ball_query_group.cu): ball query fused with
      the grouping gather; `bqg_plan` sizes its blocks.
-  K11 `ball_query` (csrc/ball_query.cu): the index-only ball query.
+  K11 `ball_query` (csrc/ball_query.cu): the index-only ball query;
+     `bq_plan` sizes its blocks.
   K13 `ball_query_group_cf` (csrc/ball_query_group_cf.cu): K2 with the
-     channel-first (B, K, 3 + C, M) output, fp32 or bf16 features.
+     channel-first (B, K, 3 + C, M) output, fp32 or bf16 features;
+     `bqg_cf_plan` sizes its blocks.
+The three find their balls by one scan (csrc/ball_scan.cuh), each with
+its own epilogue.
 
 `ball_query_group` has a gradient: its backward recomputes the indices
 with K11, as the JAX VJP replays `ball_query` (lion_tpu/ops/points.py:
@@ -132,6 +136,126 @@ def gather(features: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# The ball queries' plans: K2, K11, K13
+# --------------------------------------------------------------------------
+# The shared scan's constants (csrc/ball_scan.cuh, whose constants these
+# equal): cloud points a shared-memory tile, 32-point chunks a warp tests a
+# round. The three kernels' limits (csrc/ball_query_group.cu, ball_query.cu
+# and ball_query_group_cf.cu, whose constants these equal): threads a
+# block, centers a block, a block's shared memory. The plans' target: two
+# waves of blocks on the H100's 132 SMs.
+BQG_TILE, BQG_CHUNKS = 2048, 4
+BQG_MAX_THREADS, BQG_MAX_CENTERS = 256, 32
+BQG_SMEM_MAX, BQG_MIN_BLOCKS = 232448, 264
+
+
+def _centers_a_block(b: int, m: int, fits, floor: int = 1,
+                     min_blocks: int = BQG_MIN_BLOCKS) -> int:
+    """The most centers a block, a power of two up to BQG_MAX_CENTERS and
+    below 2 M, whose blocks still number `min_blocks` and fit the shared
+    memory (`fits(cpb)`); never below `floor` but to fit."""
+    cpb = BQG_MAX_CENTERS
+    while cpb > 1 and (not fits(cpb) or cpb > floor and (
+            cpb >= 2 * m or -(-m // cpb) * b < min_blocks)):
+        cpb //= 2
+    return cpb
+
+
+def _checked(name: str, smem: int, k: int) -> int:
+    if smem > BQG_SMEM_MAX:
+        raise ValueError(f"{name}: K={k} beyond shared memory")
+    return smem
+
+
+def bqg_smem(cpb: int, k: int, tile: int, threads: int) -> int:
+    """K2's dynamic shared bytes: the cloud tile (padded by a round of
+    32 BQG_CHUNKS points) and each warp's 2 K rows as float4, the cpb K
+    slots' indices and the cpb hit counts as int32."""
+    return 16 * (tile + 32 * BQG_CHUNKS) + 16 * (threads // 32) * 2 * k \
+        + 4 * cpb * k + 4 * cpb
+
+
+def bqg_plan(b: int, n: int, m: int, c: int, k: int):
+    """(centers a block, threads, cloud tile, shared bytes) of K2: the most
+    centers a block (`_centers_a_block`); a warp for each pair of them, up
+    to BQG_MAX_THREADS threads, which a block of one pair (cpb <= 2) takes
+    all to write it."""
+    if n < 1 or k < 1:
+        raise ValueError(f"ball_query_group: unsupported N={n}, K={k}")
+    tile = min(n, BQG_TILE)
+
+    def threads(cpb):
+        return BQG_MAX_THREADS if cpb <= 2 else min(BQG_MAX_THREADS,
+                                                    32 * -(-cpb // 2))
+    cpb = _centers_a_block(b, m, lambda cpb: bqg_smem(
+        cpb, k, tile, threads(cpb)) <= BQG_SMEM_MAX)
+    smem = _checked("ball_query_group",
+                    bqg_smem(cpb, k, tile, threads(cpb)), k)
+    return cpb, threads(cpb), tile, smem
+
+
+def bq_smem(cpb: int, k: int, tile: int) -> int:
+    """K11's dynamic shared bytes: the padded cloud tile as float4, the
+    cpb K slots' indices and the cpb hit counts as int32."""
+    return 16 * (tile + 32 * BQG_CHUNKS) + 4 * cpb * k + 4 * cpb
+
+
+def bq_plan(b: int, n: int, m: int, k: int):
+    """(centers a block, threads, cloud tile, shared bytes) of K11: the
+    most centers a block (`_centers_a_block`) and BQG_MAX_THREADS threads,
+    which stage the cloud (a warp scans a pair of centers; the warps
+    without one only stage: at the small levels that is most of the
+    work)."""
+    if n < 1 or k < 1:
+        raise ValueError(f"ball_query: unsupported N={n}, K={k}")
+    tile = min(n, BQG_TILE)
+    cpb = _centers_a_block(b, m, lambda cpb: bq_smem(cpb, k, tile)
+                           <= BQG_SMEM_MAX)
+    smem = _checked("ball_query", bq_smem(cpb, k, tile), k)
+    return cpb, BQG_MAX_THREADS, tile, smem
+
+
+CF_ROWS = 32         # K13's feature rows a warp stages at once
+# K13's plan: at least this many centers a block where M allows (row
+# segments of 64 bytes fp32, 32 bf16), and this many blocks, the slots
+# split in groups to reach them (measured at the SA levels, B16)
+CF_MIN_CENTERS, CF_MIN_BLOCKS = 16, 256
+
+
+def bqg_cf_smem(cpb: int, k: int, tile: int, threads: int, size: int) -> int:
+    """K13's dynamic shared bytes for features of `size` bytes: the padded
+    cloud tile as float4, or in its place after the scan each warp's
+    transpose buffer (CF_ROWS rows of cpb + 1 values), whichever is
+    larger (to 16 bytes), then the cpb K slots' indices, the cpb hit counts
+    and the cpb K filled slots as int32."""
+    bufs = threads // 32 * CF_ROWS * (cpb + 1) * size
+    area = max(16 * (tile + 32 * BQG_CHUNKS), -(-bufs // 16) * 16)
+    return area + 8 * cpb * k + 4 * cpb
+
+
+def bqg_cf_plan(b: int, n: int, m: int, c: int, k: int, size: int):
+    """(centers a block, slot groups, threads, cloud tile, shared bytes) of
+    K13 for features of `size` bytes: the most centers a block
+    (`_centers_a_block` for CF_MIN_BLOCKS, not below CF_MIN_CENTERS); then
+    the fewest slot groups, of ceil(K / 2^i) slots each, whose blocks
+    number CF_MIN_BLOCKS (each group's block scans its centers again);
+    BQG_MAX_THREADS threads."""
+    if n < 1 or k < 1 or c < 0:
+        raise ValueError(f"ball_query_group_cf: unsupported N={n}, K={k}")
+    tile, threads = min(n, BQG_TILE), BQG_MAX_THREADS
+    cpb = _centers_a_block(b, m, lambda cpb: bqg_cf_smem(
+        cpb, k, tile, threads, size) <= BQG_SMEM_MAX,
+        floor=CF_MIN_CENTERS, min_blocks=CF_MIN_BLOCKS)
+    smem = _checked("ball_query_group_cf",
+                    bqg_cf_smem(cpb, k, tile, threads, size), k)
+    groups = 1
+    while 2 * groups <= k and -(-m // cpb) * b * groups < CF_MIN_BLOCKS:
+        groups *= 2
+    ks = -(-k // groups)                   # slots a group; none is empty
+    return cpb, -(-k // ks), threads, tile, smem
+
+
+# --------------------------------------------------------------------------
 # K11: ball query
 # --------------------------------------------------------------------------
 def _r2(radius: float) -> float:
@@ -169,56 +293,17 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
     check_cuda(centers, points)
     b, m, _ = centers.shape
     n = points.shape[1]
+    cpb, threads, tile, _ = bq_plan(b, n, m, num_neighbors)
     out = torch.empty((b, m, num_neighbors), dtype=torch.int32,
                       device=centers.device)
     launch("lion_ball_query", ptr(centers), ptr(points), ptr(out), b, n, m,
-           num_neighbors, _r2(radius), stream_of(centers))
+           num_neighbors, _r2(radius), cpb, threads, tile, stream_of(centers))
     return out
 
 
 # --------------------------------------------------------------------------
 # K2: ball query + grouping
 # --------------------------------------------------------------------------
-# K2's limits (csrc/ball_query_group.cu, whose constants these equal):
-# threads a block, centers a block, cloud points a shared-memory tile,
-# 32-point chunks a warp tests a round, a block's shared memory. The plan's
-# target: two waves of blocks on the H100's 132 SMs.
-BQG_MAX_THREADS, BQG_MAX_CENTERS, BQG_TILE, BQG_CHUNKS = 256, 32, 2048, 4
-BQG_SMEM_MAX, BQG_MIN_BLOCKS = 232448, 264
-
-
-def bqg_smem(cpb: int, k: int, tile: int, threads: int) -> int:
-    """K2's dynamic shared bytes: the cloud tile (padded by a round of
-    32 BQG_CHUNKS points) and each warp's 2 K rows as float4, the cpb K
-    slots' indices and the cpb hit counts as int32."""
-    return 16 * (tile + 32 * BQG_CHUNKS) + 16 * (threads // 32) * 2 * k \
-        + 4 * cpb * k + 4 * cpb
-
-
-def bqg_plan(b: int, n: int, m: int, c: int, k: int):
-    """(centers a block, threads, cloud tile, shared bytes) of K2: the most
-    centers a block (a power of two up to BQG_MAX_CENTERS, and below 2 M)
-    whose blocks still number BQG_MIN_BLOCKS and fit the shared memory;
-    a warp for each pair of them, up to BQG_MAX_THREADS threads, which a
-    block of one pair (cpb <= 2) takes all to write it."""
-    if n < 1 or k < 1:
-        raise ValueError(f"ball_query_group: unsupported N={n}, K={k}")
-    tile = min(n, BQG_TILE)
-
-    def threads(cpb):
-        return BQG_MAX_THREADS if cpb <= 2 else min(BQG_MAX_THREADS,
-                                                    32 * -(-cpb // 2))
-    cpb = BQG_MAX_CENTERS
-    while cpb > 1 and (cpb >= 2 * m or -(-m // cpb) * b < BQG_MIN_BLOCKS
-                       or bqg_smem(cpb, k, tile, threads(cpb))
-                       > BQG_SMEM_MAX):
-        cpb //= 2
-    smem = bqg_smem(cpb, k, tile, threads(cpb))
-    if smem > BQG_SMEM_MAX:
-        raise ValueError(f"ball_query_group: K={k} beyond shared memory")
-    return cpb, threads(cpb), tile, smem
-
-
 def _ball_query_group_plain(points_coords, centers_coords, points_features,
                             radius: float, num_neighbors: int):
     idx = _ball_query_plain(centers_coords, points_coords, radius,
@@ -306,9 +391,6 @@ def ball_query_group(points_coords: torch.Tensor,
 # --------------------------------------------------------------------------
 # K13: ball query + grouping, channel-first
 # --------------------------------------------------------------------------
-_CF_TILE = 32   # centers per block (csrc/ball_query_group_cf.cu)
-
-
 def _ball_query_group_cf_plain(points_coords, centers_coords,
                                points_features, radius: float,
                                num_neighbors: int):
@@ -335,12 +417,13 @@ def ball_query_group_cf_kernel(points_coords: torch.Tensor,
     m = centers_coords.shape[1]
     c = points_features.shape[-1]
     k = num_neighbors
-    if k < 1 or _CF_TILE * (k | 1) * 4 > 48 * 1024:
-        raise ValueError(f"ball_query_group_cf: unsupported K={k}")
+    cpb, groups, threads, tile, _ = bqg_cf_plan(
+        b, n, m, c, k, points_features.element_size())
     out = torch.empty((b, k, 3 + c, m), dtype=dt, device=points_coords.device)
     launch("lion_ball_query_group_cf", ptr(points_coords), ptr(centers_coords),
            ptr(points_features), ptr(out), b, n, m, c, k, _r2(radius),
-           int(dt == torch.bfloat16), stream_of(points_coords))
+           int(dt == torch.bfloat16), cpb, groups, threads, tile,
+           stream_of(points_coords))
     return out
 
 

@@ -34,9 +34,10 @@ computes the pair), and K9 at r8 C128 N256 at the batch and at batch 1
 
 With --split it prints, for K1 (`fps`) at the local step's four levels
 (N 2048 -> 1024, 1024 -> 256, 256 -> 64, 64 -> 16), for K2
-(`ball_query_group`) at its four SA levels and K6 (`three_nn_interpolate`,
-fp32 and bf16) at its four FP levels on those clouds, for K11
-(`ball_query`) and K13 (`ball_query_group_cf`) at SA0's, for K7 (`sa_fused`)
+(`ball_query_group`) and K11 (`ball_query`) at its four SA levels, K13
+(`ball_query_group_cf`, fp32 and bf16) at the first three and K6
+(`three_nn_interpolate`, fp32 and bf16) at its four FP levels on those
+clouds, for K7 (`sa_fused`)
 at the bf16 local step's SA0 and SA3 shapes and for K3 (`avg_voxelize`) at
 r32 C64 in fp32 and bf16, for K5 (`trilinear_devoxelize`) at the local
 step's devoxelizing levels in fp32 and bf16 (alone, followed by the
@@ -73,15 +74,20 @@ ms; and the cycles a step of dependent redux.sync, dependent shared loads
 and barriers take, on 32 to 1024 threads.
 
 With --plans it runs K6 (fp32) at its four FP levels on every plan of
-32-256 threads and 1-32 lanes a point, and K2 at its four SA levels on
-every plan of 1-32 centers a block and 64-256 threads: the device ms of
+32-256 threads and 1-32 lanes a point, K2 at its four SA levels on every
+plan of 1-32 centers a block and 64-256 threads, K11 there on every plan
+of 1-32 centers and 32-256 threads and K13 (fp32, bf16) at the first
+three on every plan of 4-32 centers and 1-8 slot groups: the device ms of
 each, whether its output equals the wrapper's plan's bit for bit, and
 which plan the wrapper takes; then, on the wrapper's plan at the top
-level, the scan alone (C = 0) and the output alone (K6: 4 centers; K2: a
-cloud of 128 points). --source X.cu times the kernels of a patched copy
-of csrc/three_nn.cu or csrc/ball_query_group.cu (built on its own, like
-the K1 probe; its includes resolve against csrc/) in place of the
-library's.
+level, K6's and K2's scan alone (C = 0) and output alone (K6: 4 centers;
+K2: a cloud of 128 points). --source X.cu times the kernels of a patched
+copy of csrc/three_nn.cu, ball_query_group.cu, ball_query.cu or
+ball_query_group_cf.cu (built on its own, like the K1 probe; its includes
+resolve against its own directory, then csrc/) in place of the
+library's; a K11 or K13 source whose entry takes no plan (an older tree's
+copy, with its own headers beside it) runs once a level, so an older
+design and the library's run in one call.
 """
 import argparse
 import functools
@@ -99,7 +105,8 @@ _OURS = {"fps_kernel": "fps", "bqg_kernel": "ball_query_group",
          "sa_pass_kernel": "sa_fused",
          "pair_conv0_brick": "conv3d_pair",
          "pair_conv1_brick": "conv3d_pair", "pair_fold_kernel": "conv3d_pair",
-         "pvblock_brick": "pvconv_block_pair", "bq_kernel": "ball_query"}
+         "pvblock_brick": "pvconv_block_pair", "bq_kernel": "ball_query",
+         "bqg_cf_kernel": "ball_query_group_cf"}
 # K4's cases (r, ci, co, dtype, affine + swish prologue): fp32, the encode's
 # and the fp32 path's widest convs; bf16, every (r, ci, co) of the bf16
 # local step's twelve K4 calls. K10's: (r, ci, co), its dx at r32 C64.
@@ -372,8 +379,9 @@ def three_nn_level_inputs(batch, randn):
 
 
 def _split_cases(batch, randn):
-    """(label, call) of K1 at its four levels, K2 at the four SA levels, K6
-    at the four FP levels (fp32 and bf16), K11 and K13 at SA0's level, K7
+    """(label, call) of K1 at its four levels, K2 and K11 at the four SA
+    levels, K6 at the four FP levels (fp32 and bf16), K13 at the first
+    three SA levels (fp32 and bf16), K7
     at SA0 and SA3 (K = 32; bf16 local step's widths) and K3 at r32 C64
     (its wrapper without the autograd Function, as chip_smoke.py times it),
     on random inputs at the batch."""
@@ -409,10 +417,11 @@ def _split_cases(batch, randn):
           for name, dt in (("fp32", torch.float32), ("bf16", bf))]
     k11 = [(f"K11 {label}", functools.partial(ops.KERNELS["ball_query"], c,
                                                p, r, k))
-           for label, (p, c, _, r, k) in bqg_level_inputs(batch, randn)[:1]]
-    k13 = [(f"K13 {label}", functools.partial(
-        ops.KERNELS["ball_query_group_cf"], *args))
-        for label, args in bqg_level_inputs(batch, randn)[:1]]
+           for label, (p, c, _, r, k) in bqg_level_inputs(batch, randn)]
+    k13 = [(f"K13 {name} {label}", functools.partial(
+        ops.KERNELS["ball_query_group_cf"], p, c, f.to(dt), r, k))
+        for label, (p, c, f, r, k) in bqg_level_inputs(batch, randn)[:3]
+        for name, dt in (("fp32", torch.float32), ("bf16", bf))]
     return fps + bqg + nn + k11 + k13 + [
             ("K7 SA0 N2048 M1024 K32 C32,64", sa(2048, 1024, (32, 64), 0.1)),
             ("K7 SA3 N64 M16 K32 C128x3", sa(64, 16, (128,) * 3, 0.8)),
@@ -505,22 +514,42 @@ def profile_split(batch: int, steps: int, only=None) -> None:
     _split_step(4, steps, bf16=False)
 
 
-def profile_plans(batch: int, steps: int, source=None) -> None:
-    """K6 (fp32) at the four FP levels on every plan (threads, lanes) and
-    K2 at the four SA levels on every plan (centers a block, threads):
-    device ms, and whether the output equals the wrapper's plan's bit for
-    bit; the wrapper's plan is starred. Then both on the wrapper's plan at
-    the top level's N and M with the output cut to 3 floats a row (C = 0:
-    the scan alone) and with the scan cut short (K6: M = 4 centers; K2: a
-    cloud of 128 points: the output alone). With `source`, the kernels of
-    that file (a patched copy of csrc/three_nn.cu or ball_query_group.cu,
-    built on its own) are timed instead of the library's; the references
-    stay the library's."""
+def _takes_plan(source, name) -> bool:
+    """Whether the C entry `name` of `source` (None: the library's) takes
+    the arguments `_cuda._SIGNATURES` gives it, the plan among them; a
+    copy of an older design's source may take none."""
+    import re
+    from pathlib import Path
+    from .ops import _cuda
+    decl = source and re.search(rf"LION_EXPORT int {name}\(([^)]*)\)",
+                                Path(source).read_text())
+    return not decl or decl.group(1).count(",") + 1 == len(
+        _cuda._SIGNATURES[name])
+
+
+def profile_plans(batch: int, steps: int, source=None, only=None) -> None:
+    """K6 (fp32) at the four FP levels on every plan (threads, lanes), K2
+    and K11 at the four SA levels on every plan (centers a block, threads)
+    and K13 (fp32 and bf16) at the first three on every plan (centers a
+    block, slot groups): device ms, and whether the output equals the
+    wrapper's plan's bit for bit; the wrapper's plan is starred. Then K6
+    and K2 on the wrapper's plan at the top level's N and M with the output
+    cut to 3 floats a row (C = 0: the scan alone) and with the scan cut
+    short (K6: M = 4 centers; K2: a cloud of 128 points: the output alone).
+    With `source`, the kernels of that file (a patched copy of
+    csrc/three_nn.cu, ball_query_group.cu, ball_query.cu or
+    ball_query_group_cf.cu, built on its own; its includes resolve against
+    its own directory, then csrc/) are timed instead of the library's, and
+    a K11 or K13 whose entry takes no plan (an older design) once a level;
+    the references stay the library's. `only` keeps the kernels named
+    (e.g. ('K11', 'K13'))."""
     from pathlib import Path
     from .ops import _cuda
     from .ops._cuda import ptr, stream_of
     from .ops.interpolate import three_nn_interpolate, three_nn_plan
-    from .ops.points import _r2, ball_query_group_kernel, bqg_plan
+    from .ops.points import (_r2, ball_query, ball_query_group_cf_kernel,
+                             ball_query_group_kernel, bq_plan, bqg_cf_plan,
+                             bqg_plan)
     lib = _cuda.build_probe(Path(source)) if source else _cuda.library()
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -531,10 +560,13 @@ def profile_plans(batch: int, steps: int, source=None) -> None:
         return sum(v[0] for v in _device_groups(fn, steps)[1].values())
 
     def entry(name, *args):
+        """The entry with `args`, the stream last; an entry that takes no
+        plan gets the signature's first arguments and the stream."""
         fn = getattr(lib, name, None)
         if fn is None:
             return None
-        fn.argtypes = _cuda._SIGNATURES[name]
+        sig = _cuda._SIGNATURES[name]
+        fn.argtypes = sig[:len(args) - 1] + sig[-1:] if args else sig
         return functools.partial(fn, *args)
 
     def row(plan, chosen, fn, out, ref):
@@ -561,7 +593,10 @@ def profile_plans(batch: int, steps: int, source=None) -> None:
           f"{steps} profiled calls per plan"
           + (f", kernels from {source}" if source else ""))
     nn = three_nn_level_inputs(batch, randn)
-    if entry("lion_three_nn_interpolate") is not None:
+    def wanted(tag, name):
+        return entry(name) is not None and (not only or tag in only)
+
+    if wanted("K6", "lion_three_nn_interpolate"):
         for label, (p, c, f) in nn:
             chosen = three_nn_plan(p.shape[0], p.shape[1])
             ref = three_nn_interpolate(p, c, f)
@@ -580,7 +615,7 @@ def profile_plans(batch: int, steps: int, source=None) -> None:
             f"{name} {device_ms(k6(*args, plan)[1]):.4f}"
             for name, args in parts) + " ms")
     bq = bqg_level_inputs(batch, randn)
-    if entry("lion_ball_query_group") is not None:
+    if wanted("K2", "lion_ball_query_group"):
         for label, (p, c, f, r, k) in bq:
             (b, n, _), m, ch = p.shape, c.shape[1], f.shape[2]
             cpb0, threads0, tile, _ = bqg_plan(b, n, m, ch, k)
@@ -600,6 +635,63 @@ def profile_plans(batch: int, steps: int, source=None) -> None:
         print(f"[plans] K2 {bq[0][0]} B{batch} on {plan}: " + ", ".join(
             f"{name} {device_ms(k2(*args, r, k, plan)[1]):.4f}"
             for name, args in parts) + " ms")
+
+    def k11(p, c, r, k, plan):
+        (b, n, _), m = p.shape, c.shape[1]
+        out = torch.empty(b, m, k, dtype=torch.int32, device="cuda")
+        return out, entry("lion_ball_query", ptr(c), ptr(p), ptr(out), b, n,
+                          m, k, _r2(r), *plan, stream_of(p))
+
+    def k13(p, c, f, r, k, plan):
+        (b, n, _), m, ch = p.shape, c.shape[1], f.shape[2]
+        out = torch.empty(b, k, 3 + ch, m, dtype=f.dtype, device="cuda")
+        return out, entry("lion_ball_query_group_cf", ptr(p), ptr(c), ptr(f),
+                          ptr(out), b, n, m, ch, k, _r2(r),
+                          int(f.dtype == torch.bfloat16), *plan, stream_of(p))
+
+    if wanted("K11", "lion_ball_query"):
+        planned = _takes_plan(source, "lion_ball_query")
+        for label, (p, c, _, r, k) in bq:
+            (b, n, _), m = p.shape, c.shape[1]
+            cpb0, threads0, tile, _ = bq_plan(b, n, m, k)
+            ref = ball_query(c, p, r, k)
+            plans = [(cpb, threads, tile) for cpb in (1, 2, 4, 8, 16, 32)
+                     for threads in (32, 64, 128, 256)] if planned else [()]
+            rows = [row(plan[:2], (cpb0, threads0),
+                        *k11(p, c, r, k, plan)[::-1], ref) for plan in plans]
+            print(f"[plans] K11 {label} B{batch} "
+                  + ("(centers x threads ms): " if planned
+                     else "(its own design, ms): ") + ", ".join(rows))
+    if wanted("K13", "lion_ball_query_group_cf"):
+        planned = _takes_plan(source, "lion_ball_query_group_cf")
+        for label, (p, c, f, r, k) in bq[:3]:
+            for dt in (torch.float32, torch.bfloat16):
+                x = f.to(dt)
+                (b, n, _), m, ch = p.shape, c.shape[1], f.shape[2]
+                cpb0, groups0, threads, tile, _ = bqg_cf_plan(
+                    b, n, m, ch, k, x.element_size())
+                ref = ball_query_group_cf_kernel(p, c, x, r, k)
+                plans = [(cpb, groups, threads, tile)
+                         for cpb in (4, 8, 16, 32) for groups in (1, 2, 4, 8)
+                         ] if planned else [()]
+                rows = [row(plan[:2], (cpb0, groups0),
+                            *k13(p, c, x, r, k, plan)[::-1], ref)
+                        for plan in plans]
+                print(f"[plans] K13 {str(dt)[6:]} {label} B{batch} "
+                      + ("(centers x groups ms): " if planned
+                         else "(its own design, ms): ") + ", ".join(rows))
+        p, c, f, r, k = bq[0][1]
+        for dt in (torch.float32, torch.bfloat16):
+            x = f.to(dt)
+            plan = bqg_cf_plan(*p.shape[:2], c.shape[1], f.shape[2], k,
+                               x.element_size())[:4] if planned else ()
+            parts = [("full", (p, c, x)), ("C 0", (p, c, x[..., :0])),
+                     ("N 128", (p[:, :128].contiguous(), c,
+                                x[:, :128].contiguous()))]
+            print(f"[plans] K13 {str(dt)[6:]} {bq[0][0]} B{batch} on "
+                  f"{plan}: " + ", ".join(
+                      f"{name} {device_ms(k13(*args, r, k, plan)[1]):.4f}"
+                      for name, args in parts) + " ms")
 
 
 # the wrappers whose device time per local step --split sums: K1, K2, K4,
@@ -867,7 +959,8 @@ def main(argv=None):
                     "step")
     ap.add_argument("--only", default=None,
                     help="with --split: the cases whose labels start with "
-                    "one of these comma-separated prefixes (e.g. 'K5,K12')")
+                    "one of these comma-separated prefixes (e.g. 'K5,K12'); "
+                    "with --plans: the kernels named (e.g. 'K11,K13')")
     ap.add_argument("--given-noise", metavar="PATH", default=None,
                     help="write the 10-step given_noise samples of both "
                     "paths to PATH, or compare them with it bit for bit")
@@ -877,10 +970,12 @@ def main(argv=None):
     ap.add_argument("--fps-clock", action="store_true",
                     help="K1's plans timed and split into phases by clock64")
     ap.add_argument("--plans", action="store_true",
-                    help="K6's and K2's device ms on every plan at the levels")
+                    help="K6's, K2's, K11's and K13's device ms on every "
+                    "plan at the levels")
     ap.add_argument("--source", default=None,
                     help="with --plans: time the kernels of this patched "
-                    "copy of a K6 or K2 source instead of the library's")
+                    "copy of a K6, K2, K11 or K13 source (or an older "
+                    "design's) instead of the library's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -906,7 +1001,8 @@ def main(argv=None):
         profile_fps_clock(args.batch, args.steps)
         return
     if args.plans:
-        profile_plans(args.batch, args.steps, args.source)
+        profile_plans(args.batch, args.steps, args.source,
+                      args.only.split(",") if args.only else None)
         return
 
     from .config import flagship_cfg

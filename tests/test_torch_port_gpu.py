@@ -549,16 +549,49 @@ def test_conv3d_same_kernel(gen, r, ci, co):
 
 @pytest.mark.parametrize("n,m,k,r", [(128, 24, 8, 0.2), (300, 37, 64, 0.5),
                                      (2048, 1000, 32, 0.1), (50, 5, 64, 2.0),
-                                     (1024, 256, 32, 0.2)])
+                                     (1024, 256, 32, 0.2), (5000, 300, 13, 0.1),
+                                     (4100, 37, 32, 0.3)])
 def test_ball_query_kernel(gen, n, m, k, r):
-    """Empty balls, partial balls, K above the cloud's size, M not a
-    multiple of the block's 8 centers."""
+    """Empty balls, partial balls, K above the cloud's size, M off the
+    plan's block of centers, K % 4 != 0, N beyond one cloud tile."""
     pts = _randn(gen, 2, n, 3, scale=0.3)
     ctr = pts[:, :m].clone()
     ctr[:, 0] = 5.0                                # an empty ball
     got, ref = _both("ball_query", ctr, pts, r, k)
     assert got.dtype == torch.int32 and torch.equal(got, ref)
     assert (got[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("b", [4, 16])
+def test_ball_query_kernel_at_the_sa_levels(gen, b):
+    """K11 at the local step's four SA levels (profile_step's inputs):
+    equal to its plain version and repeating bit for bit."""
+    from lion_tpu_torch.profile_step import bqg_level_inputs
+    for label, (p, c, _, r, k) in bqg_level_inputs(b, _level_randn(gen)):
+        got, ref = _both("ball_query", c, p, r, k)
+        assert torch.equal(got, ref), label
+        assert torch.equal(got, ops.ball_query(c, p, r, k)), label
+
+
+@pytest.mark.parametrize("cpb,threads", [(1, 32), (3, 64), (32, 256),
+                                         (8, 128), (16, 32), (2, 256)])
+def test_ball_query_kernel_on_other_plans(gen, cpb, threads):
+    """Any plan the kernel takes (centers a block, threads; the cloud in
+    one tile or in tiles of 256 points) gives the plain version's balls,
+    in 16-byte chunks (K = 32) or single ints (K = 13)."""
+    from lion_tpu_torch.ops._cuda import ptr, stream_of
+    from lion_tpu_torch.ops.points import _r2
+    pts = _randn(gen, 2, 900, 3, scale=0.3)
+    ctr = pts[:, :77].clone()
+    ctr[:, 0] = 5.0
+    for k in (32, 13):
+        ref = ops.KERNELS["ball_query"].plain(ctr, pts, 0.2, k)
+        for tile in (256, 900):
+            out = torch.empty(2, 77, k, dtype=torch.int32, device="cuda")
+            _with_plan("lion_ball_query", ptr(ctr), ptr(pts), ptr(out), 2,
+                       900, 77, k, _r2(0.2), cpb, threads, tile,
+                       stream_of(pts))
+            assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("b", [4, 16])
@@ -811,12 +844,14 @@ def test_emd_cost_kernel_refuses_what_it_does_not_take(gen):
 
 
 @pytest.mark.parametrize("n,m,k,c,r,dt", [
-    (128, 24, 8, 5, 0.2, torch.float32),        # partial balls, M < tile
+    (128, 24, 8, 5, 0.2, torch.float32),        # partial balls, M < block
     (300, 50, 64, 3, 0.5, torch.float32),       # K above the hit count
-    (2048, 1000, 32, 32, 0.1, torch.float32),   # M off the 32-center tile
+    (2048, 1000, 32, 32, 0.1, torch.float32),   # M off the block's centers
     (50, 5, 64, 2, 2.0, torch.float32),         # K above N
     (2048, 1024, 32, 32, 0.1, BF16),
-    (500, 77, 16, 131, 0.3, BF16)])
+    (500, 77, 16, 131, 0.3, BF16),              # M odd: staged rows
+    (5000, 300, 13, 0, 0.1, BF16),              # beyond one tile; C = 0
+    (4100, 37, 32, 192, 0.3, torch.float32)])
 def test_ball_query_group_cf_kernel(gen, n, m, k, c, r, dt):
     pts = _randn(gen, 2, n, 3, scale=0.3)
     ctr = pts[:, :m].clone()
@@ -829,6 +864,46 @@ def test_ball_query_group_cf_kernel(gen, n, m, k, c, r, dt):
     # the empty ball takes point 0 in every slot
     assert torch.equal(got[:, :, 3:, 0],
                        feats[:, None, 0].expand(-1, k, -1))
+
+
+@pytest.mark.parametrize("b", [4, 16])
+def test_ball_query_group_cf_kernel_at_the_sa_levels(gen, b):
+    """K13 at the first three SA levels (the smoke's CF shapes) in fp32 and
+    bf16: equal to its plain version and repeating bit for bit."""
+    from lion_tpu_torch.profile_step import bqg_level_inputs
+    for label, (p, c, f, r, k) in bqg_level_inputs(b, _level_randn(gen))[:3]:
+        for dt in (torch.float32, BF16):
+            x = f.to(dt)
+            got, ref = _both("ball_query_group_cf", p, c, x, r, k)
+            assert torch.equal(got, ref), label
+            assert torch.equal(got, ops.ball_query_group_cf(p, c, x, r, k))
+
+
+@pytest.mark.parametrize("cpb,groups,threads", [
+    (1, 1, 32), (32, 1, 256), (8, 4, 64), (16, 32, 128), (2, 3, 96)])
+def test_ball_query_group_cf_kernel_on_other_plans(gen, cpb, groups,
+                                                   threads):
+    """Any plan the kernel takes (centers a block, slot groups, threads;
+    the cloud in one tile or in tiles of 256 points) gives the plain
+    version's output, fp32 and bf16: the staged rows (C = 5, M even and
+    odd) and the tiled rows (C = 16, M = 80) where the block allows."""
+    from lion_tpu_torch.ops._cuda import ptr, stream_of
+    from lion_tpu_torch.ops.points import _r2
+    pts = _randn(gen, 2, 900, 3, scale=0.3)
+    for m, c in ((78, 5), (77, 5), (80, 16)):
+        ctr = pts[:, :m].clone()
+        ctr[:, 0] = 5.0
+        for dt in (torch.float32, BF16):
+            f = _randn(gen, 2, 900, c).to(dt)
+            ref = ops.KERNELS["ball_query_group_cf"].plain(pts, ctr, f, 0.2,
+                                                           32)
+            for tile in (256, 900):
+                out = torch.empty(2, 32, 3 + c, m, dtype=dt, device="cuda")
+                _with_plan("lion_ball_query_group_cf", ptr(pts), ptr(ctr),
+                           ptr(f), ptr(out), 2, 900, m, c, 32, _r2(0.2),
+                           int(dt == BF16), cpb, groups, threads, tile,
+                           stream_of(pts))
+                assert torch.equal(out, ref)
 
 
 def test_ball_query_group_cf_backward_is_k2s(gen):

@@ -1,6 +1,9 @@
-"""The 3-NN interpolation kernel (K6, csrc/three_nn.cu) and the fused ball
-query + grouping kernel (K2, csrc/ball_query_group.cu) walked in numpy on
-the CPU, against the plain versions and the JAX package.
+"""The 3-NN interpolation kernel (K6, csrc/three_nn.cu) and the three ball
+queries, which share one scan (csrc/ball_scan.cuh): the fused ball query +
+grouping kernel (K2, csrc/ball_query_group.cu), the index ball query (K11,
+csrc/ball_query.cu) and the channel-first grouping (K13,
+csrc/ball_query_group_cf.cu), walked in numpy on the CPU, against the plain
+versions and the JAX package.
 
 The kernels run only on the card (tests/test_torch_port_gpu.py); this file
 holds their logic and plans:
@@ -24,9 +27,23 @@ holds their logic and plans:
     floats a thread, every (row, column) stepped without a divide. Its balls
     equal `_ball_query_plain`'s (K11's plain version) and its rows
     `_ball_query_group_plain`'s bit for bit and `lion_tpu`'s;
-  * the plans (`three_nn_plan`, `bqg_plan`) cover every point, center and
-    output element once, fill the H100 at the main path's levels within
-    its shared memory, and their limits are the sources' constants.
+  * K11: K2's scan, then each pair's 2 K slots written by its warp in
+    16-byte chunks (single ints when K % 4 != 0), the fill in registers.
+    Its balls equal `_ball_query_plain`'s and `lion_tpu`'s `ball_query`
+    (the XLA form, and the Pallas kernel in interpret mode);
+  * K13: a block of centers and a group of slots; K2's scan up to the
+    group's last slot and the fill, then the warps' units (a slot's
+    feature rows in chunks, the first with its 3 coordinate rows): 4 x 4
+    tiles loaded by rows and stored by columns where 4 divides C, M and
+    the block, else staged with lanes along the channels into the warp's
+    transpose buffer and written with lanes along (row, center). Its
+    output equals
+    `_ball_query_group_cf_plain`'s bit for bit and `lion_tpu`'s XLA form,
+    fp32 and bf16;
+  * the plans (`three_nn_plan`, `bqg_plan`, `bq_plan`, `bqg_cf_plan`)
+    cover every point, center and output element once, fill the H100 at
+    the main path's levels within its shared memory, and their limits are
+    the sources' constants.
 """
 import re
 from pathlib import Path
@@ -39,6 +56,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from lion_tpu.ops import interpolate as jinterp
 from lion_tpu.ops import points as jpoints
+from lion_tpu.ops.pallas.ball_query import ball_query_pallas
 from lion_tpu.ops.pallas.ball_query_group import ball_query_group_pallas
 from lion_tpu.ops.pallas.three_nn import three_nn_interpolate_pallas
 
@@ -48,8 +66,9 @@ from lion_tpu_torch.ops.interpolate import (
     THREE_NN_UNROLL, _three_nn_interpolate_plain, three_nn_plan)
 from lion_tpu_torch.ops.points import (
     BQG_CHUNKS, BQG_MAX_CENTERS, BQG_MAX_THREADS, BQG_MIN_BLOCKS,
-    BQG_SMEM_MAX, BQG_TILE, _ball_query_group_plain, _ball_query_plain, _r2,
-    bqg_plan, bqg_smem)
+    BQG_SMEM_MAX, BQG_TILE, CF_MIN_BLOCKS, CF_MIN_CENTERS, CF_ROWS,
+    _ball_query_group_cf_plain, _ball_query_group_plain, _ball_query_plain,
+    _r2, bq_plan, bq_smem, bqg_cf_plan, bqg_cf_smem, bqg_plan, bqg_smem)
 
 CSRC = Path(__file__).resolve().parents[1] / "lion_tpu_torch" / "csrc"
 F32 = np.float32
@@ -557,17 +576,26 @@ def test_k2_walk_equals_the_tpu_kernel_in_interpret_mode(c):
     np.testing.assert_allclose(out, np.asarray(want), rtol=2e-2, atol=2e-2)
 
 
-def test_k2_plan_constants_are_the_sources():
-    assert (_constant("ball_query_group.cu", "kMaxThreads"),
-            _constant("ball_query_group.cu", "kMaxCenters"),
-            _constant("ball_query_group.cu", "kTileN"),
-            _constant("ball_query_group.cu", "kChunks"),
-            _constant("ball_query_group.cu", "kSmemMax")) == (
+def _source(name):
+    return " ".join((CSRC / name).read_text().split())
+
+
+def _limits_are_the_sources(name):
+    """A ball query's limits and the shared scan's constants."""
+    assert (_constant(name, "kMaxThreads"), _constant(name, "kMaxCenters"),
+            _constant("ball_scan.cuh", "kTileN"),
+            _constant("ball_scan.cuh", "kChunks"),
+            _constant(name, "kSmemMax")) == (
         BQG_MAX_THREADS, BQG_MAX_CENTERS, BQG_TILE, BQG_CHUNKS, BQG_SMEM_MAX)
-    src = " ".join((CSRC / "ball_query_group.cu").read_text().split())
+    assert "constexpr int kRound = 32 * kChunks;" in _source("ball_scan.cuh")
+    assert '#include "ball_scan.cuh"' in _source(name)
+
+
+def test_k2_plan_constants_are_the_sources():
+    _limits_are_the_sources("ball_query_group.cu")
+    src = _source("ball_query_group.cu")
     assert ("return 16LL * (tile + kRound) + 16LL * (threads / 32) * 2 * k "
             "+ 4LL * cpb * k + 4LL * cpb;") in src
-    assert "constexpr int kRound = 32 * kChunks;" in src
     assert bqg_smem(3, 5, 7, 64) == 16 * (7 + 32 * BQG_CHUNKS) \
         + 16 * 2 * 2 * 5 + 4 * 3 * 5 + 4 * 3
 
@@ -608,3 +636,351 @@ def test_k2_plan_fills_the_card_at_every_sa_level(b):
         assert threads == min(BQG_MAX_THREADS, 32 * -(-cpb // 2)) or cpb <= 2
         if n == 2048:   # an SM's 228 KB, less 1 KB a block
             assert 4 * (smem + 1024) <= 228 * 1024
+
+
+# --------------------------------------------------------------------------
+# K11 and K13: K2's scan with their own epilogues
+# --------------------------------------------------------------------------
+def _fill(sel, count, k):
+    """A scanned ball's slots (-1 unset) filled as the kernels fill them:
+    slots past the hit count copy slot 0, an empty ball takes point 0."""
+    found = min(count, k)
+    assert (sel[:found] >= 0).all() and (sel[found:] < 0).all()
+    sel = sel.copy()
+    sel[found:] = sel[0] if found else 0
+    return sel
+
+
+def _k11_walk(points, centers, radius, k, plan=None):
+    """K11 on (B, N, 3), (B, M, 3) float32 numpy: balls (B, M, K) int32.
+    Blocks of cpb centers; each warp scans a pair and writes its 2 K slots
+    (one span of the output), lane l taking the v-int chunks l, l + 32,
+    ..., each within one center's slots."""
+    b, n, _ = points.shape
+    m = centers.shape[1]
+    cpb, _, tile, _ = plan or bq_plan(b, n, m, k)    # any threads
+    r2 = F32(_r2(radius))
+    v = 4 if k % 4 == 0 else 1
+    out = np.full((b, m * k), -1, np.int64)
+    seen = np.zeros((b, m * k), np.int64)
+    for i in range(b):
+        for m0 in range(0, m, cpb):
+            end = min(m0 + cpb, m)
+            for ca in range(m0, end, 2):
+                nc = min(2, end - ca)
+                slots = np.concatenate([_fill(sel, count, k) for sel, count
+                                        in _k2_scan(points[i],
+                                                    centers[i, ca:ca + nc],
+                                                    r2, k, tile)])
+                for lane in range(32):
+                    for e in range(v * lane, nc * k, 32 * v):
+                        assert e // k == (e + v - 1) // k   # one center
+                        out[i, ca * k + e:ca * k + e + v] = slots[e:e + v]
+                        seen[i, ca * k + e:ca * k + e + v] += 1
+    assert (seen == 1).all()
+    return out.reshape(b, m, k).astype(np.int32)
+
+
+def _check_k11(pts, ctr, radius, k, plan=None, jax_ref=True):
+    balls = _k11_walk(pts, ctr, radius, k, plan)
+    np.testing.assert_array_equal(
+        balls, _ball_query_plain(torch.from_numpy(ctr), torch.from_numpy(pts),
+                                 radius, k).numpy())
+    if jax_ref:
+        np.testing.assert_array_equal(balls, np.asarray(jpoints.ball_query(
+            jnp.asarray(ctr), jnp.asarray(pts), radius, k)))
+    return balls
+
+
+def _bf16(x):
+    """float32 values rounded to bf16 (nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, F32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _k13_walk(points, centers, feats, radius, k, bf16=False, plan=None):
+    """K13 on float32 numpy inputs (features holding bf16 values when
+    `bf16`): (B, K, 3 + C, M) float32 (bf16 values when `bf16`). Block
+    (centers m0.., slots s0..s1) scans its centers up to its last slot s1
+    (K2's scan, s1 slots a center) and fills its slots; its warps take the
+    units (a slot's feature rows in chunks, the first with the 3 coordinate
+    rows, which lane j = center j writes) in turn. Where kTile divides C,
+    M and cpb, a unit's rows go out as kTile x kTile tiles, each a lane's:
+    kTile rows (centers) loaded, kTile columns (channels) stored; else a
+    unit is staged with lanes along the channels into a (kRows, cpb + 1)
+    buffer and written with lanes along (row, center)."""
+    b, n, _ = points.shape
+    m, c = centers.shape[1], feats.shape[2]
+    size = 2 if bf16 else 4
+    cpb, groups, threads, tile, _ = plan or bqg_cf_plan(b, n, m, c, k, size)
+    assert cpb & (cpb - 1) == 0 and 1 <= groups <= k and threads % 32 == 0
+    r2 = F32(_r2(radius))
+    q_ = _constant("ball_query_group_cf.cu", "kTile")
+    tiled = c % q_ == 0 and m % q_ == 0 and cpb % q_ == 0
+    quads = _constant("ball_query_group_cf.cu", "kQuads")
+    rows = quads * q_ if tiled else _constant("ball_query_group_cf.cu",
+                                              "kRows")
+    stride, shift = cpb + 1, cpb.bit_length() - 1
+    ks = -(-k // groups)
+    rnd = _bf16 if bf16 else (lambda x: x)
+    out = np.full((b, k, 3 + c, m), np.nan, F32)
+    seen = np.zeros((b, k, 3 + c, m), np.int64)
+
+    def put(i, s, row, col, val):
+        out[i, s, row, col] = val
+        np.add.at(seen[i, s], (row, col), 1)
+
+    for i in range(b):
+        for m0 in range(0, m, cpb):
+            ncent = min(cpb, m - m0)
+            for s0 in range(0, k, ks):                 # no group empty
+                s1 = min(k, s0 + ks)
+                sel = np.concatenate([
+                    [_fill(s, count, s1) for s, count in _k2_scan(
+                        points[i], centers[i, m0 + ca:m0 + min(ca + 2, ncent)],
+                        r2, s1, tile)] for ca in range(0, ncent, 2)])
+                for s in range(s0, s1):
+                    for ch0 in range(0, max(c, 1), rows):   # a warp's unit
+                        if ch0 == 0:   # coordinates: lane j, center j
+                            j = np.arange(ncent)
+                            for d in range(3):
+                                put(i, s, d, m0 + j, rnd(
+                                    points[i, sel[j, s], d]
+                                    - centers[i, m0 + j, d]))
+                        if tiled:      # tile t: group t % G, quad t // G
+                            t = np.arange(cpb // q_ * quads)
+                            j0 = t % (cpb // q_) * q_
+                            c0 = ch0 + t // (cpb // q_) * q_
+                            live = (j0 < ncent) & (c0 < c)
+                            j0, c0 = j0[live], c0[live]
+                            e = np.arange(q_)
+                            jj = (j0[:, None, None] + e[None, None, :])
+                            cc = (c0[:, None, None] + e[None, :, None])
+                            # row e of a tile loaded, column e stored
+                            put(i, s, 3 + cc, m0 + jj,
+                                feats[i, sel[jj, s], cc])
+                            continue
+                        nr = max(0, min(rows, c - ch0))
+                        buf = np.full(rows * stride, np.nan, F32)
+                        lane, j = np.arange(nr)[:, None], np.arange(ncent)
+                        buf[lane * stride + j] = feats[i, sel[j, s],
+                                                       ch0 + lane]
+                        e = np.arange(nr * cpb)      # lanes' (row, center)
+                        r, j = e >> shift, e & (cpb - 1)
+                        r, j = r[j < ncent], j[j < ncent]
+                        put(i, s, 3 + ch0 + r, m0 + j, buf[r * stride + j])
+    assert (seen == 1).all()
+    return out
+
+
+def _check_k13(pts, ctr, feats, radius, k, bf16=False, plan=None,
+               jax_ref=True):
+    if bf16:
+        feats = _bf16(feats)
+    out = _k13_walk(pts, ctr, feats, radius, k, bf16, plan)
+    tf = torch.from_numpy(feats)
+    tf = tf.to(torch.bfloat16) if bf16 else tf
+    want = _ball_query_group_cf_plain(torch.from_numpy(pts),
+                                      torch.from_numpy(ctr), tf, radius, k)
+    assert want.dtype == tf.dtype
+    _bits_equal(out, want.float().numpy())
+    if jax_ref:
+        jf = jnp.asarray(feats).astype(jnp.bfloat16 if bf16 else jnp.float32)
+        got = jpoints.ball_query_group_cf(jnp.asarray(pts), jnp.asarray(ctr),
+                                          jf, radius, k)
+        _bits_equal(out, np.asarray(got.astype(jnp.float32)))
+    return out
+
+
+@pytest.mark.parametrize("n,m,radius,k", [
+    (256, 64, 0.4, 32),                            # the main path's levels
+    (64, 16, 0.8, 32),
+    (200, 50, 0.25, 13),                           # K % 4 != 0
+    (130, 20, 0.5, 8),
+    (4100, 9, 0.1, 16),                            # beyond one cloud tile
+])
+def test_k11_walk_equals_the_plain_version_and_lion_tpu(n, m, radius, k):
+    pts, ctr, _ = _bqg_inputs(n + m, 2, n, m, 0)
+    balls = _check_k11(pts, ctr, radius, k)
+    assert (balls[:, 0] == 0).all()                # the empty ball
+
+
+def test_k11_and_k13_walks_exact_and_more_than_k_hits_and_the_last_chunk():
+    """K2's hand-made balls (exactly K hits, 3K, hits only in the last
+    partial chunk, empty) through K11's and K13's epilogues, and K > N
+    (padded with the first hit)."""
+    rs = np.random.RandomState(5)
+    k, n = 16, 300                     # 300 = 2 rounds of 128 + 44 points
+    pts = (rs.rand(1, n, 3) * 10 + 2).astype(F32)     # all far from 0
+    ctr = np.zeros((1, 4, 3), F32)
+    ctr[0, 1], ctr[0, 2], ctr[0, 3] = 20.0, -20.0, 40.0
+    pts[0, 5:5 + k] = 0.01 * rs.randn(k, 3)            # exactly K at 0
+    pts[0, 100:100 + 3 * k] = 20.0 + 0.01 * rs.randn(3 * k, 3)   # 3K at 20
+    pts[0, 289:299] = -20.0 + 0.01 * rs.randn(10, 3)   # the last chunk
+    feats = rs.randn(1, n, 6).astype(F32)
+    balls = _check_k11(pts, ctr, 0.5, k)
+    np.testing.assert_array_equal(balls[0, 0], np.arange(5, 5 + k))
+    np.testing.assert_array_equal(balls[0, 1], np.arange(100, 100 + k))
+    np.testing.assert_array_equal(
+        balls[0, 2], np.r_[np.arange(289, 299), [289] * (k - 10)])
+    assert (balls[0, 3] == 0).all()                    # an empty ball
+    out = _check_k13(pts, ctr, feats, 0.5, k)
+    np.testing.assert_array_equal(out[0, :, 3:, 2], feats[0, balls[0, 2]])
+    # K > N: every point in the ball, then the first hit again (the XLA
+    # form refuses K > N)
+    small = pts[:, 5:12].copy()
+    balls = _check_k11(small, ctr[:, :1], 0.5, 12, jax_ref=False)
+    np.testing.assert_array_equal(balls[0, 0], np.r_[np.arange(7), [0] * 5])
+    _check_k13(small, ctr[:, :1], feats[:, 5:12], 0.5, 12, jax_ref=False)
+
+
+@pytest.mark.parametrize("cpb,threads", [(1, 32), (32, 256), (8, 64),
+                                         (4, 128)])
+@pytest.mark.parametrize("k", [12, 13])
+def test_k11_walk_on_every_kind_of_plan(cpb, threads, k):
+    """Any valid plan gives the same balls: M off the block's centers, a
+    tile shorter than the cloud, both the 16-byte and the single writes."""
+    pts, ctr, _ = _bqg_inputs(cpb + k, 2, 700, 37, 0)
+    tile = 256
+    _check_k11(pts, ctr, 0.2, k, (cpb, threads, tile, bq_smem(cpb, k, tile)),
+               jax_ref=False)
+
+
+def test_k11_walk_equals_the_tpu_kernel_in_interpret_mode():
+    pts, ctr, _ = _bqg_inputs(3, 2, 128, 16, 0)
+    balls = _k11_walk(pts, ctr, 0.5, 8)
+    with pltpu.force_tpu_interpret_mode():
+        want = ball_query_pallas(jnp.asarray(ctr), jnp.asarray(pts), 0.5, 8)
+    np.testing.assert_array_equal(balls, np.asarray(want))
+
+
+@pytest.mark.parametrize("n,m,c,radius,k", [
+    (256, 64, 128, 0.4, 32),                       # the CF shapes' SA2
+    (300, 40, 0, 0.2, 16),                         # C = 0
+    (200, 51, 5, 0.25, 13),                        # K (3 + C) % 4 != 0, M odd
+    (4100, 10, 37, 0.1, 8),                        # beyond a tile; 2 chunks
+])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k13_walk_equals_the_plain_version_and_lion_tpu(n, m, c, radius, k,
+                                                        bf16):
+    pts, ctr, feats = _bqg_inputs(n + m + c, 2, n, m, c)
+    out = _check_k13(pts, ctr, feats, radius, k, bf16)
+    if c:                                          # the empty ball
+        want = _bf16(feats[:, 0]) if bf16 else feats[:, 0]
+        assert (out[:, :, 3:, 0] == want[:, None]).all()
+
+
+@pytest.mark.parametrize("cpb,groups,threads", [
+    (1, 1, 32), (32, 1, 256), (8, 4, 64), (16, 32, 128), (2, 3, 96)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k13_walk_on_every_kind_of_plan(cpb, groups, threads, bf16):
+    """Any valid plan gives the same output: M off the block's centers, a
+    tile shorter than the cloud, slot groups that do not divide K, blocks
+    of one center; the staged rows (C = 5) and the tiled ones (C = 16,
+    M = 40, where the block allows)."""
+    tile, k, size = 256, 32, 2 if bf16 else 4
+    plan = (cpb, groups, threads, tile,
+            bqg_cf_smem(cpb, k, tile, threads, size))
+    for m, c in ((38, 5), (40, 16)):
+        pts, ctr, feats = _bqg_inputs(cpb + groups + c, 1, 700, m, c)
+        _check_k13(pts, ctr, feats, 0.2, k, bf16, plan, jax_ref=False)
+
+
+def test_k11_plan_constants_are_the_sources():
+    _limits_are_the_sources("ball_query.cu")
+    assert ("return 16LL * (tile + kRound) + 4LL * cpb * k + 4LL * cpb;"
+            in _source("ball_query.cu"))
+    assert bq_smem(3, 5, 7) == 16 * (7 + 32 * BQG_CHUNKS) + 4 * 3 * 5 + 4 * 3
+
+
+def test_k13_plan_constants_are_the_sources():
+    _limits_are_the_sources("ball_query_group_cf.cu")
+    assert _constant("ball_query_group_cf.cu", "kRows") == CF_ROWS
+    src = _source("ball_query_group_cf.cu")
+    assert ("const long long bufs = (threads / 32) * kRows * (cpb + 1LL) * "
+            "size; const long long cloud = 16LL * (tile + kRound); return "
+            "cloud > bufs ? cloud : (bufs + 15) / 16 * 16;") in src
+    assert ("return scan_area(cpb, tile, threads, size) + 8LL * cpb * k + "
+            "4LL * cpb;") in src
+    assert bqg_cf_smem(4, 5, 7, 64, 2) == 16 * (7 + 32 * BQG_CHUNKS) \
+        + 8 * 4 * 5 + 4 * 4
+    assert bqg_cf_smem(32, 5, 7, 256, 4) == 8 * 32 * 33 * 4 + 8 * 32 * 5 \
+        + 4 * 32
+    assert bqg_cf_smem(32, 5, 7, 256, 2) == 8 * 32 * 33 * 2 + 8 * 32 * 5 \
+        + 4 * 32
+
+
+# the three ball queries take K = 32 on the main path; others as the tests'
+PLAN_CASES = ((32, 32), (2048, 8), (5000, 64), (300, 13))
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_k11_plan_covers_every_center_once(b):
+    """Centers a block a power of two up to the limit and below 2 M; the
+    blocks tile [0, M) once; the most threads (a warp a pair of centers,
+    the rest staging the cloud); the tile covers the cloud or is the
+    limit; shared memory within the H100's."""
+    for m in list(range(1, 70)) + [256, 1000, 1024]:
+        for n, k in ((m + 3, 32),) + PLAN_CASES:
+            cpb, threads, tile, smem = bq_plan(b, n, m, k)
+            assert cpb & (cpb - 1) == 0 and 1 <= cpb <= BQG_MAX_CENTERS
+            assert cpb == 1 or cpb < 2 * m
+            blocks = -(-m // cpb)
+            assert blocks * cpb >= m > (blocks - 1) * cpb
+            assert threads == BQG_MAX_THREADS
+            assert tile == min(n, BQG_TILE)
+            assert smem == bq_smem(cpb, k, tile) <= SMEM_BYTES
+            assert blocks * b >= BQG_MIN_BLOCKS or cpb == 1 \
+                or cpb == BQG_MAX_CENTERS
+    with pytest.raises(ValueError):
+        bq_plan(b, 100, 10, 60000)                 # K beyond shared memory
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_k13_plan_covers_every_element_once(b):
+    """Centers a block a power of two, below 2 M unless at the sector's
+    floor; the blocks tile [0, M) once; the slot groups tile [0, K),
+    none empty; shared memory (the tile, two
+    transposes, the slots) within the H100's."""
+    for m in list(range(1, 40)) + [256, 1000, 1024]:
+        for n, k in PLAN_CASES:
+            for c in (0, 5, 32, 192):
+                for size in (4, 2):
+                    cpb, groups, threads, tile, smem = bqg_cf_plan(
+                        b, n, m, c, k, size)
+                    assert cpb & (cpb - 1) == 0
+                    assert 1 <= cpb <= BQG_MAX_CENTERS
+                    assert cpb <= CF_MIN_CENTERS or cpb < 2 * m
+                    blocks = -(-m // cpb)
+                    assert blocks * cpb >= m > (blocks - 1) * cpb
+                    assert 1 <= groups <= k
+                    assert -(-k // -(-k // groups)) == groups   # none empty
+                    assert threads == BQG_MAX_THREADS
+                    assert tile == min(n, BQG_TILE)
+                    assert smem == bqg_cf_smem(cpb, k, tile, threads,
+                                               size) <= SMEM_BYTES
+    with pytest.raises(ValueError):
+        bqg_cf_plan(b, 100, 10, 5, 60000, 4)       # K beyond shared memory
+
+
+@pytest.mark.parametrize("b", [4, 16])
+def test_k11_and_k13_plans_fill_the_card_at_every_sa_level(b):
+    """At B4 and B16 every SA level launches two blocks an SM for K11 but
+    for M16's 64 centers at B4 and 256 at B16, which run one a block, and
+    CF_MIN_BLOCKS for K13 (fp32 and bf16; the slots split in groups once
+    a block holds CF_MIN_CENTERS); K13 keeps four blocks an SM at
+    N2048."""
+    for n, m, c, _ in SA_LEVELS:
+        cpb = bq_plan(b, n, m, 32)[0]
+        blocks = -(-m // cpb) * b
+        assert blocks >= BQG_MIN_BLOCKS or (cpb == 1 and blocks == m * b)
+        for size in (4, 2):
+            cpb, groups, _, _, smem = bqg_cf_plan(b, n, m, c, 32, size)
+            blocks = -(-m // cpb) * b * groups
+            assert blocks >= CF_MIN_BLOCKS or groups == 32
+            assert cpb >= CF_MIN_CENTERS
+            if groups > 1:           # the fewest groups, at the floor
+                assert cpb == CF_MIN_CENTERS
+                assert -(-m // cpb) * b * (groups // 2) < CF_MIN_BLOCKS
+            if n == 2048:   # an SM's 228 KB, less 1 KB a block
+                assert 4 * (smem + 1024) <= 228 * 1024
