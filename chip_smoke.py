@@ -26,7 +26,11 @@ non-zero:
      for bit, with its times per level; K3 (fp32, bf16), K4 (every case
      above), K7 (SA0, SA3),
      K8 and K9 run twice and must repeat bit for bit, and K3 must equal the
-     float32 sum in point order over the count.
+     float32 sum in point order over the count. K10 also runs at the
+     stage-1 step's shapes at its batch of 32 (the style encoder's and the
+     encoder's forward convs, and the dx of the decoder's first conv, Co =
+     4), each held to its plain version within 1e-4 (outputs of size ~1-5)
+     beside cuDNN.
   4. forward parity: one full-width local-prior forward (batch 2) on the
      card against the same module on the CPU (plain versions), in fp32 and
      in bf16, and the card's bf16 forward against its fp32 one. Then the
@@ -61,7 +65,20 @@ non-zero:
      version run. One 16 x 16 block of the EMD matrix is checked against
      the plain version on the card, and its diagonal (the paired CD and
      EMD) against the CPU plain version.
- 11. with `--eval-n N`: N generated against N reference clouds scored
+ 11. stage-1 gradient parity: one full-width flagship VAE `get_loss`
+     (batch 2, dropout 0, `l1_sum`, train mode) and its gradients on the
+     card against the same module on the CPU, on the same x and posterior
+     draws.
+ 12. stage-1 main path: a synthetic PointFlow-layout dataset made from a
+     seed (15000-point clouds) in a temporary directory, and the flagship
+     VAE trained on it by `trainers.hvae_trainer.Trainer(cfg, args)
+     .train_epochs()` at the released batch of 32 (`l1_sum`, the KL anneal,
+     dropout on): 2 warm-up and 5 timed steps; the losses, parameters and
+     EMA must stay finite and change; the final checkpoint resumed by a
+     second Trainer must equal it (parameters, EMA, Adam state, epoch,
+     step); then `eval_nll` on the test split (K12). Every kernel of the
+     path must have launched and no plain version run.
+ 13. with `--eval-n N`: N generated against N reference clouds scored
      without sampling (662 is the chair test set, the counterpart of
      scripts/bench_eval.py).
 Beside each kernel the JSON line gives its bound on the card (the larger of
@@ -104,11 +121,16 @@ TRAIN_PATH = FP32_PATH + ("conv3d_3x3_same", "ball_query")
 # path and scores with K12.
 CF_PATH = ("ball_query_group_cf",)
 EVAL_PATH = BF16_PATH + ("emd_cost",)
+# the stage-1 trainer: the three networks of the VAE in train mode (K1, K2,
+# K3, K5, K6, K10 forward and dx, K11), and eval_nll's reconstruction in
+# eval mode (K1-K6) scored with K12
+VAE_TRAIN_PATH = TRAIN_PATH + ("emd_cost",)
 REPORT_ORDER = FP32_PATH + ("sa_fused", "conv3d_pair", "pvconv_block_pair",
                             "conv3d_3x3_same", "ball_query",
                             "ball_query_group_cf", "emd_cost")
 BATCH_TRAIN = 16   # scripts/profile_train_step.py's batch
 WARMUP_STEPS, TRAIN_STEPS = 2, 5
+BATCH_VAE = 32     # stage 1's released batch a GPU (script/train_vae.sh)
 # (N, M, C, radius) of SA0-SA2, K = 32, batch 16 (scripts/profile_bqg_cf.py)
 CF_SHAPES = ((2048, 1024, 32, 0.1), (1024, 256, 64, 0.2), (256, 64, 128, 0.4))
 EVAL_SHAPES, EVAL_BATCH, EVAL_DDIM_STEPS = 64, 16, 50
@@ -382,6 +404,23 @@ def _conv_same_check(randn, case, b, r, ci, co, iters):
         lambda: F.conv3d(xc, wc, padding=1))
 
 
+def _conv_dx_check(randn, b, r, ci, co, iters):
+    """K10 as the dx of a (ci -> co) conv: the output's gradient (co
+    channels) through the flipped, transposed weights to ci channels, with
+    cuDNN's `conv3d_input` beside it."""
+    gy = randn(b, r, r, r, co)
+    w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+    w_flip = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+    gyc, wc = _ncdhw(gy), _oidhw(w)
+    shape = (b, ci, r, r, r)
+    return KernelCheck(
+        "conv3d_3x3_same", f"dx B{b} r{r} C{co}->{ci}", (gy, w_flip), {},
+        _close(1e-4, 1e-4), iters, iters,
+        bound(nbytes(gy, w) + b * r ** 3 * ci * 4,
+              fp32_ops=_conv_ops(b, r, co, ci)),
+        lambda: torch.nn.grad.conv3d_input(shape, wc, gyc, padding=1))
+
+
 def _emd_work(sample, ref, pairs):
     """K12's bound: each cloud and the pair list read once, one cost per
     pair written; per (n, m) entry of a pair the matmul-form distance (8
@@ -577,7 +616,8 @@ def phase_kernels():
     from lion_tpu_torch.eval.metrics import block_pairs
     from lion_tpu_torch.ops._cuda import no_tf32
     from lion_tpu_torch.ops.voxel import normalize_coords
-    from lion_tpu_torch.profile_step import K4_CASES
+    from lion_tpu_torch.profile_step import (K4_CASES, STAGE1_K10_CASES,
+                                             STAGE1_K10_DX)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     b = BATCH_KERNELS
@@ -618,9 +658,6 @@ def phase_kernels():
     block_args = (fb, vox8, nc8, w128b, randn(128, scale=0.1),
                   1.0 + randn(b, 128, scale=0.1), randn(b, 128, scale=0.1),
                   w128b, 8)
-    gx = randn(b, 32, 32, 32, 64)
-    w64_flip = w64.flip(0, 1, 2).transpose(3, 4).contiguous()
-    gxc, w64c = _ncdhw(gx), _oidhw(w64)
     # K12 on one EMD block of the metrics (16 x 33 pairs of 2048-point
     # clouds, two waves of two CTAs per SM), and N != M both ways
     emd_s, emd_r = randn(16, 2048, 3, scale=0.3), randn(33, 2048, 3,
@@ -703,12 +740,15 @@ def phase_kernels():
         _conv_same_check(randn, "B16 r32 C4->32", b, 32, 4, 32, 10),
         _conv_same_check(randn, "B16 r16 C128->64", b, 16, 128, 64, 10),
         _conv_same_check(randn, "B16 r8 C192->128", b, 8, 192, 128, 20),
-        KernelCheck("conv3d_3x3_same", "dx B16 r32 C64", (gx, w64_flip), {},
-                    _close(1e-4, 1e-4), 5, 5,
-                    bound(nbytes(gx, w64, gx),
-                          fp32_ops=_conv_ops(b, 32, 64, 64)),
-                    lambda: torch.nn.grad.conv3d_input(
-                        gxc.shape, w64c, gxc, padding=1)),
+        _conv_dx_check(randn, b, 32, 64, 64, 5),
+        # K10 at the stage-1 step's shapes at its batch: the forward convs
+        # the two-prior step never runs, and the dx of the decoder's first
+        # conv (C4 -> 32) down to Co = 4
+        *(_conv_same_check(randn, f"B{BATCH_VAE} r{r} C{ci}->{co}",
+                           BATCH_VAE, r, ci, co, 5)
+          for r, ci, co in STAGE1_K10_CASES),
+        *(_conv_dx_check(randn, BATCH_VAE, r, co, ci, 5)
+          for r, ci, co in STAGE1_K10_DX),
         KernelCheck("ball_query", "B16 N2048 M1024 K32 r0.1",
                     (centers, cloud, 0.1, 32), {}, _exact, 20, 3,
                     bound(nbytes(centers, cloud) + b * 1024 * 32 * 4,
@@ -1001,6 +1041,17 @@ def phase_grad_parity(cfg):
         runs.append(({k: float(v.detach()) for k, v in metrics.items()},
                      grads))
         seconds.append(time.perf_counter() - t0)
+    # fp32 through the encode, two priors and their backward, with every
+    # sum taken in another order on each side; the index decisions (FPS,
+    # ball query, voxel rounding, 3-NN) match, so the gradients agree to
+    # fp32 rounding amplified by depth
+    return _grad_gate("grad parity", "flagship prior loss B2", runs, seconds)
+
+
+def _grad_gate(tag, label, runs, seconds):
+    """Hold the card's (metrics, gradients) to the CPU's: the loss within
+    1e-4 relative, the flattened gradient within 1e-3 relative L2; print
+    the worst tensor."""
     (ref_m, ref_g), (got_m, got_g) = runs
     loss_rel = abs(got_m["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
     diff = torch.cat([(got_g[k].double() - ref_g[k].double()).reshape(-1)
@@ -1012,15 +1063,11 @@ def phase_grad_parity(cfg):
         / max(float(ref_g[k].double().norm()), 1e-30)))
     worst_rel = float((got_g[worst].double() - ref_g[worst].double()).norm()
                       / ref_g[worst].double().norm())
-    log(f"[grad parity] flagship prior loss B2: card {got_m} vs cpu {ref_m}; "
+    log(f"[{tag}] {label}: card {got_m} vs cpu {ref_m}; "
         f"loss relative error {loss_rel:.3e} (limit 1e-4), flattened "
         f"gradient relative L2 {rel:.3e} (limit 1e-3) over {diff.numel()} "
         f"values; worst tensor {worst} {worst_rel:.3e}; cpu "
         f"{seconds[0]:.1f} s, card {seconds[1]:.2f} s (first call)")
-    # fp32 through the encode, two priors and their backward, with every
-    # sum taken in another order on each side; the index decisions (FPS,
-    # ball query, voxel rounding, 3-NN) match, so the gradients agree to
-    # fp32 rounding amplified by depth
     if not loss_rel <= 1e-4:
         raise AssertionError(f"loss: relative error {loss_rel:.3e}")
     if not rel <= 1e-3:
@@ -1078,6 +1125,155 @@ def phase_train(cfg, batch, warmup, steps):
         f"{batch * steps / wall:.3f} samples/s at batch {batch}; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     return counts
+
+
+def phase_vae_grad_parity(cfg):
+    """One full-width flagship VAE `get_loss` at batch 2 (dropout 0,
+    `l1_sum`, train mode: the modular PVConv flow on K10 and the SA blocks'
+    unfused branch), its gradients on the card against the same module on
+    the CPU."""
+    from lion_tpu_torch.models.vae import VAE
+    from lion_tpu_torch.nn import init_weights
+    from lion_tpu_torch.ops._cuda import no_tf32
+    cfg.ddpm.dropout = 0.0
+    cfg.ddpm.loss_type = "l1_sum"
+    cpu = VAE(cfg)
+    init_weights(cpu, torch.Generator().manual_seed(13))
+    with torch.device("cuda"):
+        gpu = VAE(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(2, 2048, 3, generator=g) * 0.3
+    rho = (torch.randn(2, 128, generator=g),
+           torch.randn(2, 2048 * 4, generator=g))
+    runs, seconds = [], []
+    for vae, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        t0 = time.perf_counter()
+        vae.train()
+        with no_tf32():
+            out = vae.get_loss(x.to(dev), rho=tuple(r.to(dev) for r in rho))
+            out["loss"].backward()
+        metrics = {k: float(out[k].detach()) for k in
+                   ("loss", "print/loss_0", "print/kl_glb", "print/kl_pt",
+                    "print/kl_feat")}
+        runs.append((metrics, {k: p.grad.detach().cpu()
+                               for k, p in vae.named_parameters()}))
+        seconds.append(time.perf_counter() - t0)
+    # the three networks and their backward in fp32, sums in other orders;
+    # FPS, ball query, voxel rounding and 3-NN decide alike on both sides
+    return _grad_gate("vae grad parity", "flagship VAE get_loss B2", runs,
+                      seconds)
+
+
+def _write_pointflow(root, counts, seed):
+    """A synthetic PointFlow-layout split (<root>/<synset>/<split>/*.npy)
+    of 15000-point clouds, each a random ellipsoid shell with noise."""
+    rs = np.random.RandomState(seed)
+    for split, count in counts.items():
+        d = os.path.join(root, "03001627", split)
+        os.makedirs(d)
+        for i in range(count):
+            v = rs.randn(15000, 3)
+            v /= np.linalg.norm(v, axis=1, keepdims=True)
+            pts = v * rs.uniform(0.2, 0.5, 3) + 0.01 * rs.randn(15000, 3)
+            np.save(os.path.join(d, f"{i:04d}.npy"), pts.astype(np.float32))
+
+
+def phase_vae_trainer(batch, warmup, steps):
+    """The flagship stage-1 trainer: `Trainer(cfg, args).train_epochs()`
+    over one epoch of warmup + steps batches of a synthetic dataset, a
+    resume of its final checkpoint, and `eval_nll` on the test split; the
+    launch counters are zeroed just before the epoch and read just after
+    eval_nll."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.config import flagship_cfg
+    from lion_tpu_torch.trainers.hvae_trainer import Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        _write_pointflow(data, {"train": (warmup + steps) * batch,
+                                "val": batch, "test": batch}, seed=41)
+        cfg = flagship_cfg()
+        cfg.data.cates = "chair"
+        cfg.data.batch_size = cfg.data.batch_size_test = batch
+        cfg.data.eval_test_split = 1
+        cfg.ddpm.loss_type = "l1_sum"
+        cfg.trainer.anneal_kl = 1
+        cfg.trainer.epochs = 1
+        cfg.viz.viz_freq = 0
+        args = argparse.Namespace(save_dir=os.path.join(tmp, "exp"),
+                                  data_root=data)
+        trainer = Trainer(cfg, args)
+        step = trainer.step_fn
+        n_params = sum(p.numel() for p in step.params)
+        log(f"[vae train] flagship VAE, {n_params} params, data and init "
+            f"{time.perf_counter() - t0:.1f} s; batch {batch}, {warmup} "
+            f"warm-up + {steps} timed steps of Trainer.train_epochs")
+        params0 = [p.detach().clone() for p in step.params]
+        ema0 = [e.clone() for e in step.ema.shadow]
+        ends, losses = [], []
+        train_iter = trainer.train_iter
+
+        def timed_iter(b, step):
+            metrics = train_iter(b, step)   # floats: synchronised
+            ends.append(time.perf_counter())
+            losses.append(metrics)
+            return metrics
+        trainer.train_iter = timed_iter
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        trainer.train_epochs()
+        peak = torch.cuda.max_memory_allocated()
+        train_counts = {n: w.launches for n, w in ops.KERNELS.items()}
+        log(f"[vae train] losses: {[round(m['loss'], 3) for m in losses]}; "
+            f"kl weights {[m['print/kl_weight'] for m in losses]}")
+        if trainer.step != warmup + steps or not all(
+                np.isfinite(list(m.values())).all() for m in losses):
+            raise AssertionError(f"{trainer.step} steps, losses {losses}")
+        for name, now, before in (("parameters", step.params, params0),
+                                  ("EMA", step.ema.shadow, ema0)):
+            if not all(bool(torch.isfinite(p).all()) for p in now):
+                raise AssertionError(f"non-finite {name}")
+            moved = sum(int((p.detach() != q).sum())
+                        for p, q in zip(now, before))
+            log(f"[vae train] {name}: {moved} of {n_params} values changed")
+            if moved == 0:
+                raise AssertionError(f"the {name} did not change")
+        wall = ends[-1] - ends[warmup - 1]
+        log(f"[vae train] {wall / steps * 1e3:.3f} ms/step, "
+            f"{batch * steps / wall:.3f} samples/s at batch {batch}; peak "
+            f"device memory {peak / 2 ** 30:.3f} GiB; launches a step "
+            f"{ {n: c // (warmup + steps) for n, c in train_counts.items() if c} }")
+
+        t0 = time.perf_counter()
+        again = Trainer(cfg, args)
+        again.resume(os.path.join(trainer.ckpt_dir, "final.npz"))
+        other = again.step_fn
+        pairs = [("parameters", step.params, other.params),
+                 ("EMA", step.ema.shadow, other.ema.shadow),
+                 *zip(("Adam mu", "Adam nu"), step.optimizer.moments(),
+                      other.optimizer.moments())]
+        for name, a, b in pairs:
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"resumed {name} differ")
+        if (again.epoch, again.step, other.optimizer.count) != (
+                trainer.epoch, trainer.step, step.optimizer.count):
+            raise AssertionError("resumed epoch / step / count differ")
+        log(f"[vae train] final.npz resumed by a second Trainer: parameters, "
+            f"EMA, Adam state, epoch {again.epoch}, step {again.step} equal "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del again, other
+
+        t0 = time.perf_counter()
+        results = trainer.eval_nll()
+        if not np.isfinite([results["MMD-CD"], results["MMD-EMD"]]).all():
+            raise AssertionError(f"eval_nll: {results}")
+        log(f"[vae train] eval_nll on the test split ({batch} clouds): CD "
+            f"{results['MMD-CD']:.6f}, EMD {results['MMD-EMD']:.6f} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        trainer.writer.close()
+    return _path_counts(VAE_TRAIN_PATH, "vae train")
 
 
 def phase_cf_op(batch):
@@ -1292,6 +1488,8 @@ def main(argv=None):
     phase_grad_parity(flagship_cfg())
     train = phase_train(flagship_cfg(), BATCH_TRAIN, WARMUP_STEPS,
                         TRAIN_STEPS)
+    phase_vae_grad_parity(flagship_cfg())
+    vae_train = phase_vae_trainer(BATCH_VAE, WARMUP_STEPS, TRAIN_STEPS)
     cf = phase_cf_op(BATCH_KERNELS)
     cfg_eval = flagship_cfg()
     cfg_eval.tpu.bf16 = True
@@ -1302,7 +1500,7 @@ def main(argv=None):
         phase_eval_scale(args.eval_n)
 
     paths = {"fp32": fp32, "bf16": bf16, "train": train, "cf_op": cf,
-             "eval": evaluation}
+             "eval": evaluation, "vae_train": vae_train}
     report = []
     for name in REPORT_ORDER:
         w = KERNELS[name]

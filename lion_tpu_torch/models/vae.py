@@ -1,12 +1,16 @@
-"""Hierarchical VAE: encode and decode (port of `VAE.encode` and
-`VAE.sample`, lion_tpu/models/vae.py:150-171,255-275).
+"""Hierarchical VAE: encode, reconstruct, the ELBO and decode (port of
+`VAE.encode`, `recont`, `get_loss` and `sample`,
+lion_tpu/models/vae.py:150-275).
 
 The style encoder (`style_encoder.`), the latent-points encoder
 (`encoder.`) and the decoder (`decoder.`) sit under the names of the JAX
 tree, so the whole JAX VAE loads with a flatten (ckpt/from_jax.py).
 `encode` is what the two-prior training step runs, frozen and in eval mode;
-`recont`, the losses and the stage-1 VAE step are later work (ROADMAP
-Queue 1 item 10).
+`get_loss` is the stage-1 objective that `trainers.make_vae_train_step`
+trains, in train mode (dropout, the PVConv modular flow on K10). The
+module's mode decides the flow, where the JAX methods take `train=`.
+The class-conditional decoder (`data.cond_on_cat`) is refused (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from torch import nn
 
 from ..config.view import as_view
 from ..nn.common import compute_dtype
+from ..utils.losses import loss_fn
 from .distributions import Normal
 from .encoders import (LATENT_PTS_FP_BLOCKS, LATENT_PTS_SA_BLOCKS,
                        LatentPointDecPVC, PointNetPlusEncoder, PointTransPVC)
@@ -44,9 +49,11 @@ class VAE(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
+        self.cfg = cfg
         cfg = as_view(cfg)
         if cfg.data.cond_on_cat:
-            raise NotImplementedError("class-conditional decoding not ported")
+            raise NotImplementedError("class-conditional decoding is not "
+                                      "ported (ROADMAP Queue 1 item 12)")
         for name, want in (
                 (cfg.latent_pts.style_encoder, "PointNetPlusEncoder"),
                 (cfg.shapelatent.encoder_type, "PointTransPVC"),
@@ -61,6 +68,13 @@ class VAE(nn.Module):
         self.num_points = cfg.data.tr_max_sample_points
         self.style_dim = cfg.latent_pts.style_dim
         self.log_sigma_offset = cfg.shapelatent.log_sigma_offset
+        self.kl_weight = cfg.shapelatent.kl_weight
+        self.loss_type = cfg.ddpm.loss_type
+        self.loss_weight_emd = cfg.ddpm.loss_weight_emd
+        self.weight_recont = cfg.weight_recont
+        self.weight_kl = (cfg.latent_pts.weight_kl_glb,
+                          cfg.latent_pts.weight_kl_pt,
+                          cfg.latent_pts.weight_kl_feat)
         vres_mult = cfg.tpu.vres_mult if "tpu" in cfg else 1.0
         ncenter_mult = cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0
         sa_blocks, fp_blocks = spec_overrides(cfg)
@@ -107,6 +121,53 @@ class VAE(nn.Module):
         latent_list = [(z_global, dist_global.mu, dist_global.log_sigma),
                        (z_local, dist_local.mu, dist_local.log_sigma)]
         return all_eps, all_log_q, latent_list
+
+    def recont(self, x, target=None, generator=None, rho=None) -> dict:
+        """The reconstruction pass: encode x, decode z_local under the raw
+        z_global (lion_tpu/models/vae.py:173-201). Returns all_eps,
+        all_log_q, latent_list, x_0_pred, x_0_target and final_pred."""
+        all_eps, all_log_q, latent_list = self.encode(x, generator, rho)
+        x_0_pred = self.decoder(latent_list[1][0], latent_list[0][0])
+        return {"all_eps": all_eps, "all_log_q": all_log_q,
+                "latent_list": latent_list, "x_0_pred": x_0_pred,
+                "x_0_target": x if target is None else target,
+                "final_pred": x_0_pred}
+
+    def get_loss(self, x, kl_weight=None, noisy_input=None, generator=None,
+                 rho=None) -> dict:
+        """The ELBO with per-group weighted KL (lion_tpu/models/vae.py:
+        203-253): `recont`'s outputs and loss, rec_loss, and the metrics
+        print/loss_0, print/kl_glb, print/kl_pt, print/kl_feat,
+        print/kl_weight, msg/kl and msg/rec. `kl_weight` is the annealed
+        weight (shapelatent.kl_weight when None); `noisy_input`, when
+        given, is encoded in place of x, which stays the target."""
+        if kl_weight is None:
+            kl_weight = self.kl_weight
+        b = x.shape[0]
+        inputs = x if noisy_input is None else noisy_input
+        output = self.recont(inputs, target=x, generator=generator, rho=rho)
+        loss_0 = torch.mean(loss_fn(
+            output["x_0_pred"], output["x_0_target"], self.loss_type,
+            self.input_dim, b, loss_weight_emd=self.loss_weight_emd))
+        output["rec_loss"] = loss_0
+        output["print/loss_0"] = loss_0
+        w_glb, w_pt, w_feat = self.weight_kl
+        (_, mu_g, ls_g), (_, mu_l, ls_l) = output["latent_list"]
+        kl_style = Normal(mu_g, ls_g).kl_to_standard().reshape(b, -1).sum(-1)
+        kl3 = Normal(mu_l, ls_l).kl_to_standard().reshape(
+            b, -1, self.latent_dim + self.input_dim)
+        kl_pt = kl3[..., :self.input_dim].sum(dim=(1, 2))
+        kl_feat = kl3[..., self.input_dim:].sum(dim=(1, 2))
+        output["print/kl_glb"] = kl_style.mean()
+        output["print/kl_pt"] = kl_pt.mean()
+        output["print/kl_feat"] = kl_feat.mean()
+        kl = kl_weight * (kl_style * w_glb + kl_pt * w_pt + kl_feat * w_feat)
+        loss = kl.mean() + loss_0 * self.weight_recont
+        output["msg/kl"] = kl.mean()
+        output["msg/rec"] = loss_0
+        output["print/kl_weight"] = kl_weight
+        output["loss"] = loss
+        return output
 
     def sample(self, num_samples: int, decomposed_eps) -> torch.Tensor:
         """Decode the latents [z_global (B, style), z_local (B, N*(latent +

@@ -49,9 +49,10 @@ def chamfer(a: torch.Tensor, b: torch.Tensor):
 
 
 def chamfer_dist(a: torch.Tensor, b: torch.Tensor):
-    """Squared-L2 chamfer distances only: (B, N), (B, M)."""
+    """Squared-L2 chamfer distances only: (B, N), (B, M); differentiable
+    (the clamp is out of place: amin's backward reads its output)."""
     d2 = sqdist_unclamped(a, b)
-    return d2.amin(dim=-1).clamp_min_(0.0), d2.amin(dim=-2).clamp_min_(0.0)
+    return d2.amin(dim=-1).clamp_min(0.0), d2.amin(dim=-2).clamp_min(0.0)
 
 
 def chamfer_l1(a: torch.Tensor, b: torch.Tensor):

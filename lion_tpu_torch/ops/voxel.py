@@ -19,6 +19,13 @@ and the grid, and none to the coordinates, as the JAX VJPs replay their
 XLA forms (lion_tpu/ops/voxel.py:149-161,208-218): voxelize's is a gather
 of g / count per point, devoxelize's a scatter-add of the 8 weighted
 corners into the grid's gradient.
+
+A cloud whose coordinates are not finite (a model whose latents
+overflowed) normalizes to NaN. Its points land in voxel (0, 0, 0): XLA and
+the card convert NaN to the integer 0, and K3's plain version and backward
+read the x86 CPU's INT_MIN as 0. K5 and its plain version and backward
+clamp each corner into the grid, as the kernel does: the loss turns
+non-finite, as in the JAX package, and no index leaves the grid.
 """
 from __future__ import annotations
 
@@ -48,12 +55,22 @@ def normalize_coords(coords: torch.Tensor, resolution: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # K3: average voxelization
 # --------------------------------------------------------------------------
+_NAN_AS_INT = torch.iinfo(torch.int32).min   # NaN converted on an x86 CPU
+
+
+def _flat_cells(vox_coords: torch.Tensor, r: int) -> torch.Tensor:
+    """The flat cell of each point, (B, N); a NaN coordinate converted on
+    the CPU is read as 0, as XLA and the card convert it."""
+    v = vox_coords.long()
+    v = v.masked_fill(v == _NAN_AS_INT, 0)
+    return (v[..., 0] * r + v[..., 1]) * r + v[..., 2]
+
+
 def _avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
                         resolution: int) -> torch.Tensor:
     b, _, c = features.shape
     r = resolution
-    v = vox_coords.long()
-    flat = (v[..., 0] * r + v[..., 1]) * r + v[..., 2]       # (B, N)
+    flat = _flat_cells(vox_coords, r)
     grid = features.new_zeros((b, r ** 3, c), dtype=torch.float32)
     grid.scatter_add_(1, flat[:, :, None].expand(-1, -1, c), features.float())
     count = grid.new_zeros((b, r ** 3))
@@ -110,11 +127,6 @@ def avg_voxelize_kernel(features: torch.Tensor, vox_coords: torch.Tensor,
     return out
 
 
-def _flat_cells(vox_coords: torch.Tensor, r: int) -> torch.Tensor:
-    v = vox_coords.long()
-    return (v[..., 0] * r + v[..., 1]) * r + v[..., 2]        # (B, N)
-
-
 class _AvgVoxelize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, vox_coords, resolution):
@@ -163,8 +175,11 @@ def _corners(norm_coords: torch.Tensor, r: int, dtype: torch.dtype):
     coords = norm_coords.detach().float()
     lo = torch.floor(coords)
     frac = coords - lo
-    lo_i = lo.long()
-    hi_i = lo_i + (frac > 0).long()  # hi collapses onto lo when frac == 0
+    # clamped into the grid as the kernel clamps (a no-op for the finite
+    # coordinates normalize_coords gives); hi collapses onto lo when
+    # frac == 0
+    lo_i = lo.long().clamp(0, r - 1)
+    hi_i = (lo_i + (frac > 0).long()).clamp(max=r - 1)
     out = []
     for dx in (0, 1):
         wx = frac[..., 0] if dx else 1.0 - frac[..., 0]

@@ -1,5 +1,5 @@
 """Device-time breakdown of the denoise steps of both priors, or of the
-two-prior training step, on one GPU.
+two training steps, on one GPU.
 
     python -m lion_tpu_torch.profile_step [--batch 4] [--steps 5] [--bf16]
     python -m lion_tpu_torch.profile_step --train [--batch 16] [--steps 3]
@@ -22,7 +22,11 @@ With --train it profiles `--steps` calls of `make_prior_train_step` (fp32,
 dropout on) in three windows: the frozen encode alone, the loss forward
 alone, and the whole step. K10's forward time is its time in the forward
 window; K10-dx is the rest of its time in the step (the same kernel runs
-both); the encode's kernels are those of the encode window.
+both); the encode's kernels are those of the encode window. Then the
+stage-1 step (`make_vae_train_step` on the flagship VAE, `l1_sum`, dropout
+on, the KL anneal) at its released batch of 32 in two windows, the loss
+forward and the whole step, with its peak device memory and the step's
+wall without the profiler.
 
 With --convs it prints the device ms per call of every K4 and K10 case of
 `chip_smoke.py` phase 3 and of cuDNN's conv on the same inputs (bf16 in
@@ -91,7 +95,9 @@ design and the library's run in one call.
 """
 import argparse
 import functools
+import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -123,6 +129,14 @@ K4_CASES = (
     (8, 128, 128, torch.bfloat16, True),
 )
 K10_CASES = ((32, 64, 64), (32, 4, 32), (16, 128, 64), (8, 192, 128))
+# K10's (r, ci, co) in the stage-1 VAE step that the two-prior step never
+# runs: the forward convs of the style encoder and the encoder, and the dx
+# of the decoder's first conv (C4 -> 32), whose input carries the encoder's
+# gradient (the other dx calls have square shapes)
+STAGE1_K10_CASES = ((32, 3, 32), (32, 32, 32), (16, 32, 32), (16, 64, 64),
+                    (8, 128, 128), (16, 128, 128))
+STAGE1_K10_DX = ((32, 32, 4),)
+VAE_BATCH = 32   # stage 1's released batch a GPU (script/train_vae.sh)
 # K4's fp32 kernel without statistics is K10 (the training conv)
 _K10 = ("conv3d_brick_f32<", ", false>")
 
@@ -221,6 +235,75 @@ def profile_train(batch: int, steps: int) -> None:
           f"kernels ({', '.join(sorted(enc_ours))})")
     for name, (ms, n) in sorted(full.items(), key=lambda kv: -kv[1][0]):
         print(f"[train]   {ms:8.3f} ms  {n:5d} ops  {name} (whole step)")
+
+
+def profile_vae_train(batch: int, steps: int) -> None:
+    from .config import flagship_cfg
+    from .models.vae import VAE
+    from .nn import init_weights
+    from .trainers import make_vae_train_step
+    cfg = flagship_cfg()
+    cfg.ddpm.loss_type = "l1_sum"
+    cfg.trainer.anneal_kl = 1
+    with torch.device("cuda"):
+        vae = VAE(cfg)
+    init_weights(vae, torch.Generator().manual_seed(0))
+    step = make_vae_train_step(vae, num_total_iter=1000)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    # shapes as the stage-1 loader gives them: random ellipsoid shells, each
+    # recentred on its bounding box and scaled into [-1, 1]
+    # (data/shapenet.py, recenter_per_shape). At random weights some
+    # clouds overflow the VAE's latents (sigma = exp(log_sigma) > 3e38);
+    # such a step is non-finite in the JAX package too, and is refused here
+    rs = np.random.RandomState(41)
+    v = rs.randn(batch, vae.num_points, 3)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    v = v * rs.uniform(0.2, 0.5, (batch, 1, 3)) \
+        + 0.01 * rs.randn(batch, vae.num_points, 3)
+    lo, hi = v.min(axis=1, keepdims=True), v.max(axis=1, keepdims=True)
+    v = (v - (lo + hi) / 2) / ((hi - lo).max(axis=-1, keepdims=True) / 2)
+    x = torch.from_numpy(v.astype(np.float32)).cuda()
+    print(f"[setup] {torch.cuda.get_device_name(0)}, stage-1 VAE step, "
+          f"batch {batch}, fp32, {steps} profiled steps per window")
+
+    def forward():
+        step.loss(x, gen)
+
+    def whole():
+        step(x, gen)
+
+    for _ in range(2):
+        loss = float(step(x, gen)["loss"])
+        if not np.isfinite(loss):
+            raise SystemExit(f"profile_step: the stage-1 step's loss is "
+                             f"{loss} at these weights and inputs")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        whole()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall_f, fwd = _device_groups(forward, steps)
+    wall_s, full = _device_groups(whole, steps)
+    busy = sum(v[0] for v in full.values())
+    k10 = full.get("K conv3d_3x3_same", [0.0, 0])
+    k10_fwd = fwd.get("K conv3d_3x3_same", [0.0, 0])
+    print(f"[vae train] step without the profiler: {plain_wall:.3f} ms, "
+          f"{batch / plain_wall * 1e3:.3f} samples/s; peak device memory "
+          f"{peak:.3f} GiB")
+    print(f"[vae train] step: wall {wall_s:.3f} ms, device {busy:.3f} ms, "
+          f"busy share {busy / wall_s:.3f}, "
+          f"{sum(v[1] for v in full.values())} device ops; forward window: "
+          f"wall {wall_f:.3f} ms, device "
+          f"{sum(v[0] for v in fwd.values()):.3f} ms")
+    print(f"[vae train]   {k10_fwd[0]:8.3f} ms  {k10_fwd[1]:5d} ops  K10 "
+          f"forward")
+    print(f"[vae train]   {k10[0] - k10_fwd[0]:8.3f} ms  "
+          f"{k10[1] - k10_fwd[1]:5d} ops  K10 dx")
+    for name, (ms, n) in sorted(full.items(), key=lambda kv: -kv[1][0]):
+        print(f"[vae train]   {ms:8.3f} ms  {n:5d} ops  {name} (whole step)")
 
 
 def _ncdhw(x):
@@ -950,7 +1033,8 @@ def main(argv=None):
     ap.add_argument("--bf16", action="store_true",
                     help="the bf16 configuration (tpu.bf16 = True)")
     ap.add_argument("--train", action="store_true",
-                    help="profile the two-prior training step (fp32)")
+                    help="profile the two-prior and the stage-1 VAE "
+                    "training steps (fp32)")
     ap.add_argument("--convs", action="store_true",
                     help="device ms of every K4 / K10 case and cuDNN's conv")
     ap.add_argument("--split", action="store_true",
@@ -983,6 +1067,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     if args.train:
         profile_train(args.batch, args.steps)
+        profile_vae_train(VAE_BATCH, args.steps)
         return
     if args.convs:
         profile_convs(args.batch, args.steps)

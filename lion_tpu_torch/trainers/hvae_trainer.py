@@ -1,0 +1,139 @@
+"""The stage-1 VAE trainer (port of lion_tpu/trainers/hvae_trainer.py).
+
+    Trainer(cfg, args, device="cuda").train_epochs()
+
+loads the ShapeNet15k split of cfg.data (under `args.data_root` or
+cfg.data.data_dir), builds the VAE with random weights from
+trainer.seed, and trains it with `make_vae_train_step` on the
+warmup-cosine schedule of trainer.opt (lr, lr_min, vae_lr_warmup_epochs)
+and the KL anneal over the run's steps; checkpoints go to
+`<save_dir>/checkpoints/*.npz` in the JAX package's layout (ckpt/io.py),
+so either package resumes the other's. The visualizations (`viz.viz_freq`
+other than 0) need matplotlib and are refused (ROADMAP Queue 1 item J).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..ckpt.io import (adam_state_from_tree, adam_state_tree,
+                       load_tensors_tree, tensors_tree)
+from ..eval.eval_helper import compute_nll_metric
+from ..models.vae import VAE
+from ..nn.common import init_weights
+from .base import BaseTrainer
+from .steps import (check_vae_supported, default_vae_lr_schedule,
+                    make_vae_train_step)
+
+
+class Trainer(BaseTrainer):
+    def __init__(self, cfg, args, device="cuda"):
+        check_vae_supported(cfg)
+        if cfg.viz.viz_freq != 0:
+            raise NotImplementedError(
+                "training-time visualization (viz.viz_freq != 0) needs "
+                "utils/vis.py, which is not ported (ROADMAP Queue 1 item J); "
+                "set viz.viz_freq = 0")
+        super().__init__(cfg, args, device)
+        self.build_data()
+        self.build_model()
+
+    def build_model(self):
+        cfg = self.cfg
+        with self.device:
+            self.vae = VAE(cfg)
+        init_weights(self.vae, torch.Generator().manual_seed(cfg.trainer.seed))
+        steps_per_epoch = max(len(self.train_loader), 1) \
+            if self.train_loader else 1
+        self.num_total_iter = steps_per_epoch * cfg.trainer.epochs
+        self.step_fn = make_vae_train_step(
+            self.vae, default_vae_lr_schedule(cfg, steps_per_epoch),
+            self.num_total_iter, self.device)
+        self.param_names = [n for n, _ in self.vae.named_parameters()]
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.trainer.seed + 7)
+
+    def train_iter(self, batch, step: int) -> Dict[str, float]:
+        x = self.put_batch(batch["tr_points"])
+        metrics = self.step_fn(x, self.generator)
+        return {k: float(v) for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def eval_nll(self, num_batches: int = 0, generator=None):
+        """Reconstruction CD / EMD over the test split, in eval mode, from
+        the trained (not the EMA) parameters (lion_tpu/trainers/
+        hvae_trainer.py:86-106); the EMD of each pair on K12."""
+        gen = generator if generator is not None else \
+            torch.Generator(device=self.device).manual_seed(0)
+        self.vae.eval()
+        gens, refs = [], []
+        for bi, batch in enumerate(self.test_loader or []):
+            if num_batches and bi >= num_batches:
+                break
+            x = self.put_batch(batch["tr_points"])
+            gens.append(self.vae.recont(x, generator=gen)["x_0_pred"].cpu())
+            refs.append(x.cpu())
+        if not gens:
+            return {}
+        results = compute_nll_metric(torch.cat(gens).numpy(),
+                                     torch.cat(refs).numpy(),
+                                     device=self.device)
+        for k, v in results.items():
+            if np.ndim(v) == 0:
+                self.writer.add_scalar(f"eval/nll_{k}", float(v), self.step)
+        return results
+
+    def run_eval(self):
+        """The reconstruction eval; its CD score for the best-checkpoint
+        tracking."""
+        results = self.eval_nll(num_batches=2)
+        for k, v in results.items():
+            if "CD" in k and np.ndim(v) == 0:
+                return float(v)
+        return None
+
+    def vis_recont(self, batch, step: int):
+        raise NotImplementedError("utils/vis.py is not ported (ROADMAP "
+                                  "Queue 1 item J)")
+
+    def vis_sample(self, step: int):
+        raise NotImplementedError("utils/vis.py is not ported (ROADMAP "
+                                  "Queue 1 item J)")
+
+    @torch.no_grad()
+    def sample(self, num_samples: int = 16, generator=None) -> torch.Tensor:
+        """Decode fresh latents in eval mode, from the EMA parameters when
+        there are some -> (num_samples, N, input_dim)."""
+        gen = generator if generator is not None else \
+            torch.Generator(device=self.device).manual_seed(0)
+        vae, ema = self.vae, self.step_fn.ema
+        vae.eval()
+        z_global = torch.randn((num_samples, vae.style_dim), generator=gen,
+                               device=self.device)
+        z_local = torch.randn(
+            (num_samples, vae.num_points * (vae.latent_dim + vae.input_dim)),
+            generator=gen, device=self.device)
+        with ema.swapped() if ema is not None else contextlib.nullcontext():
+            return vae.sample(num_samples, [z_global, z_local])
+
+    def state_trees(self):
+        names, step = self.param_names, self.step_fn
+        mu, nu = step.optimizer.moments()
+        trees = {"model": tensors_tree(names, step.params),
+                 "opt": adam_state_tree(step.optimizer.count, mu, nu, names)}
+        if step.ema is not None:
+            trees["ema"] = tensors_tree(names, step.ema.shadow)
+        return trees
+
+    def load_state_trees(self, trees, metadata):
+        names, step = self.param_names, self.step_fn
+        load_tensors_tree(names, step.params, trees["model"])
+        if "opt" in trees:
+            step.optimizer.load_state(*adam_state_from_tree(trees["opt"],
+                                                            names))
+        if "ema" in trees and step.ema is not None:
+            load_tensors_tree(names, step.ema.shadow, trees["ema"])
+        step.optimizer.count = int(metadata.get("step", 0))

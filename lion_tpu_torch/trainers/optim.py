@@ -10,7 +10,8 @@ count before the update, as optax's `scale_by_schedule` reads it.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable, List
+import contextlib
+from typing import Callable, Iterable, List, Sequence
 
 import numpy as np
 import torch
@@ -76,6 +77,31 @@ class Optimizer:
         self.opt.step()
         self.count += 1
 
+    def moments(self):
+        """(mu, nu): Adam's first and second moments of each parameter, in
+        the order of `params` (zeros before the first step), as optax's
+        ScaleByAdamState holds them."""
+        mu, nu = [], []
+        for p in self.params:
+            st = self.opt.state.get(p, {})
+            mu.append(st["exp_avg"] if st else torch.zeros_like(p))
+            nu.append(st["exp_avg_sq"] if st else torch.zeros_like(p))
+        return mu, nu
+
+    @torch.no_grad()
+    def load_state(self, count: int, mu: Sequence[torch.Tensor],
+                   nu: Sequence[torch.Tensor]) -> None:
+        """Set the step count and the moments (in the order of `params`),
+        as a checkpoint holds them."""
+        if len(mu) != len(self.params) or len(nu) != len(self.params):
+            raise ValueError("Optimizer.load_state: one moment a parameter")
+        self.count = int(count)
+        for p, m, v in zip(self.params, mu, nu):
+            self.opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": m.to(p.device, p.dtype).clone(),
+                "exp_avg_sq": v.to(p.device, p.dtype).clone()}
+
 
 class EMA:
     """An exponential moving average of `params`: after each update,
@@ -91,3 +117,18 @@ class EMA:
         torch._foreach_mul_(self.shadow, self.decay)
         torch._foreach_add_(self.shadow, [p.detach() for p in self.params],
                             alpha=1.0 - self.decay)
+
+    @contextlib.contextmanager
+    def swapped(self):
+        """The EMA copy in the parameters inside the block (to sample or
+        evaluate from it, as the JAX package reads `state.ema_params`);
+        the trained values come back after it."""
+        with torch.no_grad():
+            for p, e in zip(self.params, self.shadow):
+                p.data, e.data = e.data, p.data
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, e in zip(self.params, self.shadow):
+                    p.data, e.data = e.data, p.data

@@ -1,7 +1,16 @@
-"""The stage-2 two-prior training step (port of `make_prior_train_step`,
-lion_tpu/trainers/steps.py:71-295, the released path).
+"""The training steps (port of lion_tpu/trainers/steps.py): the stage-1 VAE
+step (`make_vae_train_step`, :27-67) and the stage-2 two-prior step
+(`make_prior_train_step`, :71-295, the released path).
 
-One step, on a `LION` whose VAE is frozen:
+One stage-1 step trains the whole VAE in train mode (dropout, the PVConv
+modular flow on K10, gradients through K2/K11, K3, K5 and K6): the ELBO of
+`VAE.get_loss` with the KL weight annealed on the optimizer's step count,
+backward, Adam (with trainer.opt's clip, weight decay and betas) and the
+EMA at trainer.opt.ema_decay when ddpm.ema is set. The posterior draws come
+from the caller's generator, or are given as `rho`, and so do the dropout
+masks.
+
+One stage-2 step, on a `LION` whose VAE is frozen:
   1. the VAE encodes x in eval mode without gradients (the fused eval flow,
      K1-K6) into eps = [z_global, z_local];
   2. one t ~ U{1..T} per item, shared by both priors;
@@ -30,11 +39,13 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..config.view import as_view
 from ..diffusion.discrete import get_mixed_prediction
 from ..models.lion import LION, resolve_device
+from ..models.vae import VAE
 from ..nn.common import set_dropout_generator
 from ..ops._cuda import no_tf32
 from .optim import EMA, Optimizer, warmup_cosine_schedule
@@ -57,6 +68,115 @@ def check_supported(cfg) -> None:
     if cfg.sde.autocast_train or ("tpu" in cfg and cfg.tpu.bf16):
         raise NotImplementedError("bf16 training is not ported (ROADMAP "
                                   "Queue 1 item 10)")
+
+
+def check_vae_supported(cfg) -> None:
+    """Raise NotImplementedError for what the port's VAE step does not
+    run."""
+    cfg = as_view(cfg)
+    if cfg.data.cond_on_cat:
+        raise NotImplementedError("class conditioning is not ported "
+                                  "(ROADMAP Queue 1 item 12)")
+    if cfg.sde.autocast_train or ("tpu" in cfg and cfg.tpu.bf16):
+        raise NotImplementedError("bf16 training is not ported (ROADMAP "
+                                  "Queue 1 item 10)")
+
+
+def kl_weight_schedule(cfg, num_total_iter: int) -> Callable[[int], float]:
+    """The KL weight at an optimizer step (lion_tpu/trainers/steps.py:
+    38-45): with trainer.anneal_kl over num_total_iter > 0 steps,
+    min + (max - min) (step - const) / total clipped to [min, max] in
+    float32, with total and const the sde.kl_anneal_portion_vada and
+    kl_const_portion_vada shares of the steps; else shapelatent.kl_weight."""
+    cfg = as_view(cfg)
+    if not (cfg.trainer.anneal_kl and num_total_iter > 0):
+        weight = cfg.shapelatent.kl_weight
+        return lambda step: weight
+    f32 = np.float32
+    total = f32(cfg.sde.kl_anneal_portion_vada * num_total_iter)
+    const = f32(cfg.sde.kl_const_portion_vada * num_total_iter)
+    mn, mx = cfg.sde.kl_const_coeff_vada, cfg.sde.kl_max_coeff_vada
+
+    def weight(step: int) -> float:
+        # JAX's weak typing: each Python scalar rounds to float32 where it
+        # meets the float32 step, (max - min) after its double subtraction
+        coeff = f32(mn) + f32(mx - mn) * (f32(step) - const) / total
+        return float(np.clip(coeff, f32(mn), f32(mx)))
+
+    return weight
+
+
+class VAETrainStep:
+    """One optimizer step of the VAE per call (`__call__`), with the KL
+    anneal, the optimizer and the EMA copy of the JAX step.
+    `optimizer.count` is the JAX TrainState's `step`."""
+
+    def __init__(self, vae: VAE, lr_schedule: Callable[[int], float],
+                 num_total_iter: int = 0):
+        cfg = as_view(vae.cfg)
+        check_vae_supported(cfg)
+        self.vae = vae
+        self.params = list(vae.parameters())
+        opt = cfg.trainer.opt
+        self.optimizer = Optimizer(
+            self.params, lr_schedule, opt.beta1, opt.beta2, opt.weight_decay,
+            opt.grad_clip)
+        decay = float(opt.ema_decay) if cfg.ddpm.ema else 0.0
+        self.ema = EMA(self.params, decay) if decay > 0 else None
+        self.kl_weight = kl_weight_schedule(cfg, num_total_iter)
+
+    def loss(self, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None, **draws):
+        """The step's loss output (`VAE.get_loss`) at the current KL weight,
+        in train mode, the dropout masks drawn from `generator`."""
+        self.vae.train()
+        set_dropout_generator(self.vae, generator)
+        return self.vae.get_loss(
+            x, kl_weight=self.kl_weight(self.optimizer.count),
+            generator=generator, **draws)
+
+    def __call__(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, **draws):
+        """x (B, N, input_dim) on the model's device -> metrics (0-d
+        tensors, not synchronised; print/kl_weight a float); `draws` are
+        `VAE.get_loss`'s `rho` and `noisy_input`."""
+        self.optimizer.zero_grad()
+        with no_tf32():
+            out = self.loss(x, generator, **draws)
+            out["loss"].backward()
+        self.optimizer.step()
+        if self.ema is not None:
+            self.ema.update()
+        return {k: (v.detach() if torch.is_tensor(v) else v)
+                for k, v in out.items()
+                if k == "loss" or k.startswith(("print/", "msg/"))}
+
+
+def default_vae_lr_schedule(cfg, steps_per_epoch: int = 1):
+    """The schedule the stage-1 trainer builds: warmup over
+    trainer.opt.vae_lr_warmup_epochs epochs, then cosine from
+    trainer.opt.lr to lr_min over trainer.epochs
+    (lion_tpu/trainers/hvae_trainer.py:31-40)."""
+    cfg = as_view(cfg)
+    opt = cfg.trainer.opt
+    return warmup_cosine_schedule(
+        opt.lr, opt.lr_min, int(opt.vae_lr_warmup_epochs * steps_per_epoch),
+        cfg.trainer.epochs, opt.vae_lr_warmup_epochs, steps_per_epoch)
+
+
+def make_vae_train_step(vae: VAE,
+                        lr_schedule: Optional[Callable[[int], float]] = None,
+                        num_total_iter: int = 0,
+                        device="cuda") -> VAETrainStep:
+    """The stage-1 training step of `vae`, moved to `device` (the card
+    unless the caller asks for "cpu"; without CUDA the default raises).
+    `lr_schedule` defaults to `default_vae_lr_schedule(vae.cfg)`;
+    `num_total_iter` is the run's length in steps, over which the KL weight
+    anneals when trainer.anneal_kl is set."""
+    vae.to(resolve_device(device))
+    if lr_schedule is None:
+        lr_schedule = default_vae_lr_schedule(vae.cfg)
+    return VAETrainStep(vae, lr_schedule, num_total_iter)
 
 
 def prior_loss(lion: LION, x: torch.Tensor,

@@ -29,6 +29,8 @@ from lion_tpu_torch.ops.conv3d import conv3d_pair
 from lion_tpu_torch.ops.pvblock import pvconv_block_pair
 from lion_tpu_torch.ops.sa_fused import sa_fused
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 BF16 = torch.bfloat16
 
 

@@ -15,6 +15,8 @@ from lion_tpu.ops.points import ball_query_group_cf as j_bqg_cf
 
 from lion_tpu_torch import ops
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 
 def _inputs(seed, b, n, m, c):
     rs = np.random.RandomState(seed)

@@ -30,6 +30,8 @@ from lion_tpu_torch.ops.voxel import (DEVOX_MAX_LANES, DEVOX_MAX_THREADS,
                                       trilinear_devoxelize)
 from lion_tpu_torch.profile_step import DEVOX_LEVELS
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 SOURCE = (Path(__file__).resolve().parents[1] / "lion_tpu_torch" / "csrc"
           / "devoxelize.cu").read_text()
 BF16 = torch.bfloat16

@@ -30,6 +30,8 @@ from lion_tpu.ops.pallas.emd import emd_approx_pallas
 
 from lion_tpu_torch.ops.emd import _emd_cost_plain, _multipliers
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 SOURCE = (Path(__file__).resolve().parents[1] / "lion_tpu_torch" / "csrc"
           / "emd.cu").read_text()
 F32 = torch.float32

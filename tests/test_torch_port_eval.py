@@ -40,7 +40,8 @@ from lion_tpu_torch.models import LION
 from lion_tpu_torch.models.priors import GlobalPrior, LocalPrior
 from lion_tpu_torch.nn import init_weights
 
-from test_torch_port_sample import tiny_cfg, to_jax_tree
+from test_torch_port_sample import (  # noqa: F401
+    one_torch_thread, tiny_cfg, to_jax_tree)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"

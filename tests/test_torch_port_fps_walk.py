@@ -31,6 +31,8 @@ from lion_tpu_torch.ops.points import (FPS_BLOCK_P, FPS_MAX_N, FPS_MAX_P,
                                        FPS_MAX_THREADS, FPS_WARP_MAX_N,
                                        _fps_plain, fps_plan)
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 CSRC = Path(__file__).resolve().parents[1] / "lion_tpu_torch" / "csrc"
 NONE = 0xFFFFFFFF           # the reductions' neutral index
 SMEM_BYTES = 232448         # a block's shared memory on the H100

@@ -14,6 +14,7 @@ import torch
 
 from lion_tpu_torch import ops
 from lion_tpu_torch.ops import voxel
+from lion_tpu_torch.profile_step import STAGE1_K10_CASES, STAGE1_K10_DX
 
 pytestmark = pytest.mark.gpu
 BF16 = torch.bfloat16
@@ -923,3 +924,83 @@ def test_ball_query_group_cf_backward_is_k2s(gen):
     for a, b, c in zip(gs, gr, g2):   # scatter-adds with atomics
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+# -------------------------------------------------------------- stage 1
+@pytest.mark.parametrize("r,ci,co", STAGE1_K10_CASES + STAGE1_K10_DX)
+def test_conv3d_same_kernel_at_the_stage1_shapes(gen, r, ci, co):
+    """K10 at the stage-1 VAE step's shapes at its batch of 32: the style
+    encoder's and the encoder's forward convs and the dx of the decoder's
+    first conv (Co = 4)."""
+    x = _randn(gen, 32, r, r, r, ci)
+    w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+    got, ref = _both("conv3d_3x3_same", x, w)
+    assert got.shape == (32, r, r, r, co)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_stage1_trainer_takes_two_steps_on_the_card(gen, tmp_path):
+    """The flagship VAE's Trainer for two steps at batch 4 on a synthetic
+    PointFlow tree: only kernels launch, the losses and parameters stay
+    finite, the final checkpoint resumes equal, and eval_nll scores on
+    K12."""
+    from lion_tpu_torch.config import flagship_cfg
+    from lion_tpu_torch.trainers.hvae_trainer import Trainer
+    rs = np.random.RandomState(0)
+    for split, count in (("train", 8), ("val", 4), ("test", 4)):
+        d = tmp_path / "data" / "03001627" / split
+        d.mkdir(parents=True)
+        for i in range(count):
+            np.save(str(d / f"{i}.npy"),
+                    (rs.randn(2048, 3) * 0.2).astype(np.float32))
+    cfg = flagship_cfg()
+    cfg.data.batch_size = cfg.data.batch_size_test = 4
+    cfg.ddpm.loss_type = "l1_sum"
+    cfg.trainer.epochs = 1
+    cfg.viz.viz_freq = 0
+
+    class Args:
+        save_dir = str(tmp_path / "exp")
+        data_root = str(tmp_path / "data")
+    trainer = Trainer(cfg, Args())
+    ops.reset_counts()
+    trainer.train_epochs()
+    results = trainer.eval_nll()
+    torch.cuda.synchronize()
+    counts = {n: (w.launches, w.plain_calls) for n, w in ops.KERNELS.items()}
+    for name in ("fps", "ball_query_group", "ball_query", "avg_voxelize",
+                 "trilinear_devoxelize", "three_nn_interpolate",
+                 "conv3d_3x3_same", "conv3d_3x3_fused", "emd_cost"):
+        assert counts[name][0] > 0, (name, counts)
+    assert all(p == 0 for _, p in counts.values()), counts
+    assert trainer.step == 2
+    assert all(torch.isfinite(p).all() for p in trainer.step_fn.params)
+    assert np.isfinite([results["MMD-CD"], results["MMD-EMD"]]).all()
+    again = Trainer(cfg, Args())
+    again.resume(str(tmp_path / "exp" / "checkpoints" / "final.npz"))
+    for a, b in zip(again.step_fn.params + again.step_fn.ema.shadow,
+                    trainer.step_fn.params + trainer.step_fn.ema.shadow):
+        assert torch.equal(a, b)
+
+
+def test_voxel_ops_take_non_finite_clouds_as_on_the_cpu(gen):
+    """A cloud with an infinite coordinate (overflowed latents) normalizes
+    to NaN: its points land in voxel (0, 0, 0) and K5 clamps its corners,
+    forward and backward, as the plain versions do on the CPU."""
+    feats = _randn(gen, 2, 300, 8).requires_grad_(True)
+    xyz = _randn(gen, 2, 300, 3)
+    xyz[1, 7] = float("inf")
+
+    def run(f, p):
+        grid, nc = voxel.voxelize(f, p, 8)
+        out = voxel.trilinear_devoxelize(grid * 2.0, nc, 8)
+        out.sum().backward()
+        return grid, out, f.grad
+    got = run(feats, xyz)
+    ref = run(feats.detach().cpu().requires_grad_(True), xyz.cpu())
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5,
+                                   equal_nan=True)
+    assert not got[0][1].reshape(-1, 8)[1:].any()
+    assert torch.isnan(got[1][1]).all()

@@ -70,6 +70,8 @@ from lion_tpu_torch.ops.points import (
     _ball_query_group_cf_plain, _ball_query_group_plain, _ball_query_plain,
     _r2, bq_plan, bq_smem, bqg_cf_plan, bqg_cf_smem, bqg_plan, bqg_smem)
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 CSRC = Path(__file__).resolve().parents[1] / "lion_tpu_torch" / "csrc"
 F32 = np.float32
 SMEM_BYTES = 232448         # a block's shared memory on the H100

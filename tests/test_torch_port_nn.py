@@ -27,7 +27,8 @@ from lion_tpu_torch.nn import (PointNetAModule, PointNetFPModule,
                                PointNetSAModule, PVCNN2Unet, PVConv,
                                init_weights)
 
-from test_torch_port_sample import assert_same_params, tiny_cfg, to_jax_tree
+from test_torch_port_sample import (  # noqa: F401
+    one_torch_thread, assert_same_params, tiny_cfg, to_jax_tree)
 
 B, N, STYLE = 2, 64, 128
 

@@ -20,6 +20,8 @@ from lion_tpu_torch import ops
 from lion_tpu_torch.ops import interpolate, points, voxel
 from lion_tpu_torch.ops.conv3d import conv3d_3x3_fused
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 
 def _cloud(seed, b, n, scale=0.3):
     return (np.random.RandomState(seed).randn(b, n, 3) * scale).astype(

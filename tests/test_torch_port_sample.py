@@ -25,6 +25,19 @@ from lion_tpu_torch.diffusion import DiffusionDiscretized
 from lion_tpu_torch.models import LION
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch thread while a module of the port's CPU tests runs (the
+    port's other test modules import this fixture). The suite runs several
+    workers on a few cores, where a pool of threads in each worker mostly
+    waits on the others: a K9 walk took 187 s with eight threads and 30 s
+    with one beside five busy processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 STEPS = 5
 N = 64
 

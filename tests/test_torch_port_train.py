@@ -35,7 +35,8 @@ from lion_tpu_torch.nn.common import Dropout, dropout
 from lion_tpu_torch.trainers import (EMA, Optimizer, make_prior_train_step,
                                      prior_loss, warmup_cosine_schedule)
 
-from test_torch_port_sample import (ROOT, assert_same_params,
+from test_torch_port_sample import (one_torch_thread,  # noqa: F401
+                                    ROOT, assert_same_params,
                                     jax_param_shapes, tiny_cfg, to_jax_tree)
 
 B, N, STYLE = 2, 64, 128

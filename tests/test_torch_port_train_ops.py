@@ -28,6 +28,8 @@ from lion_tpu_torch.ops import interpolate, points
 from lion_tpu_torch.nn.common import group_norm
 from lion_tpu_torch.ops.conv3d import _conv3d_3x3_same_plain
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 
 def _rs(seed):
     return np.random.RandomState(seed)

@@ -34,6 +34,8 @@ from lion_tpu_torch.ops.sa_fused import (BLOCKS_SM, BLOCKS_SM_QUERY, LDW,
 from lion_tpu_torch.ops.voxel import (SMEM_MAX, _avg_voxelize_plain,
                                       vox_order_smem)
 
+from test_torch_port_sample import one_torch_thread  # noqa: F401
+
 BF16 = torch.bfloat16
 CSRC = Path(__file__).resolve().parents[1] / "lion_tpu_torch" / "csrc"
 
