@@ -78,7 +78,24 @@ non-zero:
      second Trainer must equal it (parameters, EMA, Adam state, epoch,
      step); then `eval_nll` on the test split (K12). Every kernel of the
      path must have launched and no plain version run.
- 13. with `--eval-n N`: N generated against N reference clouds scored
+ 13. stage-2 main path: the flagship two-prior trainer
+     (`trainers.get_trainer("trainers.train_2prior")(cfg, args)`, fp32) with
+     phase 12's final checkpoint as its sde.vae_checkpoint (stage 1 hands
+     over to stage 2), on a second synthetic split of the same kind: one
+     epoch of 2 warm-up and 5 timed steps at the released batch of 10 and
+     one `run_eval` (16 shapes, 25 DDIM steps, CD); the losses, parameters
+     and EMA must stay finite and change; a second trainer resumes the
+     final checkpoint equal (parameters, EMA, Adam state, epoch, step);
+     `eval_sample(metric2="EMD")` scores 16 shapes against the test split
+     (K12); `export_torch` writes the released .pt schema, which
+     `load_lion_checkpoint` loads into a LION on the card equal to the EMA
+     bit for bit, and a DDIM sample from it is finite. Then the
+     single-prior trainer (2 steps at batch 10, `sample(2)`) and the
+     interpolation trainers at full width, cut in depth (100 DDPM steps;
+     diffuse_t 100), each finite. Every kernel of the path must have
+     launched and no plain version run; it prints ms/step, samples/s, peak
+     memory and the seconds of `eval_sample`.
+ 14. with `--eval-n N`: N generated against N reference clouds scored
      without sampling (662 is the chair test set, the counterpart of
      scripts/bench_eval.py).
 Beside each kernel the JSON line gives its bound on the card (the larger of
@@ -125,12 +142,22 @@ EVAL_PATH = BF16_PATH + ("emd_cost",)
 # K3, K5, K6, K10 forward and dx, K11), and eval_nll's reconstruction in
 # eval mode (K1-K6) scored with K12
 VAE_TRAIN_PATH = TRAIN_PATH + ("emd_cost",)
+# the stage-2 trainers run the same kernel set: the two-prior step (the
+# frozen encode on K1-K6, the priors' train flow on K10, K11 and the
+# backward passes), fp32 sampling (K1-K6) in run_eval, eval_sample's EMD on
+# K12, the single-prior and the interpolation trainers (K1-K6)
+STAGE2_TRAINER_PATH = VAE_TRAIN_PATH
 REPORT_ORDER = FP32_PATH + ("sa_fused", "conv3d_pair", "pvconv_block_pair",
                             "conv3d_3x3_same", "ball_query",
                             "ball_query_group_cf", "emd_cost")
 BATCH_TRAIN = 16   # scripts/profile_train_step.py's batch
 WARMUP_STEPS, TRAIN_STEPS = 2, 5
 BATCH_VAE = 32     # stage 1's released batch a GPU (script/train_vae.sh)
+BATCH_STAGE2 = 10  # stage 2's released batch a GPU (script/train_prior.sh)
+# run_eval's and eval_sample's shapes and DDIM steps (the released 1000-step
+# chain would take minutes); the interpolation trainers' chains are cut
+# from 1000 DDPM steps and diffuse_t 200 to these
+STAGE2_VAL_SAMPLES, STAGE2_DDIM_STEPS, INTERP_STEPS = 16, 25, 100
 # (N, M, C, radius) of SA0-SA2, K = 32, batch 16 (scripts/profile_bqg_cf.py)
 CF_SHAPES = ((2048, 1024, 32, 0.1), (1024, 256, 64, 0.2), (256, 64, 128, 0.4))
 EVAL_SHAPES, EVAL_BATCH, EVAL_DDIM_STEPS = 64, 16, 50
@@ -1179,101 +1206,276 @@ def _write_pointflow(root, counts, seed):
             np.save(os.path.join(d, f"{i:04d}.npy"), pts.astype(np.float32))
 
 
-def phase_vae_trainer(batch, warmup, steps):
+def _equal_steps(a, b):
+    """True when two trainers' steps hold equal parameters, EMA, Adam state
+    and counts."""
+    pairs = [(a.params, b.params), (a.ema.shadow, b.ema.shadow),
+             *zip(a.optimizer.moments(), b.optimizer.moments())]
+    return all(torch.equal(x, y) for u, v in pairs for x, y in zip(u, v)) \
+        and a.optimizer.count == b.optimizer.count
+
+
+def phase_vae_trainer(tmp, batch, warmup, steps):
     """The flagship stage-1 trainer: `Trainer(cfg, args).train_epochs()`
-    over one epoch of warmup + steps batches of a synthetic dataset, a
-    resume of its final checkpoint, and `eval_nll` on the test split; the
-    launch counters are zeroed just before the epoch and read just after
-    eval_nll."""
+    over one epoch of warmup + steps batches of a synthetic dataset under
+    `tmp`, a resume of its final checkpoint, and `eval_nll` on the test
+    split; the launch counters are zeroed just before the epoch and read
+    just after eval_nll. Returns the counts and the final checkpoint's
+    path (stage 2's sde.vae_checkpoint)."""
     from lion_tpu_torch import ops
     from lion_tpu_torch.config import flagship_cfg
     from lion_tpu_torch.trainers.hvae_trainer import Trainer
-    with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        _write_pointflow(data, {"train": (warmup + steps) * batch,
-                                "val": batch, "test": batch}, seed=41)
-        cfg = flagship_cfg()
-        cfg.data.cates = "chair"
-        cfg.data.batch_size = cfg.data.batch_size_test = batch
-        cfg.data.eval_test_split = 1
-        cfg.ddpm.loss_type = "l1_sum"
-        cfg.trainer.anneal_kl = 1
-        cfg.trainer.epochs = 1
-        cfg.viz.viz_freq = 0
-        args = argparse.Namespace(save_dir=os.path.join(tmp, "exp"),
-                                  data_root=data)
-        trainer = Trainer(cfg, args)
-        step = trainer.step_fn
-        n_params = sum(p.numel() for p in step.params)
-        log(f"[vae train] flagship VAE, {n_params} params, data and init "
-            f"{time.perf_counter() - t0:.1f} s; batch {batch}, {warmup} "
-            f"warm-up + {steps} timed steps of Trainer.train_epochs")
-        params0 = [p.detach().clone() for p in step.params]
-        ema0 = [e.clone() for e in step.ema.shadow]
-        ends, losses = [], []
-        train_iter = trainer.train_iter
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    _write_pointflow(data, {"train": (warmup + steps) * batch,
+                            "val": batch, "test": batch}, seed=41)
+    cfg = flagship_cfg()
+    cfg.data.cates = "chair"
+    cfg.data.batch_size = cfg.data.batch_size_test = batch
+    cfg.data.eval_test_split = 1
+    cfg.ddpm.loss_type = "l1_sum"
+    cfg.trainer.anneal_kl = 1
+    cfg.trainer.epochs = 1
+    cfg.viz.viz_freq = 0
+    args = argparse.Namespace(save_dir=os.path.join(tmp, "exp"),
+                              data_root=data)
+    trainer = Trainer(cfg, args)
+    step = trainer.step_fn
+    n_params = sum(p.numel() for p in step.params)
+    log(f"[vae train] flagship VAE, {n_params} params, data and init "
+        f"{time.perf_counter() - t0:.1f} s; batch {batch}, {warmup} "
+        f"warm-up + {steps} timed steps of Trainer.train_epochs")
+    params0 = [p.detach().clone() for p in step.params]
+    ema0 = [e.clone() for e in step.ema.shadow]
+    ends, losses = [], []
+    train_iter = trainer.train_iter
 
-        def timed_iter(b, step):
-            metrics = train_iter(b, step)   # floats: synchronised
-            ends.append(time.perf_counter())
-            losses.append(metrics)
-            return metrics
-        trainer.train_iter = timed_iter
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_counts()
-        trainer.train_epochs()
-        peak = torch.cuda.max_memory_allocated()
-        train_counts = {n: w.launches for n, w in ops.KERNELS.items()}
-        log(f"[vae train] losses: {[round(m['loss'], 3) for m in losses]}; "
-            f"kl weights {[m['print/kl_weight'] for m in losses]}")
-        if trainer.step != warmup + steps or not all(
-                np.isfinite(list(m.values())).all() for m in losses):
-            raise AssertionError(f"{trainer.step} steps, losses {losses}")
-        for name, now, before in (("parameters", step.params, params0),
-                                  ("EMA", step.ema.shadow, ema0)):
-            if not all(bool(torch.isfinite(p).all()) for p in now):
-                raise AssertionError(f"non-finite {name}")
-            moved = sum(int((p.detach() != q).sum())
-                        for p, q in zip(now, before))
-            log(f"[vae train] {name}: {moved} of {n_params} values changed")
-            if moved == 0:
-                raise AssertionError(f"the {name} did not change")
-        wall = ends[-1] - ends[warmup - 1]
-        log(f"[vae train] {wall / steps * 1e3:.3f} ms/step, "
-            f"{batch * steps / wall:.3f} samples/s at batch {batch}; peak "
-            f"device memory {peak / 2 ** 30:.3f} GiB; launches a step "
-            f"{ {n: c // (warmup + steps) for n, c in train_counts.items() if c} }")
+    def timed_iter(b, step):
+        metrics = train_iter(b, step)   # floats: synchronised
+        ends.append(time.perf_counter())
+        losses.append(metrics)
+        return metrics
+    trainer.train_iter = timed_iter
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    trainer.train_epochs()
+    peak = torch.cuda.max_memory_allocated()
+    train_counts = {n: w.launches for n, w in ops.KERNELS.items()}
+    log(f"[vae train] losses: {[round(m['loss'], 3) for m in losses]}; "
+        f"kl weights {[m['print/kl_weight'] for m in losses]}")
+    if trainer.step != warmup + steps or not all(
+            np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"{trainer.step} steps, losses {losses}")
+    for name, now, before in (("parameters", step.params, params0),
+                              ("EMA", step.ema.shadow, ema0)):
+        if not all(bool(torch.isfinite(p).all()) for p in now):
+            raise AssertionError(f"non-finite {name}")
+        moved = sum(int((p.detach() != q).sum())
+                    for p, q in zip(now, before))
+        log(f"[vae train] {name}: {moved} of {n_params} values changed")
+        if moved == 0:
+            raise AssertionError(f"the {name} did not change")
+    wall = ends[-1] - ends[warmup - 1]
+    log(f"[vae train] {wall / steps * 1e3:.3f} ms/step, "
+        f"{batch * steps / wall:.3f} samples/s at batch {batch}; peak "
+        f"device memory {peak / 2 ** 30:.3f} GiB; launches a step "
+        f"{ {n: c // (warmup + steps) for n, c in train_counts.items() if c} }")
 
+    t0 = time.perf_counter()
+    again = Trainer(cfg, args)
+    again.resume(os.path.join(trainer.ckpt_dir, "final.npz"))
+    if not _equal_steps(step, again.step_fn) or (
+            again.epoch, again.step) != (trainer.epoch, trainer.step):
+        raise AssertionError("the resumed stage-1 trainer differs")
+    log(f"[vae train] final.npz resumed by a second Trainer: parameters, "
+        f"EMA, Adam state, epoch {again.epoch}, step {again.step} equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del again
+
+    t0 = time.perf_counter()
+    results = trainer.eval_nll()
+    if not np.isfinite([results["MMD-CD"], results["MMD-EMD"]]).all():
+        raise AssertionError(f"eval_nll: {results}")
+    log(f"[vae train] eval_nll on the test split ({batch} clouds): CD "
+        f"{results['MMD-CD']:.6f}, EMD {results['MMD-EMD']:.6f} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    trainer.writer.close()
+    return (_path_counts(VAE_TRAIN_PATH, "vae train"),
+            os.path.join(trainer.ckpt_dir, "final.npz"))
+
+
+def phase_stage2_trainer(tmp, vae_checkpoint, batch, warmup, steps):
+    """The flagship stage-2 trainers on the stage-1 phase's checkpoint: the
+    two-prior `Trainer` (through `get_trainer`) for one epoch of warmup +
+    steps batches of a synthetic dataset under `tmp` with one `run_eval`,
+    a resume, `eval_sample` with EMD, the `.pt` export loaded back into a
+    LION; then the single-prior trainer (2 steps and a sample) and the two
+    interpolation trainers, cut in depth. The launch counters are zeroed
+    just before the epoch and read at the end."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.ckpt import load_checkpoint, load_lion_checkpoint
+    from lion_tpu_torch.ckpt.io import flatten_tree
+    from lion_tpu_torch.config import flagship_cfg
+    from lion_tpu_torch.models import LION
+    from lion_tpu_torch.trainers import get_trainer
+    data = os.path.join(tmp, "data_stage2")
+    t0 = time.perf_counter()
+    _write_pointflow(data, {"train": (warmup + steps) * batch,
+                            "val": batch, "test": STAGE2_VAL_SAMPLES},
+                     seed=43)
+    cfg = flagship_cfg()
+    cfg.trainer.type = "trainers.train_2prior"
+    cfg.data.cates = "chair"
+    cfg.data.batch_size = cfg.data.batch_size_test = batch
+    cfg.data.eval_test_split = 1
+    cfg.sde.vae_checkpoint = vae_checkpoint
+    cfg.trainer.epochs = 1
+    cfg.viz.viz_freq = 0
+    cfg.viz.val_freq = 1
+    cfg.eval_ddim_step = STAGE2_DDIM_STEPS
+    cfg.num_val_samples = STAGE2_VAL_SAMPLES
+    args = argparse.Namespace(save_dir=os.path.join(tmp, "exp2"),
+                              data_root=data)
+    trainer = get_trainer(cfg.trainer.type)(cfg, args)
+    step = trainer.step_fn
+    n_params = sum(p.numel() for p in step.params)
+    stage1, _ = load_checkpoint(vae_checkpoint)
+    vae_names, vae_tensors = zip(*trainer.vae.named_parameters())
+    want = {".".join(k): v for k, v in flatten_tree(stage1["model"]).items()}
+    if not all(torch.equal(t.cpu(), torch.from_numpy(want[n]))
+               for n, t in zip(vae_names, vae_tensors)):
+        raise AssertionError("the stage-2 VAE is not the stage-1 checkpoint")
+    log(f"[stage2] {type(trainer).__module__}.{type(trainer).__name__}, "
+        f"{n_params} prior params, the VAE of {vae_checkpoint} (equal); data "
+        f"and init {time.perf_counter() - t0:.1f} s; batch {batch}, "
+        f"{warmup} warm-up + {steps} timed steps, one run_eval "
+        f"({STAGE2_VAL_SAMPLES} shapes, {STAGE2_DDIM_STEPS} DDIM steps)")
+    params0 = [p.detach().clone() for p in step.params]
+    ema0 = [e.clone() for e in step.ema.shadow]
+    ends, losses, evals = [], [], []
+    train_iter, run_eval = trainer.train_iter, trainer.run_eval
+
+    def timed_iter(b, step):
+        metrics = train_iter(b, step)   # floats: synchronised
+        ends.append(time.perf_counter())
+        losses.append(metrics)
+        return metrics
+
+    def timed_eval():
+        t = time.perf_counter()
+        score = run_eval()
+        evals.append((time.perf_counter() - t, score))
+        return score
+    trainer.train_iter, trainer.run_eval = timed_iter, timed_eval
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    trainer.train_epochs()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[stage2] losses: {[round(m['loss'], 4) for m in losses]}")
+    if trainer.step != warmup + steps or not all(
+            np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"{trainer.step} steps, losses {losses}")
+    for name, now, before in (("parameters", step.params, params0),
+                              ("EMA", step.ema.shadow, ema0)):
+        if not all(bool(torch.isfinite(p).all()) for p in now):
+            raise AssertionError(f"non-finite {name}")
+        moved = sum(int((p.detach() != q).sum()) for p, q in zip(now, before))
+        log(f"[stage2] {name}: {moved} of {n_params} values changed")
+        if moved == 0:
+            raise AssertionError(f"the {name} did not change")
+    if len(evals) != 1 or not np.isfinite(evals[0][1]):
+        raise AssertionError(f"run_eval: {evals}")
+    wall = ends[-1] - ends[warmup - 1]
+    log(f"[stage2] {wall / steps * 1e3:.3f} ms/step, "
+        f"{batch * steps / wall:.3f} samples/s at batch {batch}; peak "
+        f"device memory {peak / 2 ** 30:.3f} GiB; run_eval (CD) "
+        f"{evals[0][0]:.3f} s, 1-NN-CD accuracy {evals[0][1]:.4f}")
+
+    t0 = time.perf_counter()
+    again = get_trainer(cfg.trainer.type)(cfg, args)
+    again.resume(os.path.join(trainer.ckpt_dir, "final.npz"))
+    if not _equal_steps(step, again.step_fn) or (
+            again.epoch, again.step) != (trainer.epoch, trainer.step):
+        raise AssertionError("the resumed stage-2 trainer differs")
+    log(f"[stage2] final.npz resumed by a second Trainer: parameters, EMA, "
+        f"Adam state, epoch {again.epoch}, step {again.step} equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del again
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = trainer.eval_sample(trainer.step, num_gen=STAGE2_VAL_SAMPLES,
+                                  metric2="EMD")
+    seconds = time.perf_counter() - t0
+    if "1-NN-EMD-acc" not in results or not np.isfinite(
+            list(results.values())).all():
+        raise AssertionError(f"eval_sample: {results}")
+    log(f"[stage2] eval_sample(metric2='EMD'): {STAGE2_VAL_SAMPLES} shapes "
+        f"({STAGE2_DDIM_STEPS} DDIM steps, batches of {batch}) scored against "
+        f"the test split in {seconds:.3f} s: "
+        f"{ {k: round(float(v), 6) for k, v in results.items()} }")
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "prior.pt")
+    trainer.export_torch(path)
+    lion = LION(cfg).load_jax_params(load_lion_checkpoint(path, cfg))
+    sd = lion.state_dict()
+    if not all(torch.equal(sd[n], e) for n, e in
+               zip(trainer.param_names, step.ema.shadow)) or not all(
+            torch.equal(sd[f"vae.{n}"], t)
+            for n, t in zip(vae_names, vae_tensors)):
+        raise AssertionError("the exported .pt differs from the EMA priors")
+    pts = lion.sample(2, torch.Generator(device="cuda").manual_seed(5),
+                      ddim_step=STAGE2_DDIM_STEPS)["points"]
+    if tuple(pts.shape) != (2, 2048, 3) or not bool(torch.isfinite(pts).all()):
+        raise AssertionError(f"sample of the exported LION {pts.shape}")
+    log(f"[stage2] export_torch -> load_lion_checkpoint -> LION on the card: "
+        f"equal to the EMA bit for bit; a {STAGE2_DDIM_STEPS}-step DDIM "
+        f"sample finite ({time.perf_counter() - t0:.1f} s)")
+    del lion, sd, trainer, step
+
+    t0 = time.perf_counter()
+    cfg1 = copy.deepcopy(cfg)
+    cfg1.trainer.type = "trainers.train_prior"
+    single = get_trainer(cfg1.trainer.type)(cfg1, argparse.Namespace(
+        save_dir=os.path.join(tmp, "exp_single"), data_root=data))
+    batches = iter(single.train_loader)
+    metrics = [single.train_iter(next(batches), i) for i in range(2)]
+    pts = single.sample(2)
+    if not (np.isfinite([m["loss"] for m in metrics]).all()
+            and bool(torch.isfinite(pts).all())
+            and tuple(pts.shape) == (2, 2048, 3)):
+        raise AssertionError(f"single prior: {metrics}, {pts.shape}")
+    log(f"[stage2] single-prior trainer (eps_dim {single.eps_dim}): 2 steps "
+        f"at batch {batch}, losses {[round(m['loss'], 4) for m in metrics]}; "
+        f"sample(2) over {cfg1.ddpm.num_steps} steps finite "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del single
+
+    for kind, over, call in (
+            ("trainers.interpolate_latent", INTERP_STEPS,
+             lambda t: t.sample(4)),
+            ("trainers.encode_interp_interp", None,
+             lambda t: t.sample(4, diffuse_t=INTERP_STEPS))):
         t0 = time.perf_counter()
-        again = Trainer(cfg, args)
-        again.resume(os.path.join(trainer.ckpt_dir, "final.npz"))
-        other = again.step_fn
-        pairs = [("parameters", step.params, other.params),
-                 ("EMA", step.ema.shadow, other.ema.shadow),
-                 *zip(("Adam mu", "Adam nu"), step.optimizer.moments(),
-                      other.optimizer.moments())]
-        for name, a, b in pairs:
-            if not all(torch.equal(x, y) for x, y in zip(a, b)):
-                raise AssertionError(f"resumed {name} differ")
-        if (again.epoch, again.step, other.optimizer.count) != (
-                trainer.epoch, trainer.step, step.optimizer.count):
-            raise AssertionError("resumed epoch / step / count differ")
-        log(f"[vae train] final.npz resumed by a second Trainer: parameters, "
-            f"EMA, Adam state, epoch {again.epoch}, step {again.step} equal "
+        cfgi = copy.deepcopy(cfg)
+        cfgi.trainer.type = kind
+        if over:
+            cfgi.ddpm.num_steps = over
+        interp = get_trainer(kind)(cfgi, argparse.Namespace(
+            save_dir=os.path.join(tmp, "exp_interp"), data_root=data))
+        pts = call(interp)
+        if tuple(pts.shape) != (4, 2048, 3) or not bool(
+                torch.isfinite(pts).all()):
+            raise AssertionError(f"{kind}: {tuple(pts.shape)}")
+        cut = (f"ddpm.num_steps 1000 -> {INTERP_STEPS}" if over else
+               f"diffuse_t 200 -> {INTERP_STEPS}")
+        log(f"[stage2] {kind}: sample(4) finite, cut in depth: {cut} "
             f"({time.perf_counter() - t0:.1f} s)")
-        del again, other
-
-        t0 = time.perf_counter()
-        results = trainer.eval_nll()
-        if not np.isfinite([results["MMD-CD"], results["MMD-EMD"]]).all():
-            raise AssertionError(f"eval_nll: {results}")
-        log(f"[vae train] eval_nll on the test split ({batch} clouds): CD "
-            f"{results['MMD-CD']:.6f}, EMD {results['MMD-EMD']:.6f} "
-            f"({time.perf_counter() - t0:.2f} s)")
-        trainer.writer.close()
-    return _path_counts(VAE_TRAIN_PATH, "vae train")
+        del interp
+    return _path_counts(STAGE2_TRAINER_PATH, "stage2 train")
 
 
 def phase_cf_op(batch):
@@ -1489,7 +1691,11 @@ def main(argv=None):
     train = phase_train(flagship_cfg(), BATCH_TRAIN, WARMUP_STEPS,
                         TRAIN_STEPS)
     phase_vae_grad_parity(flagship_cfg())
-    vae_train = phase_vae_trainer(BATCH_VAE, WARMUP_STEPS, TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        vae_train, vae_ckpt = phase_vae_trainer(tmp, BATCH_VAE, WARMUP_STEPS,
+                                                TRAIN_STEPS)
+        stage2 = phase_stage2_trainer(tmp, vae_ckpt, BATCH_STAGE2,
+                                      WARMUP_STEPS, TRAIN_STEPS)
     cf = phase_cf_op(BATCH_KERNELS)
     cfg_eval = flagship_cfg()
     cfg_eval.tpu.bf16 = True
@@ -1500,7 +1706,8 @@ def main(argv=None):
         phase_eval_scale(args.eval_n)
 
     paths = {"fp32": fp32, "bf16": bf16, "train": train, "cf_op": cf,
-             "eval": evaluation, "vae_train": vae_train}
+             "eval": evaluation, "vae_train": vae_train,
+             "stage2_trainer": stage2}
     report = []
     for name in REPORT_ORDER:
         w = KERNELS[name]

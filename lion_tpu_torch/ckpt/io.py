@@ -13,7 +13,8 @@ for `optax.chain([clip,] adam(schedule))` in its flatten order, leaf_0 the
 Adam count (int32), then the first moments and the second moments in the
 sorted order of the flax paths, then the schedule's count (int32)
 (`adam_state_tree`). Snapshots for preemption resume are written as
-`snapshot_bak`, then renamed to `snapshot`.
+`snapshot_bak`, then renamed to `snapshot`. `export_torch_checkpoint`
+writes the released `.pt` schema (ckpt/torch_import.py maps the keys).
 """
 from __future__ import annotations
 
@@ -111,6 +112,12 @@ def tensors_tree(names: Sequence[str],
                            for n, t in zip(names, tensors)})
 
 
+def module_arrays(module: torch.nn.Module) -> Dict[str, Any]:
+    """A module's parameters as the flax tree of numpy arrays."""
+    names, tensors = zip(*module.named_parameters())
+    return tensors_tree(names, tensors)
+
+
 def load_tensors_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
                       tree: Dict[str, Any]) -> None:
     """Copy a flax tree into `tensors` (named `names`) in place; the tree
@@ -167,3 +174,27 @@ def adam_state_from_tree(tree: Dict[str, Any], names: Sequence[str]):
         raise ValueError("optimizer tree: the Adam and schedule counts "
                          "differ")
     return count, mu, nu
+
+
+# ---------------------------------------------------------------- torch
+def export_torch_checkpoint(path: str, vae_params, global_prior_params,
+                            local_prior_params, epoch: int = 0,
+                            global_step: int = 0) -> None:
+    """Write the released .pt prior-checkpoint schema ({'epoch',
+    'global_step', 'dae_state_dict' with the global prior under '0.' and
+    the local prior under '1.', 'vae_state_dict'}) from the three flax
+    trees, so the reference code loads models trained here."""
+    from .torch_import import export_state_dict
+
+    dae_sd = {}
+    dae_sd.update(export_state_dict(global_prior_params, "global_prior", "0"))
+    dae_sd.update(export_state_dict(local_prior_params, "local_prior", "1"))
+    vae_sd = export_state_dict(vae_params, "vae")
+    to_torch = lambda sd: {k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in sd.items()}
+    torch.save({
+        "epoch": epoch,
+        "global_step": global_step,
+        "dae_state_dict": to_torch(dae_sd),
+        "vae_state_dict": to_torch(vae_sd),
+    }, path)

@@ -17,8 +17,9 @@ With `ddim_step > 0` both chains take the DDIM sampler's `ddim_step`
 steps instead (`cfg.sde.ddim_skip_type`, `cfg.sde.ddim_kappa`), as the
 evaluation samples (`cfg.eval_ddim_step`). With `cfg.tpu.bf16 = True` the
 local prior's and the decoder's U-Nets compute in bf16; the global prior,
-the parameters and the chains stay fp32. The PF-ODE, class and CLIP
-conditioning and released .pt checkpoints are not ported yet.
+the parameters and the chains stay fp32. A released .pt loads through
+`ckpt.load_lion_checkpoint` and `load_jax_params`. The PF-ODE and class
+and CLIP conditioning are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,12 +53,15 @@ def resolve_device(device) -> torch.device:
 
 
 class LION(nn.Module):
-    def __init__(self, cfg, device="cuda"):
+    """`vae`, when given, is used as the model's VAE (a trainer's frozen
+    stage-1 VAE) instead of a new one; it must sit on `device`."""
+
+    def __init__(self, cfg, device="cuda", vae: Optional[VAE] = None):
         super().__init__()
         view = as_view(cfg)
         self.cfg = cfg
         with resolve_device(device):
-            self.vae = VAE(cfg)
+            self.vae = VAE(cfg) if vae is None else vae
             self.global_prior = build_global_prior(view)
             self.local_prior = build_local_prior(view)
         self.diffusion = DiffusionDiscretized(view)
@@ -104,14 +108,15 @@ class LION(nn.Module):
     @torch.no_grad()
     def sample_chunked(self, num_samples: int,
                        generator: Optional[torch.Generator] = None,
-                       chunks: int = 4) -> dict:
+                       chunks: int = 4, given_noise=None) -> dict:
         """`sample` with each chain run as `chunks` equal segments (the JAX
         package splits its device programs so; here the segments run back
-        to back and give the same samples as `sample`)."""
+        to back and give the same samples as `sample`, `given_noise`
+        included)."""
         if self.diffusion.num_steps % chunks:
             raise ValueError(f"chunks ({chunks}) must divide ddpm.num_steps "
                              f"({self.diffusion.num_steps})")
-        return self._sample(num_samples, generator, None, chunks)
+        return self._sample(num_samples, generator, given_noise, chunks)
 
     def _chain(self, model_fn, x, generator, mixing_logit, given_noise,
                chunks: int, ddim_step: int = 0):

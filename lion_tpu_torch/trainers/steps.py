@@ -30,10 +30,11 @@ test can feed both packages the same numbers. Float32 matmuls and cuDNN
 convolutions run in full float32 inside the step (`no_tf32`), whatever the
 global flags say.
 
-Not ported, each raising NotImplementedError: continuous diffusion, the
+Not ported, each raising NotImplementedError: continuous diffusion and the
 weighted objective with its SN / Jacobian / kinetic regularizers
-(`pvd_mse_loss = 0`), class and CLIP conditioning, bf16 training (ROADMAP
-Queue 1 items 9, 10 and 12).
+(`pvd_mse_loss = 0`; ROADMAP Queue 1 item D), class and CLIP conditioning
+(item J), bf16 training (item G; the stage-1 step's refusals keep the
+older numbers, items 10 and 12).
 """
 from __future__ import annotations
 
@@ -52,22 +53,24 @@ from .optim import EMA, Optimizer, warmup_cosine_schedule
 
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError for what the port's step does not run."""
+    """Raise NotImplementedError, naming its ROADMAP item, for what the
+    port's stage-2 steps do not run."""
     cfg = as_view(cfg)
     if cfg.sde.ode_sample:
-        raise NotImplementedError("continuous diffusion training is not "
-                                  "ported (ROADMAP Queue 1 item 9)")
+        raise NotImplementedError(
+            "continuous diffusion (sde.ode_sample, the PF-ODE) is not ported "
+            "(ROADMAP Queue 1 item D)")
     if not cfg.latent_pts.pvd_mse_loss:
         raise NotImplementedError(
             "the weighted objective with SN / Jacobian / kinetic "
             "regularizers (pvd_mse_loss = 0) is not ported (ROADMAP Queue 1 "
-            "item 10)")
+            "item D)")
     if cfg.data.cond_on_cat or cfg.clipforge.enable:
         raise NotImplementedError("class and CLIP conditioning are not "
-                                  "ported (ROADMAP Queue 1 item 12)")
+                                  "ported (ROADMAP Queue 1 item J)")
     if cfg.sde.autocast_train or ("tpu" in cfg and cfg.tpu.bf16):
         raise NotImplementedError("bf16 training is not ported (ROADMAP "
-                                  "Queue 1 item 10)")
+                                  "Queue 1 item G)")
 
 
 def check_vae_supported(cfg) -> None:
@@ -106,23 +109,56 @@ def kl_weight_schedule(cfg, num_total_iter: int) -> Callable[[int], float]:
     return weight
 
 
-class VAETrainStep:
-    """One optimizer step of the VAE per call (`__call__`), with the KL
-    anneal, the optimizer and the EMA copy of the JAX step.
-    `optimizer.count` is the JAX TrainState's `step`."""
+class TrainStep:
+    """One optimizer step per call (`__call__`): `objective`'s loss and its
+    gradients in full float32 (`no_tf32`), Adam, the EMA, then
+    `after_update`. `optimizer.count` is the JAX TrainState's `step`."""
+
+    def __init__(self, params, lr_schedule: Callable[[int], float], opt,
+                 clip_norm: float, ema_decay: float):
+        self.params = list(params)
+        self.optimizer = Optimizer(
+            self.params, lr_schedule, opt.beta1, opt.beta2, opt.weight_decay,
+            clip_norm)
+        self.ema = EMA(self.params, ema_decay) if ema_decay > 0 else None
+
+    def objective(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, **draws):
+        """-> (the loss to differentiate, the metrics `__call__` returns)."""
+        raise NotImplementedError
+
+    def after_update(self) -> None:
+        """Runs after Adam and the EMA."""
+
+    def __call__(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, **draws):
+        """x on the model's device -> metrics (0-d tensors, not
+        synchronised); `draws` are the objective's given draws."""
+        self.optimizer.zero_grad()
+        with no_tf32():
+            loss, metrics = self.objective(x, generator, **draws)
+            loss.backward()
+        self.optimizer.step()
+        if self.ema is not None:
+            self.ema.update()
+        self.after_update()
+        return {k: (v.detach() if torch.is_tensor(v) else v)
+                for k, v in metrics.items()}
+
+
+class VAETrainStep(TrainStep):
+    """The stage-1 step: the VAE's ELBO with the KL anneal, Adam with
+    trainer.opt's clip and the EMA at trainer.opt.ema_decay under
+    ddpm.ema."""
 
     def __init__(self, vae: VAE, lr_schedule: Callable[[int], float],
                  num_total_iter: int = 0):
         cfg = as_view(vae.cfg)
         check_vae_supported(cfg)
-        self.vae = vae
-        self.params = list(vae.parameters())
         opt = cfg.trainer.opt
-        self.optimizer = Optimizer(
-            self.params, lr_schedule, opt.beta1, opt.beta2, opt.weight_decay,
-            opt.grad_clip)
-        decay = float(opt.ema_decay) if cfg.ddpm.ema else 0.0
-        self.ema = EMA(self.params, decay) if decay > 0 else None
+        super().__init__(vae.parameters(), lr_schedule, opt, opt.grad_clip,
+                         float(opt.ema_decay) if cfg.ddpm.ema else 0.0)
+        self.vae = vae
         self.kl_weight = kl_weight_schedule(cfg, num_total_iter)
 
     def loss(self, x: torch.Tensor,
@@ -135,21 +171,15 @@ class VAETrainStep:
             x, kl_weight=self.kl_weight(self.optimizer.count),
             generator=generator, **draws)
 
-    def __call__(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator] = None, **draws):
-        """x (B, N, input_dim) on the model's device -> metrics (0-d
-        tensors, not synchronised; print/kl_weight a float); `draws` are
-        `VAE.get_loss`'s `rho` and `noisy_input`."""
-        self.optimizer.zero_grad()
-        with no_tf32():
-            out = self.loss(x, generator, **draws)
-            out["loss"].backward()
-        self.optimizer.step()
-        if self.ema is not None:
-            self.ema.update()
-        return {k: (v.detach() if torch.is_tensor(v) else v)
-                for k, v in out.items()
-                if k == "loss" or k.startswith(("print/", "msg/"))}
+    def objective(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, **draws):
+        """x (B, N, input_dim); `draws` are `VAE.get_loss`'s `rho` and
+        `noisy_input`. The metrics are the loss and the print/ and msg/
+        keys (print/kl_weight a float)."""
+        out = self.loss(x, generator, **draws)
+        return out["loss"], {k: v for k, v in out.items()
+                             if k == "loss" or k.startswith(("print/",
+                                                             "msg/"))}
 
 
 def default_vae_lr_schedule(cfg, steps_per_epoch: int = 1):
@@ -233,43 +263,33 @@ def prior_loss(lion: LION, x: torch.Tensor,
     return loss, metrics
 
 
-class PriorTrainStep:
-    """One optimizer step of both priors per call (`__call__`), with the
-    optimizer, the EMA copy and the mixing-logit clamp of the JAX step.
-    `optimizer.count` is the JAX TrainState's `step`."""
+class PriorTrainStep(TrainStep):
+    """The two-prior step: `prior_loss`, Adam with sde.grad_clip_max_norm,
+    the EMA at sde.ema_decay and the mixing-logit clamp of the JAX step."""
 
     def __init__(self, lion: LION, lr_schedule: Callable[[int], float]):
         cfg = as_view(lion.cfg)
         check_supported(cfg)
+        super().__init__(
+            list(lion.global_prior.parameters())
+            + list(lion.local_prior.parameters()), lr_schedule,
+            cfg.trainer.opt, cfg.sde.grad_clip_max_norm,
+            float(cfg.sde.ema_decay))
         self.lion = lion
-        self.params = (list(lion.global_prior.parameters())
-                       + list(lion.local_prior.parameters()))
-        opt = cfg.trainer.opt
-        self.optimizer = Optimizer(
-            self.params, lr_schedule, opt.beta1, opt.beta2, opt.weight_decay,
-            cfg.sde.grad_clip_max_norm)
-        decay = float(cfg.sde.ema_decay)
-        self.ema = EMA(self.params, decay) if decay > 0 else None
         self.bound_mlogit = (bool(cfg.sde.bound_mlogit)
                              and lion.mixed_prediction)
         self.bound_mlogit_value = float(cfg.sde.bound_mlogit_value)
 
-    def __call__(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator] = None, **draws):
-        """x (B, N, 3) on the model's device -> metrics (0-d tensors, not
-        synchronised); `draws` are `prior_loss`'s given draws."""
-        self.optimizer.zero_grad()
-        with no_tf32():
-            loss, metrics = prior_loss(self.lion, x, generator, **draws)
-            loss.backward()
-        self.optimizer.step()
-        if self.ema is not None:
-            self.ema.update()
+    def objective(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, **draws):
+        """x (B, N, 3); `draws` are `prior_loss`'s given draws."""
+        return prior_loss(self.lion, x, generator, **draws)
+
+    def after_update(self) -> None:
         if self.bound_mlogit:
             with torch.no_grad():
                 for prior in (self.lion.global_prior, self.lion.local_prior):
                     prior.mixing_logit.clamp_(max=self.bound_mlogit_value)
-        return {k: v.detach() for k, v in metrics.items()}
 
 
 def default_lr_schedule(cfg, steps_per_epoch: int = 1):

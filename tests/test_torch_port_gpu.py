@@ -983,6 +983,73 @@ def test_stage1_trainer_takes_two_steps_on_the_card(gen, tmp_path):
         assert torch.equal(a, b)
 
 
+# -------------------------------------------------------------- stage 2
+def test_stage2_trainer_takes_two_steps_on_the_card(gen, tmp_path):
+    """The flagship two-prior Trainer for two steps at batch 4 on a
+    synthetic PointFlow tree, its VAE from a stage-1 .npz: only kernels
+    launch, the losses, parameters and EMA stay finite, the final
+    checkpoint resumes equal, eval_sample scores 4 DDIM shapes on K12, and
+    the .pt export loads into a LION equal to the EMA."""
+    from lion_tpu_torch.ckpt import load_lion_checkpoint
+    from lion_tpu_torch.ckpt.io import save_checkpoint, tensors_tree
+    from lion_tpu_torch.config import flagship_cfg
+    from lion_tpu_torch.models import LION
+    from lion_tpu_torch.models.vae import VAE
+    from lion_tpu_torch.nn.common import init_weights
+    from lion_tpu_torch.trainers import get_trainer
+    rs = np.random.RandomState(1)
+    for split, count in (("train", 8), ("val", 4), ("test", 4)):
+        d = tmp_path / "data" / "03001627" / split
+        d.mkdir(parents=True)
+        for i in range(count):
+            np.save(str(d / f"{i}.npy"),
+                    (rs.randn(2048, 3) * 0.2).astype(np.float32))
+    cfg = flagship_cfg()
+    cfg.trainer.type = "trainers.train_2prior"
+    cfg.data.batch_size = cfg.data.batch_size_test = 4
+    cfg.trainer.epochs = 1
+    cfg.viz.viz_freq = 0
+    cfg.eval_ddim_step = 5
+    vae = VAE(cfg)
+    init_weights(vae, torch.Generator().manual_seed(3))
+    stage1 = str(tmp_path / "stage1.npz")
+    save_checkpoint(stage1, {"model": tensors_tree(
+        *zip(*vae.named_parameters()))}, {})
+    cfg.sde.vae_checkpoint = stage1
+
+    class Args:
+        save_dir = str(tmp_path / "exp")
+        data_root = str(tmp_path / "data")
+    trainer = get_trainer(cfg.trainer.type)(cfg, Args())
+    for a, b in zip(trainer.vae.parameters(), vae.parameters()):
+        assert torch.equal(a.cpu(), b)
+    ops.reset_counts()
+    trainer.train_epochs()
+    results = trainer.eval_sample(trainer.step, num_gen=4, metric2="EMD")
+    torch.cuda.synchronize()
+    counts = {n: (w.launches, w.plain_calls) for n, w in ops.KERNELS.items()}
+    for name in ("fps", "ball_query_group", "ball_query", "avg_voxelize",
+                 "trilinear_devoxelize", "three_nn_interpolate",
+                 "conv3d_3x3_same", "conv3d_3x3_fused", "emd_cost"):
+        assert counts[name][0] > 0, (name, counts)
+    assert all(p == 0 for _, p in counts.values()), counts
+    assert trainer.step == 2
+    step = trainer.step_fn
+    assert all(torch.isfinite(p).all() for p in step.params + step.ema.shadow)
+    assert np.isfinite(list(results.values())).all()
+    again = get_trainer(cfg.trainer.type)(cfg, Args())
+    again.resume(str(tmp_path / "exp" / "checkpoints" / "final.npz"))
+    for a, b in zip(again.step_fn.params + again.step_fn.ema.shadow,
+                    step.params + step.ema.shadow):
+        assert torch.equal(a, b)
+    path = str(tmp_path / "prior.pt")
+    trainer.export_torch(path)
+    lion = LION(cfg).load_jax_params(load_lion_checkpoint(path, cfg))
+    sd = lion.state_dict()
+    for name, e in zip(trainer.param_names, step.ema.shadow):
+        assert torch.equal(sd[name], e), name
+
+
 def test_voxel_ops_take_non_finite_clouds_as_on_the_cpu(gen):
     """A cloud with an infinite coordinate (overflowed latents) normalizes
     to NaN: its points land in voxel (0, 0, 0) and K5 clamps its corners,
