@@ -98,6 +98,32 @@ non-zero:
  14. with `--eval-n N`: N generated against N reference clouds scored
      without sampling (662 is the chair test set, the counterpart of
      scripts/bench_eval.py).
+ 15. PF-ODE sampling: the flagship (fp32, random weights from a seed) with
+     sde.ode_sample = 1 serves the same request of 4 shapes twice through
+     `LION.sample` (adaptive dopri5 on both priors at ODE_TOL, printed
+     with each prior's evaluations, the seconds, ms per local evaluation
+     and shapes/s): equal outputs and evaluations, every kernel of the
+     fp32 path launched and no plain version run; then a 2-step Euler
+     sample at batch 2 on the card against the CPU, within 1e-4 of each
+     output's size.
+ 16. the weighted objective: one full-width two-prior loss (batch 2,
+     dropout 0; continuous ll_iw, mixed prediction, SN and norm scale, the
+     Jacobian term with 2 probes and the kinetic term, at
+     tests/test_regularization.py's values) and its gradients, through
+     K10's dx inside the second-order graph, on the card against the CPU
+     (loss within 1e-5, flattened gradient within 1e-4; the Jacobian
+     terms' gradient alone, all second order, within 1e-3), and on the
+     card with K10's dx unrecorded as before, which the Jacobian gate must
+     fail by 10x; then 2 + 5 such
+     steps at batch 16 (ms/step, samples/s, peak memory; every kernel of
+     the training path launched) and the device ms of the objective and
+     the whole step under torch.profiler.
+ 17. the stage-2 trainer under the PF-ODE: the flagship two-prior trainer
+     with sde.ode_sample = 1 and the weighted objective (SN, mixed
+     prediction) on phase 12's checkpoint: 2 + 5 steps at batch 10, one
+     `run_eval` sampling through the ODE, then `interpolate_posterior_ode`
+     from 2 test shapes to 4 rows; every kernel of the training path
+     launched and no plain version run.
 Beside each kernel the JSON line gives its bound on the card (the larger of
 its bytes over 3.35 TB/s and its operations over 67 TFLOP/s fp32 or 989
 TFLOP/s bf16, H100 SXM peaks, with exps at the special-function units' 16
@@ -108,6 +134,7 @@ line of their own. The line before the last is a JSON object describing the
 kernels; the last line is {"ok": true, "device": {...}}.
 """
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -115,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -161,6 +189,14 @@ STAGE2_VAL_SAMPLES, STAGE2_DDIM_STEPS, INTERP_STEPS = 16, 25, 100
 # (N, M, C, radius) of SA0-SA2, K = 32, batch 16 (scripts/profile_bqg_cf.py)
 CF_SHAPES = ((2048, 1024, 32, 0.1), (1024, 256, 64, 0.2), (256, 64, 128, 0.4))
 EVAL_SHAPES, EVAL_BATCH, EVAL_DDIM_STEPS = 64, 16, 50
+# the PF-ODE phases: batch 4 (the fp32 path's) and the adaptive solver's
+# tolerance, loosened from the config's 1e-5: at random weights the
+# flagship's local ODE took 1960 evaluations (~100 s a request) at 1e-3
+# and 8575 at 1e-4 (NVIDIA H100 80GB HBM3, 700 W); run_eval's shapes; the
+# ODE interpolation's end time, raised from 1e-5 (its ODEs take no mixed
+# prediction: 2849 local evaluations, 147 s, at 1e-3 on that card)
+ODE_BATCH, ODE_TOL = 4, 1e-2
+ODE_VAL_SAMPLES, INTERP_ODE_EPS = 8, 1e-3
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the tensor
 # cores, bf16 on them, device memory; the special-function units (exp)
 # give 16 results per SM per clock against the fp32 lanes' 256 operations
@@ -1075,10 +1111,10 @@ def phase_grad_parity(cfg):
     return _grad_gate("grad parity", "flagship prior loss B2", runs, seconds)
 
 
-def _grad_gate(tag, label, runs, seconds):
+def _grad_gate(tag, label, runs, seconds, loss_tol=1e-4, grad_tol=1e-3):
     """Hold the card's (metrics, gradients) to the CPU's: the loss within
-    1e-4 relative, the flattened gradient within 1e-3 relative L2; print
-    the worst tensor."""
+    `loss_tol` relative, the flattened gradient within `grad_tol` relative
+    L2; print the worst tensor."""
     (ref_m, ref_g), (got_m, got_g) = runs
     loss_rel = abs(got_m["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
     diff = torch.cat([(got_g[k].double() - ref_g[k].double()).reshape(-1)
@@ -1091,13 +1127,14 @@ def _grad_gate(tag, label, runs, seconds):
     worst_rel = float((got_g[worst].double() - ref_g[worst].double()).norm()
                       / ref_g[worst].double().norm())
     log(f"[{tag}] {label}: card {got_m} vs cpu {ref_m}; "
-        f"loss relative error {loss_rel:.3e} (limit 1e-4), flattened "
-        f"gradient relative L2 {rel:.3e} (limit 1e-3) over {diff.numel()} "
+        f"loss relative error {loss_rel:.3e} (limit {loss_tol:g}), "
+        f"flattened gradient relative L2 {rel:.3e} (limit {grad_tol:g}) "
+        f"over {diff.numel()} "
         f"values; worst tensor {worst} {worst_rel:.3e}; cpu "
         f"{seconds[0]:.1f} s, card {seconds[1]:.2f} s (first call)")
-    if not loss_rel <= 1e-4:
+    if not loss_rel <= loss_tol:
         raise AssertionError(f"loss: relative error {loss_rel:.3e}")
-    if not rel <= 1e-3:
+    if not rel <= grad_tol:
         raise AssertionError(f"gradient: relative L2 {rel:.3e}")
     return {"loss_rel": loss_rel, "grad_rel_l2": rel}
 
@@ -1478,6 +1515,389 @@ def phase_stage2_trainer(tmp, vae_checkpoint, batch, warmup, steps):
     return _path_counts(STAGE2_TRAINER_PATH, "stage2 train")
 
 
+def _ode_cfg(cfg, tol):
+    cfg.sde.ode_sample = 1
+    cfg.sde.ode_solver_tol = tol
+    return cfg
+
+
+@torch.no_grad()
+def _euler_sample(lion, init_g, init_l):
+    """`LION.sample`'s PF-ODE branch with 2 Euler steps a prior in place of
+    dopri5, from the starting points init_g (B, style) and init_l
+    (B, N*C), then the decode."""
+    from lion_tpu_torch.diffusion.continuous import make_diffusion
+    lion.eval()
+    sde = make_diffusion(lion.cfg.sde)
+    b = init_g.shape[0]
+    zg, _ = sde.sample_model_ode(
+        lion.global_prior, b, (lion.style_dim,), noise=init_g,
+        mixing_logit=lion.global_prior.mixing_logit
+        if lion.mixed_prediction else None, method="euler", fixed_steps=2)
+    zl, _ = sde.sample_model_ode(
+        lambda x, t: lion.local_prior(x, t, condition_input=zg), b,
+        (lion.local_dim,), noise=init_l,
+        mixing_logit=lion.local_prior.mixing_logit
+        if lion.mixed_prediction else None, method="euler", fixed_steps=2)
+    return {"z_global": zg, "z_local": zl,
+            "points": lion.vae.sample(b, [zg, zl])}
+
+
+def phase_ode_sample(cfg, batch, tol):
+    """The flagship LION with sde.ode_sample = 1 (fp32) serves the same
+    request of `batch` shapes twice through `LION.sample` (adaptive dopri5
+    from t = 1 to sde.ode_eps at tolerance `tol` on both priors): the
+    outputs equal and the evaluations equal; the launch counters are zeroed
+    just before and read just after. Then a 2-step Euler sample at batch 2
+    on the card against the same model on the CPU."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.models import LION
+    cfg = _ode_cfg(cfg, tol)
+    t0 = time.perf_counter()
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(0))
+    log(f"[ode] flagship LION under the PF-ODE (dopri5, tolerance {tol}, "
+        f"ode_eps {cfg.sde.ode_eps}), fp32, init "
+        f"{time.perf_counter() - t0:.1f} s; 2 requests x batch {batch}")
+    ops.reset_counts()
+    runs = []
+    for i in range(2):
+        gen = torch.Generator(device="cuda").manual_seed(200)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lion.sample(batch, generator=gen)
+        wall = time.perf_counter() - t0
+        pts = out["points"]
+        if tuple(pts.shape) != (batch, 2048, 3) or not bool(
+                torch.isfinite(pts).all()):
+            raise AssertionError(f"ODE points {tuple(pts.shape)}")
+        s = out["stage_seconds"]
+        runs.append((wall, out))
+        log(f"[ode] request {i}: {wall:.3f} s wall (global {s['global']:.3f}"
+            f" s, {out['nfe_global']} evaluations; local {s['local']:.3f} s, "
+            f"{out['nfe_local']} evaluations; decode {s['decode']:.3f} s); "
+            f"{1e3 * s['local'] / out['nfe_local']:.3f} ms per local "
+            f"evaluation, {1e3 * s['global'] / out['nfe_global']:.3f} ms per "
+            f"global one; {batch / wall:.4f} shapes/s")
+    counts = _path_counts(FP32_PATH, "ode")
+    (_, a), (_, b) = runs
+    same = all(torch.equal(a[k], b[k]) for k in ("z_global", "z_local",
+                                                  "points"))
+    log(f"[ode] the two requests: outputs equal {same}, evaluations "
+        f"{a['nfe']} and {b['nfe']}")
+    if not same or a["nfe"] != b["nfe"]:
+        raise AssertionError("the PF-ODE sample does not repeat")
+
+    cpu = LION(cfg, device="cpu")
+    cpu.load_state_dict(lion.state_dict())
+    g = torch.Generator().manual_seed(15)
+    noise = (torch.randn(2, lion.style_dim, generator=g),
+             torch.randn(2, lion.local_dim, generator=g))
+    t0 = time.perf_counter()
+    ref = _euler_sample(cpu, *noise)
+    t1 = time.perf_counter()
+    got = _euler_sample(lion, *(n.cuda() for n in noise))
+    errs = {k: (max_abs(got[k].cpu(), ref[k]), float(ref[k].abs().max()))
+            for k in ("z_global", "z_local", "points")}
+    log(f"[ode] 2-step Euler B2 card vs CPU (full width): "
+        f"{ {k: f'{e:.3e} of {m:.3e}' for k, (e, m) in errs.items()} } "
+        f"(limit 1e-4 of the size); cpu {t1 - t0:.1f} s")
+    # the first Euler step from t = 1 multiplies the prediction by
+    # h g2 / 2 = 5 and the second by ~2.6: the forward's ~3e-6 of its size
+    # (phase 4) reaches the latent ~17-fold
+    for k, (e, m) in errs.items():
+        if not e <= 1e-4 * m:
+            raise AssertionError(f"ODE card vs CPU {k}: {e:.3e} of {m:.3e}")
+    del lion, cpu
+    return counts
+
+
+def _weighted_cfg(cfg):
+    """The weighted objective on the continuous diffusion with every
+    regularizer at tests/test_regularization.py's values (_reg_cfg,
+    _jackin_cfg): ll_iw, mixed prediction, SN and norm scale at 1e-2, the
+    Jacobian term with 2 probes and the kinetic term at 1."""
+    cfg.sde.ode_sample = 1
+    cfg.sde.iw_sample_p = "ll_iw"
+    cfg.latent_pts.pvd_mse_loss = 0
+    cfg.sde.mixed_prediction = True
+    cfg.sde.weight_decay_norm_dae = 1e-2
+    cfg.sde.regularize_mlogit_margin = 1.0
+    cfg.sde.bound_mlogit_value = -5.42
+    cfg.sde.jac_reg_coeff = 1.0
+    cfg.sde.kin_reg_coeff = 1.0
+    cfg.sde.jac_reg_samples = 2
+    return cfg
+
+
+@contextlib.contextmanager
+def _unrecorded_dx():
+    """K10's backward as it was before its dx went through the autograd
+    Function: dx by the wrapper's raw launch, which autograd does not
+    record, so a backward taken with create_graph loses every second-order
+    term through the conv. Yields the list of the backward's calls."""
+    from lion_tpu_torch.ops import conv3d
+    cls, backward = conv3d._Conv3dSame, conv3d._Conv3dSame.backward
+    raw = types.SimpleNamespace(apply=conv3d.conv3d_3x3_same_kernel)
+    calls = []
+
+    def raw_backward(ctx, g):
+        calls.append(tuple(g.shape))
+        conv3d._Conv3dSame = raw
+        try:
+            return backward(ctx, g)
+        finally:
+            conv3d._Conv3dSame = cls
+    cls.backward = staticmethod(raw_backward)
+    try:
+        yield calls
+    finally:
+        cls.backward = staticmethod(backward)
+
+
+def _weighted_grads(lion, dev, x, draws, sn0):
+    """One weighted two-prior loss on `dev` -> ((metrics, gradients),
+    (its Jacobian terms, their gradients alone)); the gradients by name on
+    the CPU."""
+    from lion_tpu_torch.ops._cuda import no_tf32
+    from lion_tpu_torch.trainers import prior_loss
+    names = [f"{p}.{k}" for p in ("global_prior", "local_prior")
+             for k, _ in getattr(lion, p).named_parameters()]
+    params = list(lion.global_prior.parameters()) + list(
+        lion.local_prior.parameters())
+    sn = {k: (u.to(dev), v.to(dev)) for k, (u, v) in sn0.items()}
+    lion.zero_grad(set_to_none=True)
+    with no_tf32():
+        loss, metrics = prior_loss(lion, x.to(dev), sn_state=sn,
+                                   **{k: _to_dev(v, dev)
+                                      for k, v in draws.items()})
+        jac = metrics["train/jac_reg_0"] + metrics["train/jac_reg_1"]
+        g_jac = torch.autograd.grad(jac, params, retain_graph=True,
+                                    allow_unused=True)
+        loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in zip(names, params)}
+    jac_grads = {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+                 for n, p, g in zip(names, params, g_jac)}
+    return (({k: float(v.detach()) for k, v in metrics.items()}, grads),
+            ({"loss": float(jac.detach())}, jac_grads))
+
+
+def _flat_rel(got, ref):
+    return _rel_l2(torch.cat([got[k].reshape(-1) for k in ref]),
+                   torch.cat([g.reshape(-1) for g in ref.values()]))
+
+
+def phase_weighted_grad_parity(cfg):
+    """One full-width weighted two-prior loss (batch 2, dropout 0) with its
+    SN, Jacobian and kinetic terms, and its gradients (through K10's dx
+    twice: J^T v, then the loss's backward of it), on the card against the
+    same modules on the CPU on the same x, draws and power-iteration
+    vectors: the whole loss's, and the Jacobian terms' alone, whose
+    gradient is all second order. Then the card again with K10's backward
+    as it was before (dx unrecorded): the Jacobian gate must fail on it."""
+    from lion_tpu_torch.models import LION
+    from lion_tpu_torch.utils.spectral_norm import init_sn_state
+    cfg = _weighted_cfg(cfg)
+    cfg.sde.dropout = cfg.ddpm.dropout = 0.0
+    cpu = LION(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(11))
+    gpu = LION(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+    d = 2048 * 4
+    x = randn(2, 2048, 3) * 0.3
+    draws = dict(rho=(randn(2, 128), randn(2, d)),
+                 iw_rho=torch.tensor([0.1, 0.7]),
+                 noise=(randn(2, 128), randn(2, d)),
+                 jac_probes=((randn(2, 128), randn(2, 128)),
+                             (randn(2, d), randn(2, d))))
+    names = [f"{p}.{k}" for p in ("global_prior", "local_prior")
+             for k, _ in getattr(cpu, p).named_parameters()]
+    sn0 = init_sn_state(zip(names, list(cpu.global_prior.parameters())
+                            + list(cpu.local_prior.parameters())))
+    runs, jac_runs, seconds = [], [], []
+    for lion, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        t0 = time.perf_counter()
+        whole, jac = _weighted_grads(lion, dev, x, draws, sn0)
+        runs.append(whole)
+        jac_runs.append(jac)
+        seconds.append(time.perf_counter() - t0)
+    # the parity gate of the CPU tests (a tiny model against lion_tpu):
+    # the loss within 1e-5, the flattened gradient within 1e-4; the
+    # Jacobian terms' gradient, a backward of a backward, at
+    # phase_grad_parity's 1e-4 / 1e-3
+    label = "flagship weighted prior loss B2 (SN, jac x2, kin)"
+    out = _grad_gate("weighted grad parity", label, runs, seconds,
+                     loss_tol=1e-5, grad_tol=1e-4)
+    jac_tol = 1e-3
+    out["jac"] = _grad_gate("weighted grad parity",
+                            "its Jacobian terms alone", jac_runs, seconds,
+                            grad_tol=jac_tol)
+    with _unrecorded_dx() as calls:
+        (_, g_old), (_, gj_old) = _weighted_grads(gpu, "cuda", x, draws,
+                                                  sn0)
+    old = {"grad_rel_l2": _flat_rel(g_old, runs[0][1]),
+           "jac_grad_rel_l2": _flat_rel(gj_old, jac_runs[0][1])}
+    log(f"[weighted grad parity] the card with K10's dx unrecorded, as "
+        f"before ({len(calls)} K10 backwards): flattened gradient relative "
+        f"L2 from the CPU {old['grad_rel_l2']:.3e} (the whole loss's gate "
+        f"1e-4), the Jacobian terms' {old['jac_grad_rel_l2']:.3e} (gate "
+        f"{jac_tol:g})")
+    if not calls or not old["jac_grad_rel_l2"] > 10 * jac_tol:
+        raise AssertionError(f"the Jacobian gate does not see K10's dx "
+                             f"dropped from the second order: {old}")
+    out["unrecorded_dx"] = old
+    del cpu, gpu
+    return out
+
+
+def _to_dev(t, dev):
+    return tuple(_to_dev(u, dev) for u in t) if isinstance(t, tuple) \
+        else t.to(dev)
+
+
+def phase_weighted_train(cfg, batch, warmup, steps):
+    """The flagship weighted two-prior step (continuous ll_iw, SN, Jacobian
+    with 2 probes, kinetic, dropout on) at batch `batch`: warmup + steps
+    steps of `make_prior_train_step`, the launch counters zeroed just
+    before and read just after; then the device time of the objective
+    (forward with J^T v) and of the whole step under torch.profiler."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.models import LION
+    from lion_tpu_torch.profile_step import _device_groups
+    from lion_tpu_torch.trainers import (make_prior_train_step,
+                                         warmup_cosine_schedule)
+    cfg = _weighted_cfg(cfg)
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(0))
+    step = make_prior_train_step(
+        lion, warmup_cosine_schedule(2e-4, 2e-4, 10, 10, 1, 10))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(batch, 2048, 3, generator=gen, device="cuda") * 0.3
+    params0 = [p.detach().clone() for p in step.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    metrics = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        metrics.append(step(x, gen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = _path_counts(TRAIN_PATH, "weighted")
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    log(f"[weighted] losses: {[m['loss'] for m in losses]}; the last "
+        f"step's metrics: {losses[-1]}")
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"non-finite weighted step: {losses}")
+    moved = sum(int((p.detach() != q).sum())
+                for p, q in zip(step.params, params0))
+    if moved == 0 or not all(bool(torch.isfinite(p).all())
+                             for p in step.params):
+        raise AssertionError("the weighted step did not train")
+    log(f"[weighted] flagship weighted step B{batch} (ll_iw, SN, jac x2, "
+        f"kin): {wall / steps * 1e3:.3f} ms/step, "
+        f"{batch * steps / wall:.3f} samples/s; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; {moved} parameter values changed")
+    wall_o, obj = _device_groups(lambda: step.objective(x, gen), 2)
+    wall_s, full = _device_groups(lambda: step(x, gen), 2)
+    dev_o = sum(v[0] for v in obj.values())
+    dev_s = sum(v[0] for v in full.values())
+    k10 = full.get("K conv3d_3x3_same", [0.0, 0])
+    log(f"[weighted] device ms under torch.profiler: objective (forward, "
+        f"J^T v, kinetic) {dev_o:.3f} of {wall_o:.3f} ms wall; whole step "
+        f"{dev_s:.3f} of {wall_s:.3f} ms wall; so the backward with its "
+        f"second-order pass and Adam {dev_s - dev_o:.3f} ms; K10 "
+        f"{k10[0]:.3f} ms in {k10[1]} launches a step")
+    for name, (ms, n) in sorted(full.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[weighted]   {ms:9.3f} ms {n:6d} ops  {name}")
+    del lion, step
+    return counts
+
+
+def phase_ode_trainer(tmp, vae_checkpoint, batch, warmup, steps, tol):
+    """The flagship two-prior trainer under sde.ode_sample = 1 and the
+    weighted objective (SN, mixed prediction) on phase 12's checkpoint and
+    a synthetic split: warmup + steps steps, one `run_eval` sampling its
+    shapes through the PF-ODE at tolerance `tol`, then
+    `interpolate_posterior_ode` on 2 shapes and 4 rows. The launch
+    counters are zeroed just before the epoch and read at the end."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.config import flagship_cfg
+    from lion_tpu_torch.trainers import get_trainer
+    from lion_tpu_torch.trainers.interpolate import interpolate_posterior_ode
+    data = os.path.join(tmp, "data_ode")
+    _write_pointflow(data, {"train": (warmup + steps) * batch, "val": batch,
+                            "test": STAGE2_VAL_SAMPLES}, seed=44)
+    cfg = _ode_cfg(flagship_cfg(), tol)
+    cfg.trainer.type = "trainers.train_2prior"
+    cfg.latent_pts.pvd_mse_loss = 0
+    cfg.sde.mixed_prediction = True
+    cfg.sde.weight_decay_norm_dae = 1e-2
+    cfg.data.cates = "chair"
+    cfg.data.batch_size = cfg.data.batch_size_test = batch
+    cfg.data.eval_test_split = 1
+    cfg.sde.vae_checkpoint = vae_checkpoint
+    cfg.trainer.epochs = 1
+    cfg.viz.viz_freq = 0
+    cfg.viz.val_freq = 1
+    cfg.eval_ddim_step = 0
+    cfg.num_val_samples = ODE_VAL_SAMPLES
+    trainer = get_trainer(cfg.trainer.type)(cfg, argparse.Namespace(
+        save_dir=os.path.join(tmp, "exp_ode"), data_root=data))
+    if trainer.step_fn.sn_state is None:
+        raise AssertionError("the ODE trainer holds no power-iteration state")
+    ends, losses, evals = [], [], []
+    train_iter, run_eval = trainer.train_iter, trainer.run_eval
+
+    def timed_iter(b, step):
+        metrics = train_iter(b, step)
+        ends.append(time.perf_counter())
+        losses.append(metrics)
+        return metrics
+
+    def timed_eval():
+        t = time.perf_counter()
+        score = run_eval()
+        evals.append((time.perf_counter() - t, score))
+        return score
+    trainer.train_iter, trainer.run_eval = timed_iter, timed_eval
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    trainer.train_epochs()
+    if trainer.step != warmup + steps or not all(
+            np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"{trainer.step} steps, losses {losses}")
+    if len(evals) != 1 or not np.isfinite(evals[0][1]):
+        raise AssertionError(f"run_eval: {evals}")
+    wall = ends[-1] - ends[warmup - 1]
+    log(f"[ode trainer] weighted continuous steps at batch {batch}: "
+        f"{wall / steps * 1e3:.3f} ms/step; last metrics {losses[-1]}; "
+        f"run_eval through the PF-ODE ({ODE_VAL_SAMPLES} shapes, tolerance "
+        f"{tol}) {evals[0][0]:.3f} s, 1-NN-CD accuracy {evals[0][1]:.4f}")
+    batch0 = next(iter(trainer.test_loader))
+    x = torch.from_numpy(np.asarray(batch0["tr_points"], np.float32)[:2])
+    t0 = time.perf_counter()
+    with trainer.as_lion() as lion:
+        out = interpolate_posterior_ode(
+            lion, x[0].cuda(), x[1].cuda(), 4,
+            torch.Generator(device="cuda").manual_seed(3),
+            ode_eps=INTERP_ODE_EPS, ode_solver_tol=tol)
+    pts = out["points"]
+    if tuple(pts.shape) != (4, 2048, 3) or not bool(
+            torch.isfinite(pts).all()):
+        raise AssertionError(f"interpolate_posterior_ode {pts.shape}")
+    log(f"[ode trainer] interpolate_posterior_ode, 2 shapes -> 4 rows "
+        f"(ode_eps {INTERP_ODE_EPS}, tolerance {tol}): evaluations "
+        f"{out['nfe']}, {time.perf_counter() - t0:.3f} s, finite")
+    trainer.writer.close()
+    return _path_counts(TRAIN_PATH, "ode trainer")
+
+
 def phase_cf_op(batch):
     """`ops.ball_query_group_cf` at the SA shapes of scripts/profile_bqg_cf.py
     (bf16 features, K = 32) and one fp32 backward at SA0's shape; the
@@ -1696,6 +2116,12 @@ def main(argv=None):
                                                 TRAIN_STEPS)
         stage2 = phase_stage2_trainer(tmp, vae_ckpt, BATCH_STAGE2,
                                       WARMUP_STEPS, TRAIN_STEPS)
+        ode_trainer = phase_ode_trainer(tmp, vae_ckpt, BATCH_STAGE2,
+                                        WARMUP_STEPS, TRAIN_STEPS, ODE_TOL)
+    ode = phase_ode_sample(flagship_cfg(), ODE_BATCH, ODE_TOL)
+    phase_weighted_grad_parity(flagship_cfg())
+    weighted = phase_weighted_train(flagship_cfg(), BATCH_TRAIN,
+                                    WARMUP_STEPS, TRAIN_STEPS)
     cf = phase_cf_op(BATCH_KERNELS)
     cfg_eval = flagship_cfg()
     cfg_eval.tpu.bf16 = True
@@ -1707,7 +2133,8 @@ def main(argv=None):
 
     paths = {"fp32": fp32, "bf16": bf16, "train": train, "cf_op": cf,
              "eval": evaluation, "vae_train": vae_train,
-             "stage2_trainer": stage2}
+             "stage2_trainer": stage2, "ode_sample": ode,
+             "weighted_train": weighted, "ode_trainer": ode_trainer}
     report = []
     for name in REPORT_ORDER:
         w = KERNELS[name]

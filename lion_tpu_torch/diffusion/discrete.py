@@ -1,6 +1,6 @@
 """Discrete DDPM / DDIM (port of lion_tpu/diffusion/discrete.py: the
 constants, the training quantities `iw_quantities`, `iw_quantities_t`,
-`sample_q` and `get_mixing_component`, the ancestral sampler
+`loss_weight`, `sample_q` and `get_mixing_component`, the ancestral sampler
 `_ancestral_step`, `run_denoising_diffusion` and `_denoise_ts`, and the
 DDIM sampler `ddim_tau_schedule` and `run_ddim`).
 
@@ -58,6 +58,9 @@ class DiffusionDiscretized:
         self.betas = betas.astype(np.float32)
         self.alphas = alphas.astype(np.float32)
         self.alpha_bars = alpha_bars.astype(np.float32)
+        self.snr = (1.0 / (1.0 - alpha_bars) - 1.0).astype(np.float32)
+        self.use_p2_weight = bool(ddpm.use_p2_weight)
+        self.p2_k, self.p2_gamma = float(ddpm.p2_k), float(ddpm.p2_gamma)
 
     # ---------------------------------------------------------- training
     def _alpha_bars_at(self, timestep: torch.Tensor) -> torch.Tensor:
@@ -68,8 +71,8 @@ class DiffusionDiscretized:
                       timestep: Optional[torch.Tensor] = None):
         """t ~ U{1..T} from `generator` (on its device), or the given
         timesteps; returns (timestep (B,) int32, var_t (B, 1), m_t (B, 1))
-        (lion_tpu/diffusion/discrete.py:64-85; the p2 loss weight is left
-        out: the pvd_mse objective does not use it)."""
+        (lion_tpu/diffusion/discrete.py:64-85 without its loss weight,
+        which `loss_weight` gives)."""
         if timestep is None:
             rho = torch.rand(batch_size, generator=generator,
                              device=generator.device) * self.num_steps
@@ -83,6 +86,17 @@ class DiffusionDiscretized:
         alpha_bars = self._alpha_bars_at(timestep)
         return (timestep.to(torch.int32), (1.0 - alpha_bars)[:, None],
                 torch.sqrt(alpha_bars)[:, None])
+
+    def loss_weight(self, timestep: torch.Tensor) -> torch.Tensor:
+        """The weighted objective's per-item weight (B, 1) at timesteps in
+        [1, T]: the p2 weight 1 / (p2_k + snr_t)^p2_gamma in float32 under
+        ddpm.use_p2_weight, else ones (lion_tpu/diffusion/discrete.py:
+        76-85)."""
+        if not self.use_p2_weight:
+            return torch.ones((timestep.shape[0], 1), device=timestep.device)
+        snr = torch.from_numpy(self.snr).to(timestep.device)
+        table = 1.0 / (self.p2_k + snr) ** self.p2_gamma
+        return table[timestep.long() - 1][:, None]
 
     @staticmethod
     def sample_q(x_init, noise, var_t, m_t):

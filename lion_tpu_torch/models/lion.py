@@ -15,11 +15,15 @@ hierarchy:
 
 With `ddim_step > 0` both chains take the DDIM sampler's `ddim_step`
 steps instead (`cfg.sde.ddim_skip_type`, `cfg.sde.ddim_kappa`), as the
-evaluation samples (`cfg.eval_ddim_step`). With `cfg.tpu.bf16 = True` the
-local prior's and the decoder's U-Nets compute in bf16; the global prior,
-the parameters and the chains stay fp32. A released .pt loads through
-`ckpt.load_lion_checkpoint` and `load_jax_params`. The PF-ODE and class
-and CLIP conditioning are not ported yet.
+evaluation samples (`cfg.eval_ddim_step`). With `cfg.sde.ode_sample` set,
+both priors sample by the probability-flow ODE of the continuous VPSDE
+(`diffusion.continuous`; adaptive dopri5 at `cfg.sde.ode_solver_tol` from
+t = 1 to `cfg.sde.ode_eps`) and the output gains the number of function
+evaluations (`nfe`). With `cfg.tpu.bf16 = True` the local prior's and the
+decoder's U-Nets compute in bf16; the global prior, the parameters and
+the chains stay fp32. A released .pt loads through
+`ckpt.load_lion_checkpoint` and `load_jax_params`. Class and CLIP
+conditioning are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from torch import nn
 
 from ..ckpt.from_jax import state_dict_from_jax
 from ..config.view import as_view
+from ..diffusion.continuous import make_diffusion
 from ..diffusion.discrete import DiffusionDiscretized, randn
 from ..nn.common import init_weights
 from .registry import build_global_prior, build_local_prior
@@ -90,20 +95,34 @@ class LION(nn.Module):
     def sample(self, num_samples: int = 10,
                generator: Optional[torch.Generator] = None,
                given_noise=None, ddim_step: int = 0) -> dict:
-        """Hierarchical sampling: ancestral DDPM, or DDIM with `ddim_step`
-        steps when it is above 0.
+        """Hierarchical sampling: the PF-ODE under cfg.sde.ode_sample,
+        else ancestral DDPM, or DDIM with `ddim_step` steps when it is
+        above 0 (which the PF-ODE refuses, as the JAX package does).
 
-        `given_noise` (ancestral only): optional ((init_g, steps_g),
-        (init_l, steps_l)) with init (B, D) and steps (T, B, D) tensors
-        replacing every Gaussian draw of the two chains (lion_tpu's
-        given_noise). Returns z_global (B, style), z_local (B, N*C), points
-        (B, N, 3) and the wall seconds of each stage (`stage_seconds`,
-        after a device sync)."""
-        if ddim_step > 0 and given_noise is not None:
-            raise ValueError("given_noise is only defined for the ancestral "
-                             "DDPM branch (ddim_step = 0)")
+        `given_noise`: optional ((init_g, steps_g), (init_l, steps_l)) with
+        init (B, D) and steps (T, B, D) tensors replacing every Gaussian
+        draw of the two ancestral chains (lion_tpu's given_noise); under
+        the PF-ODE the steps are None and the inits are the ODE's starting
+        points (lion_tpu's `sample_model_ode(noise=)`). Returns z_global
+        (B, style),
+        z_local (B, N*C), points (B, N, 3), the wall seconds of each stage
+        (`stage_seconds`, after a device sync) and under the PF-ODE the
+        function evaluations of both priors (`nfe`) and of each
+        (`nfe_global`, `nfe_local`)."""
+        use_ode = bool(self.cfg.sde.ode_sample)
+        if use_ode and ddim_step > 0:
+            raise ValueError("ode_sample and ddim_step are exclusive")
+        if given_noise is not None:
+            if ddim_step > 0:
+                raise ValueError("given_noise is only defined for the "
+                                 "ancestral DDPM branch (ddim_step = 0) and "
+                                 "the PF-ODE's starting points")
+            if use_ode and any(steps is not None
+                               for _, steps in given_noise):
+                raise ValueError("the PF-ODE draws no step noise: give "
+                                 "((init_g, None), (init_l, None))")
         return self._sample(num_samples, generator, given_noise, chunks=1,
-                            ddim_step=ddim_step)
+                            ddim_step=ddim_step, ode=use_ode)
 
     @torch.no_grad()
     def sample_chunked(self, num_samples: int,
@@ -112,7 +131,8 @@ class LION(nn.Module):
         """`sample` with each chain run as `chunks` equal segments (the JAX
         package splits its device programs so; here the segments run back
         to back and give the same samples as `sample`, `given_noise`
-        included)."""
+        included). It runs the ancestral chain under cfg.sde.ode_sample
+        too, as the JAX package's does."""
         if self.diffusion.num_steps % chunks:
             raise ValueError(f"chunks ({chunks}) must divide ddpm.num_steps "
                              f"({self.diffusion.num_steps})")
@@ -134,12 +154,17 @@ class LION(nn.Module):
                 mixing_logit=mixing_logit, given_noise=given_noise)
         return x
 
+    def _ode(self, model_fn, x, mixing_logit):
+        """The PF-ODE from x (t = 1) to t = ode_eps (dopri5 at
+        ode_solver_tol) -> (x_0, nfe)."""
+        sde = as_view(self.cfg).sde
+        return make_diffusion(sde).sample_model_ode(
+            model_fn, x.shape[0], x.shape[1:], ode_eps=float(sde.ode_eps),
+            ode_solver_tol=float(sde.ode_solver_tol), noise=x,
+            mixing_logit=mixing_logit)
+
     def _sample(self, num_samples, generator, given_noise, chunks,
-                ddim_step=0):
-        if self.cfg.sde.ode_sample:
-            raise NotImplementedError(
-                "PF-ODE sampling (sde.ode_sample) is not ported (ROADMAP "
-                "Queue 1 item D, continuous diffusion)")
+                ddim_step=0, ode=False):
         self.eval()
         dev = self.device
         if generator is None:
@@ -156,8 +181,13 @@ class LION(nn.Module):
         shape_g = (num_samples, self.style_dim)
         x = randn(shape_g, generator, dev) if x_g is None \
             else x_g.reshape(shape_g).to(dev)
-        z_global = self._chain(self.global_prior, x, generator, mix_g,
-                               noise_g, chunks, ddim_step)
+        nfe = {}
+        if ode:
+            z_global, nfe["nfe_global"] = self._ode(self.global_prior, x,
+                                                    mix_g)
+        else:
+            z_global = self._chain(self.global_prior, x, generator, mix_g,
+                                   noise_g, chunks, ddim_step)
         _sync(dev)
         t1 = time.perf_counter()
         seconds["global"] = t1 - t0
@@ -165,9 +195,14 @@ class LION(nn.Module):
         shape_l = (num_samples, self.num_points, self.point_channels)
         x = randn(shape_l, generator, dev) if x_l is None \
             else x_l.reshape(shape_l).to(dev)
-        z_local = self._chain(
-            lambda xx, t: self.local_prior(xx, t, condition_input=z_global),
-            x, generator, mix_l, noise_l, chunks, ddim_step)
+        local_fn = lambda xx, t: self.local_prior(  # noqa: E731
+            xx, t, condition_input=z_global)
+        if ode:
+            z_local, nfe["nfe_local"] = self._ode(local_fn, x, mix_l)
+            nfe["nfe"] = nfe["nfe_global"] + nfe["nfe_local"]
+        else:
+            z_local = self._chain(local_fn, x, generator, mix_l, noise_l,
+                                  chunks, ddim_step)
         z_local = z_local.reshape(num_samples, self.local_dim)
         _sync(dev)
         t2 = time.perf_counter()
@@ -177,4 +212,4 @@ class LION(nn.Module):
         _sync(dev)
         seconds["decode"] = time.perf_counter() - t2
         return {"z_global": z_global, "z_local": z_local, "points": points,
-                "stage_seconds": seconds}
+                "stage_seconds": seconds, **nfe}

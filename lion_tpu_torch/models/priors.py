@@ -1,7 +1,9 @@
 """Diffusion priors (port of lion_tpu/models/priors.py).
 
-  - GlobalPrior: the 'se_drop' ResNet of 1x1 blocks (models/score_sde/
-    resnet.py PriorSEDrop), dense layers over the flat style latent.
+  - GlobalPrior: the ResNet of 1x1 blocks (models/score_sde/resnet.py),
+    dense layers over the flat style latent: the 'se_drop' blocks of
+    PriorSEDrop (the released models) or the 'plain' ELU + GroupNorm blocks
+    of Prior; the positional or the random-Fourier time embedding.
   - LocalPrior: the AdaGN PVCNN2 U-Net over the latent points, conditioned
     on the global sample through AdaGN style input.
 
@@ -13,10 +15,12 @@ prior's blocks, ddpm.dropout in the local prior's U-Net.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config.view import as_view
-from ..nn.common import Dropout, TDense, compute_dtype, timestep_embedding
+from ..nn.common import (Dropout, GNAffine, RandomFourierEmbedding, TDense,
+                         compute_dtype, group_norm, timestep_embedding)
 from ..nn.unet import PVCNN2Unet
 
 # local prior U-Net specs (latent_points_ada_localprior.py:17-28); the third
@@ -58,9 +62,34 @@ class ResBlockSEDrop(nn.Module):
         return x + h * torch.sigmoid(g)
 
 
+class ResBlockPlain(nn.Module):
+    """h = x + t; h + elu(GN(dense(elu(GN(dense(h)))))) with GroupNorm of
+    min(dim // 4, 32) groups and eps 1e-6 (resnet.py Prior's block)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.groups = min(dim // 4, 32)
+        self.conv1 = TDense(dim, dim)
+        self.norm1 = GNAffine(dim)
+        self.conv2 = TDense(dim, dim)
+        self.norm2 = GNAffine(dim)
+
+    def forward(self, x, t):
+        h = x + t
+        out = self.conv1(h)
+        out = F.elu(group_norm(out, self.norm1.scale, self.norm1.bias,
+                               self.groups, 1e-6))
+        out = self.conv2(out)
+        out = F.elu(group_norm(out, self.norm2.scale, self.norm2.bias,
+                               self.groups, 1e-6))
+        return h + out
+
+
 class GlobalPrior(nn.Module):
-    """resnet.py PriorSEDrop over the flat style latent (positional time
-    embedding, 'se_drop' blocks)."""
+    """resnet.py's Prior family over the flat style latent: 'se_drop'
+    (PriorSEDrop) or 'plain' (Prior) blocks; the positional time embedding,
+    or the random-Fourier one for any other `embedding_type`, as the JAX
+    package picks it. 'se_clip' (PriorSEClip) is not ported."""
 
     def __init__(self, num_input_channels: int, nf: int = 2048,
                  num_blocks: int = 8, embedding_dim: int = 128,
@@ -70,12 +99,14 @@ class GlobalPrior(nn.Module):
                  mixed_prediction: bool = False,
                  mixing_logit_init: float = -6.0):
         super().__init__()
-        if embedding_type != "positional" or block_type != "se_drop":
+        if block_type not in ("se_drop", "plain"):
             raise NotImplementedError(
-                f"GlobalPrior: {embedding_type}/{block_type} not ported "
-                "(positional/se_drop only)")
+                f"GlobalPrior: the {block_type} blocks (CLIP conditioning) "
+                "are not ported (ROADMAP Queue 1 item J)")
         self.embedding_dim = embedding_dim
         self.embedding_scale = embedding_scale
+        self.temb_fun = None if embedding_type == "positional" else \
+            RandomFourierEmbedding(embedding_dim, embedding_scale)
         # two stacked dense layers, no nonlinearity between
         self.temb0 = TDense(embedding_dim * 4, embedding_dim)
         self.temb1 = TDense(nf, embedding_dim * 4)
@@ -85,7 +116,8 @@ class GlobalPrior(nn.Module):
         self.input_layer = TDense(nf, num_input_channels)
         self.num_blocks = num_blocks
         for i in range(num_blocks):
-            self.add_module(f"block{i}", ResBlockSEDrop(nf, dropout))
+            self.add_module(f"block{i}", ResBlockSEDrop(nf, dropout)
+                            if block_type == "se_drop" else ResBlockPlain(nf))
         self.output_layer = TDense(num_input_channels, nf)
 
     def forward(self, x, t):
@@ -95,7 +127,11 @@ class GlobalPrior(nn.Module):
         x = x.reshape(b, -1)
         t = torch.as_tensor(t, dtype=torch.float32,
                             device=x.device).reshape(-1).expand(b)
-        temb = timestep_embedding(t, self.embedding_dim, self.embedding_scale)
+        if self.temb_fun is None:
+            temb = timestep_embedding(t, self.embedding_dim,
+                                      self.embedding_scale)
+        else:
+            temb = self.temb_fun(t)
         temb = self.temb1(self.temb0(temb))
         h = self.input_layer(x)
         for i in range(self.num_blocks):

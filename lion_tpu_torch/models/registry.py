@@ -17,7 +17,8 @@ def build_global_prior(cfg) -> GlobalPrior:
     if name not in _BLOCK_TYPE:
         raise KeyError(f"Unknown global prior: {name}")
     if cfg.clipforge.enable:
-        raise NotImplementedError("CLIP-conditioned global prior not ported")
+        raise NotImplementedError("the CLIP-conditioned global prior is not "
+                                  "ported (ROADMAP Queue 1 item J)")
     return GlobalPrior(
         num_input_channels=cfg.latent_pts.style_dim,
         nf=cfg.sde.num_channels_dae,

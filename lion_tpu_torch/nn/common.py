@@ -5,7 +5,8 @@ names and layouts follow the flax tree of the JAX package, so its params
 load with a flatten (ckpt/from_jax.py):
   Dense kernel (in, out) and bias (out,);
   Conv3dSame kernel (3, 3, 3, in, out) and bias (out,);
-  GroupNorm affine scale/bias (C,).
+  GroupNorm affine scale/bias (C,);
+  RandomFourierEmbedding w (1, embedding_dim // 2).
 
 Parameters start empty; `init_weights(module, generator)` draws them with
 the JAX package's initializers (torch nn.Linear's default uniform for Dense
@@ -131,21 +132,22 @@ class GNAffine(nn.Module):
             self.bias.zero_()
 
 
-def group_norm(x, scale, bias):
-    """GroupNorm(8) over (B, ..., C) as flax computes it: statistics over
-    all non-batch dims of each group, var = E[x^2] - E[x]^2 clamped at 0.
-    Computed and returned in fp32 whatever x's dtype. The two means are
-    accumulated in float64: PyTorch's CPU reduction over the point axis
-    adds its up to 10^5 terms one after another, whose float32 rounding
-    reached 1e-3 of a normalized output at 1024 centers x 32 slots."""
+def group_norm(x, scale, bias, groups: int = GN_GROUPS, eps: float = GN_EPS):
+    """GroupNorm over (B, ..., C) as flax computes it: `groups` groups
+    (8 by default), statistics over all non-batch dims of each group,
+    var = E[x^2] - E[x]^2 clamped at 0, `eps` (1e-5 by default). Computed
+    and returned in fp32 whatever x's dtype. The two means are accumulated
+    in float64: PyTorch's CPU reduction over the point axis adds its up to
+    10^5 terms one after another, whose float32 rounding reached 1e-3 of a
+    normalized output at 1024 centers x 32 slots."""
     b, c = x.shape[0], x.shape[-1]
-    xg = x.float().reshape(b, -1, GN_GROUPS, c // GN_GROUPS)
+    xg = x.float().reshape(b, -1, groups, c // groups)
     mean = xg.mean(dim=(1, 3), keepdim=True, dtype=torch.float64)
     var = torch.clamp_min(
         (xg * xg).mean(dim=(1, 3), keepdim=True, dtype=torch.float64)
         - mean * mean, 0.0)
     mean, var = mean.float(), var.float()
-    y = ((xg - mean) * torch.rsqrt(var + GN_EPS)).reshape(x.shape)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     return y * scale + bias
 
 
@@ -366,6 +368,29 @@ def timestep_embedding(timesteps: torch.Tensor, embed_dim: int,
     return emb
 
 
+class RandomFourierEmbedding(nn.Module):
+    """The random-Fourier time embedding (B,) -> (B, embedding_dim):
+    [sin(t w 2 pi), cos(t w 2 pi)] with w (1, embedding_dim // 2) drawn
+    N(0, scale^2) once. w is a parameter that gets no gradient (the JAX
+    package stops it), so the optimizer sees a zero gradient for it."""
+
+    def __init__(self, embedding_dim: int, scale: float):
+        super().__init__()
+        self.scale = float(scale)
+        self.w = nn.Parameter(torch.empty(1, embedding_dim // 2))
+
+    def init_own_weights(self, generator):
+        draw = torch.empty(self.w.shape, device=generator.device)
+        with torch.no_grad():
+            self.w.copy_(draw.normal_(generator=generator) * self.scale)
+
+    def forward(self, timesteps):
+        w = self.w.detach()
+        emb = timesteps.float()[:, None] \
+            * (w[0] * (2.0 * 3.14159265359))[None, :]
+        return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+
+
 def compute_dtype(cfg) -> Optional[torch.dtype]:
     """The U-Nets' compute dtype: bf16 when cfg.tpu.bf16 is set, else None
     (fp32), as lion_tpu/models/priors.py:231 and vae.py:60 pick it."""
@@ -375,4 +400,5 @@ def compute_dtype(cfg) -> Optional[torch.dtype]:
 __all__ = ["swish", "init_weights", "TDense", "Conv3dSame", "GNAffine",
            "group_norm", "gn_affine_from_stats", "AdaGN", "Normalizer", "SE",
            "dropout", "Dropout", "set_dropout_generator", "LinearAttention",
-           "SharedMLP", "timestep_embedding", "compute_dtype"]
+           "SharedMLP", "timestep_embedding", "RandomFourierEmbedding",
+           "compute_dtype"]

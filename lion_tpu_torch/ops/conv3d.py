@@ -277,6 +277,13 @@ def conv3d_3x3_same_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _Conv3dSame(torch.autograd.Function):
+    """K10 with its gradient. dx is K10 again on the flipped, transposed
+    kernel, called through this Function so that a backward taken with
+    create_graph (the Jacobian regularizer's J^T v) is itself
+    differentiable: the kernel's raw launch is invisible to autograd, and
+    a direct call would drop every second-order term through the conv.
+    dw is cuDNN's weight gradient, which autograd differentiates."""
+
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
@@ -289,7 +296,7 @@ class _Conv3dSame(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             w_flip = w.flip(0, 1, 2).transpose(3, 4).contiguous()
-            dx = conv3d_3x3_same_kernel(g, w_flip)
+            dx = _Conv3dSame.apply(g, w_flip)
         if ctx.needs_input_grad[1]:
             with no_tf32():
                 dw = torch.nn.grad.conv3d_weight(

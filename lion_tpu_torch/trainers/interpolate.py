@@ -1,20 +1,21 @@
-"""Latent interpolation (port of lion_tpu/trainers/interpolate.py, the DDPM
-branch; reference trainers/interpolate_latent.py and
-encode_interp_interp.py).
+"""Latent interpolation (port of lion_tpu/trainers/interpolate.py;
+reference trainers/interpolate_latent.py and encode_interp_interp.py).
 
 Noise-space interpolation between two endpoint samples: the prior noises of
 the first and the last row are blended ('interpolate': the sqrt-weighted,
 variance-preserving blend; 'linear_interpolate'; 'freeze': every row
-row 0), both chains run the ancestral sampler from them, and the VAE
+row 0), both priors sample from them (the ancestral chain, or with
+`use_ode` the probability-flow ODE of the continuous VPSDE), and the VAE
 decodes. Posterior interpolation encodes two real shapes, diffuses their
 latents forward to a time t, blends the noisy latents and runs the
-reverse chain from t. The PF-ODE variants (`use_ode=True`,
-`interpolate_posterior_ode`) need continuous diffusion and raise
-NotImplementedError (ROADMAP Queue 1 item D).
+reverse chain from t; its PF-ODE form (`interpolate_posterior_ode`) maps
+both endpoints' latents to noise space with the forward ODE, blends there
+and integrates the reverse ODE.
 
-Like lion_tpu's, these chains apply no mixed prediction. Every draw comes
-from the caller's generator, or is given: the initial noises (`noise`)
-and the per-step noises (`given_noise`, (T, B, D) indexed by the step).
+Like lion_tpu's, these chains and ODEs apply no mixed prediction. Every
+draw comes from the caller's generator, or is given: the initial noises
+(`noise`), the per-step noises (`given_noise`, (T, B, D) indexed by the
+step) and the encoder's posterior normals (`rho`).
 """
 from __future__ import annotations
 
@@ -23,11 +24,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config.view import as_view
+from ..diffusion.continuous import make_diffusion
 from ..diffusion.discrete import randn
 from .train_2prior import Trainer as TwoPriorTrainer
-
-_ODE_REFUSAL = ("PF-ODE interpolation needs continuous diffusion, which is "
-                "not ported (ROADMAP Queue 1 item D)")
 
 
 def _blend(noise: torch.Tensor, weights) -> torch.Tensor:
@@ -72,15 +72,17 @@ def generate_interpolation(lion, num_samples: int,
                            mode_global: str = "interpolate",
                            mode_local: str = "freeze",
                            use_ode: bool = False, noise=None,
-                           given_noise=None) -> dict:
+                           given_noise=None, ode_eps: float = 1e-5,
+                           ode_solver_tol: float = 1e-5) -> dict:
     """num_samples shapes whose prior noises interpolate between the first
     and the last row (interpolate_latent.py generate_samples:120-173), from
     `lion`'s current parameters. `noise` = (noise_global (B, style),
     noise_local (B, N*C)) are the rows before the modes blend them;
     `given_noise` = (steps_global, steps_local) the per-step draws of the
-    two chains. Returns points, z_global and z_local."""
-    if use_ode:
-        raise NotImplementedError(_ODE_REFUSAL)
+    two chains. With `use_ode` both priors integrate the PF-ODE (dopri5 at
+    ode_solver_tol, to ode_eps) from the blended noises instead. Returns
+    points, z_global, z_local and, under the ODE, the function evaluations
+    (`nfe`)."""
     lion.eval()
     dev = lion.device
     noise_g, noise_l = noise if noise is not None else (
@@ -90,6 +92,18 @@ def generate_interpolation(lion, num_samples: int,
                                                                      None)
     noise_g = MODES[mode_global](noise_g.to(dev))
     noise_l = MODES[mode_local](noise_l.to(dev))
+    if use_ode:
+        sde = make_diffusion(as_view(lion.cfg).sde)
+        z_global, nfe_g = sde.sample_model_ode(
+            lion.global_prior, num_samples, (lion.style_dim,), ode_eps,
+            ode_solver_tol, noise=noise_g)
+        z_local, nfe_l = sde.sample_model_ode(
+            lambda x, t: lion.local_prior(x, t, condition_input=z_global),
+            num_samples, (lion.local_dim,), ode_eps, ode_solver_tol,
+            noise=noise_l)
+        points = lion.vae.sample(num_samples, [z_global, z_local])
+        return {"points": points, "z_global": z_global, "z_local": z_local,
+                "nfe": nfe_g + nfe_l}
     diffusion = lion.diffusion
     z_global = diffusion.run_denoising_diffusion(
         lion.global_prior, num_samples, (lion.style_dim,), generator, dev,
@@ -155,10 +169,53 @@ def interpolate_posterior(lion, x_a: torch.Tensor, x_b: torch.Tensor,
     return {"points": points, "z_global": z_g, "z_local": z_l}
 
 
-def interpolate_posterior_ode(*args, **kwargs):
-    """The PF-ODE posterior interpolation (encode_interp_interp.py:
-    240-295): not ported."""
-    raise NotImplementedError(_ODE_REFUSAL)
+def _endpoint_rows(ends: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """The two noise-space endpoints (2, D) as the first and last of
+    num_steps rows, the rows between blended by `interpolate_noise`."""
+    mid = torch.zeros((num_steps - 2, ends.shape[1]), device=ends.device)
+    return interpolate_noise(torch.cat([ends[:1], mid, ends[1:]]))
+
+
+@torch.no_grad()
+def interpolate_posterior_ode(lion, x_a: torch.Tensor, x_b: torch.Tensor,
+                              num_steps: int,
+                              generator: Optional[torch.Generator] = None,
+                              ode_eps: float = 1e-5,
+                              ode_solver_tol: float = 1e-5,
+                              rho=None) -> dict:
+    """Deterministic posterior interpolation through the probability-flow
+    ODE (encode_interp_interp.py:240-295): encode x_a and x_b (N, 3) with
+    the VAE (`rho`, the encoder's two posterior normals, may be given),
+    map each level's latent to noise space with the forward ODE
+    (`compute_ode_encode`; the local prior conditioned on the two endpoint
+    global latents), blend num_steps rows there with sqrt weights,
+    integrate the reverse ODE (the local prior conditioned on the global
+    result) and decode. Returns points, z_global, z_local and the function
+    evaluations of the four integrations (`nfe`: enc_g, enc_l, dec_g,
+    dec_l)."""
+    lion.eval()
+    dev = lion.device
+    sde = make_diffusion(as_view(lion.cfg).sde)
+    x = torch.stack([x_a, x_b]).to(dev)
+    eps, _, _ = lion.vae.encode(x, generator, rho)
+    style_dim = lion.style_dim
+    eps_g, eps_l = eps[:, :style_dim], eps[:, style_dim:]
+    eps_T_g, nfe_eg = sde.compute_ode_encode(lion.global_prior, eps_g,
+                                             ode_eps, ode_solver_tol)
+    z_global, nfe_g = sde.sample_model_ode(
+        lion.global_prior, num_steps, (style_dim,), ode_eps, ode_solver_tol,
+        noise=_endpoint_rows(eps_T_g, num_steps))
+    eps_T_l, nfe_el = sde.compute_ode_encode(
+        lambda xx, tt: lion.local_prior(xx, tt, condition_input=eps_g),
+        eps_l, ode_eps, ode_solver_tol)
+    z_local, nfe_l = sde.sample_model_ode(
+        lambda xx, tt: lion.local_prior(xx, tt, condition_input=z_global),
+        num_steps, (eps_l.shape[1],), ode_eps, ode_solver_tol,
+        noise=_endpoint_rows(eps_T_l, num_steps))
+    points = lion.vae.sample(num_steps, [z_global, z_local])
+    return {"points": points, "z_global": z_global, "z_local": z_local,
+            "nfe": {"enc_g": nfe_eg, "enc_l": nfe_el, "dec_g": nfe_g,
+                    "dec_l": nfe_l}}
 
 
 # Eval-only trainers under the reference's trainer.type strings
@@ -172,9 +229,9 @@ class InterpolateLatentTrainer(TwoPriorTrainer):
                use_ema: bool = True, ddim_step: int = 0,
                given_noise=None) -> torch.Tensor:
         """`ddim_step` is accepted for the trainers' interface; the chains
-        are ancestral, as in lion_tpu (the trainer refuses sde.ode_sample
-        when it is built). The draws come from `generator`, by default one
-        seeded 0."""
+        are ancestral, or under sde.ode_sample the PF-ODE to sde.ode_eps at
+        `generate_interpolation`'s fixed tolerance, as in lion_tpu. The
+        draws come from `generator`, by default one seeded 0."""
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
         with self.as_lion(use_ema) as lion:
@@ -182,7 +239,9 @@ class InterpolateLatentTrainer(TwoPriorTrainer):
                 lion, num_samples, gen,
                 mode_global=self.cfg.tpu.interp_mode_global,
                 mode_local=self.cfg.tpu.interp_mode_local,
-                given_noise=given_noise)
+                use_ode=bool(self.cfg.sde.ode_sample),
+                given_noise=given_noise,
+                ode_eps=float(self.cfg.sde.ode_eps))
         return out["points"]
 
 
@@ -208,12 +267,19 @@ class EncodeInterpTrainer(TwoPriorTrainer):
                use_ema: bool = True, ddim_step: int = 0,
                diffuse_t: int = 200) -> torch.Tensor:
         """`num_samples` rows between the two endpoints, diffused to step
-        `diffuse_t`; `ddim_step` is accepted for the trainers' interface.
-        The draws come from `generator`, by default one seeded 0."""
+        `diffuse_t`, or under sde.ode_sample encoded and decoded by the
+        PF-ODE at `interpolate_posterior_ode`'s fixed ode_eps and
+        tolerance, as in lion_tpu; `ddim_step` is accepted for the
+        trainers' interface. The draws come from `generator`, by default
+        one seeded 0."""
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
         x = self.endpoints().to(self.device)
         with self.as_lion(use_ema) as lion:
-            out = interpolate_posterior(lion, x[0], x[1], num_samples, gen,
-                                        diffuse_t=diffuse_t)
+            if self.cfg.sde.ode_sample:
+                out = interpolate_posterior_ode(lion, x[0], x[1],
+                                                num_samples, gen)
+            else:
+                out = interpolate_posterior(lion, x[0], x[1], num_samples,
+                                            gen, diffuse_t=diffuse_t)
         return out["points"]

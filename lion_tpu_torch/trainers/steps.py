@@ -13,28 +13,40 @@ masks.
 One stage-2 step, on a `LION` whose VAE is frozen:
   1. the VAE encodes x in eval mode without gradients (the fused eval flow,
      K1-K6) into eps = [z_global, z_local];
-  2. one t ~ U{1..T} per item, shared by both priors;
+  2. one t per item, shared by both priors: t ~ U{1..T} of the discrete
+     DDPM, or under sde.ode_sample the continuous VPSDE's importance-sampled
+     t in (0, 1] (`sde.iw_sample_p`, `sde.time_eps`) with its objective
+     weight;
   3. each latent is noised with `sample_q`;
   4. the global and the local prior run in train mode (dropout, the PVConv
      modular flow on K10, gradients through K2/K11, K3, K5 and K6);
   5. mixed prediction where `sde.mixed_prediction` is set;
-  6. loss = mean((pred - noise)^2) per latent, summed over the two;
-  7. backward; Adam on the warmup-cosine schedule; the EMA; the
-     `bound_mlogit` clamp of both mixing logits.
+  6. per latent, loss = mean((pred - noise)^2) (`pvd_mse_loss = 1`, the
+     released objective), or the weighted objective mean_b(sum(w_t (pred -
+     noise)^2)) (`pvd_mse_loss = 0`; w_t the p2 weight or 1 for the DDPM)
+     plus the regularizers: sde.weight_decay_norm_dae times the kernels'
+     spectral norms (4 power iterations, `utils.spectral_norm`) and the
+     norm scales' max, sde.regularize_mlogit's penalty on the summed
+     sigmoid of both mixing logits, and under the continuous diffusion the
+     Jacobian (jac_reg_samples Hutchinson probes v of the probability-flow
+     drift alpha (v sqrt(var_t) - J^T v), J^T v a second backward
+     (create_graph), masked on steps off jac_reg_freq) and kinetic terms;
+     these enter once per latent, so twice in the total, as in the JAX
+     package;
+  7. the two latents' losses summed; backward; Adam on the warmup-cosine
+     schedule; the EMA; the `bound_mlogit` clamp of both mixing logits.
 
 Every random number (the encoder's posterior noise, t, the two diffusion
-noises, every dropout mask) comes from the `torch.Generator` the caller
-passes; the step hands it to the Dropout modules of both priors
-(`set_dropout_generator`). Any of the first four may be given instead, so a
-test can feed both packages the same numbers. Float32 matmuls and cuDNN
-convolutions run in full float32 inside the step (`no_tf32`), whatever the
-global flags say.
+noises, every dropout mask, the Jacobian probes) comes from the
+`torch.Generator` the caller passes; the step hands it to the Dropout
+modules of both priors (`set_dropout_generator`). All but the masks may be
+given instead, so a test can feed both packages the same numbers. Float32
+matmuls and cuDNN convolutions run in full float32 inside the step
+(`no_tf32`), whatever the global flags say.
 
-Not ported, each raising NotImplementedError: continuous diffusion and the
-weighted objective with its SN / Jacobian / kinetic regularizers
-(`pvd_mse_loss = 0`; ROADMAP Queue 1 item D), class and CLIP conditioning
-(item J), bf16 training (item G; the stage-1 step's refusals keep the
-older numbers, items 10 and 12).
+Not ported, each raising NotImplementedError: class and CLIP conditioning
+(ROADMAP Queue 1 item J) and bf16 training (item G; the stage-1 step's
+refusals keep the older numbers, items 10 and 12).
 """
 from __future__ import annotations
 
@@ -44,11 +56,14 @@ import numpy as np
 import torch
 
 from ..config.view import as_view
+from ..diffusion.continuous import make_diffusion
 from ..diffusion.discrete import get_mixed_prediction
 from ..models.lion import LION, resolve_device
 from ..models.vae import VAE
 from ..nn.common import set_dropout_generator
 from ..ops._cuda import no_tf32
+from ..utils.spectral_norm import (init_sn_state, norm_scale_loss,
+                                   spectral_norm_loss)
 from .optim import EMA, Optimizer, warmup_cosine_schedule
 
 
@@ -56,15 +71,6 @@ def check_supported(cfg) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for what the
     port's stage-2 steps do not run."""
     cfg = as_view(cfg)
-    if cfg.sde.ode_sample:
-        raise NotImplementedError(
-            "continuous diffusion (sde.ode_sample, the PF-ODE) is not ported "
-            "(ROADMAP Queue 1 item D)")
-    if not cfg.latent_pts.pvd_mse_loss:
-        raise NotImplementedError(
-            "the weighted objective with SN / Jacobian / kinetic "
-            "regularizers (pvd_mse_loss = 0) is not ported (ROADMAP Queue 1 "
-            "item D)")
     if cfg.data.cond_on_cat or cfg.clipforge.enable:
         raise NotImplementedError("class and CLIP conditioning are not "
                                   "ported (ROADMAP Queue 1 item J)")
@@ -138,6 +144,11 @@ class TrainStep:
         with no_tf32():
             loss, metrics = self.objective(x, generator, **draws)
             loss.backward()
+        for p in self.params:
+            # a parameter the loss does not reach (the Fourier embedding's
+            # w) gets a zero gradient, as the JAX package's optimizer sees it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
         if self.ema is not None:
             self.ema.update()
@@ -209,21 +220,102 @@ def make_vae_train_step(vae: VAE,
     return VAETrainStep(vae, lr_schedule, num_total_iter)
 
 
+def _add(a, b):
+    return b if a is None else a + b
+
+
+class Objective:
+    """The stage-2 objective's settings of a config (lion_tpu/trainers/
+    steps.py:86-125): the continuous diffusion under sde.ode_sample, the
+    weighted objective (`pvd_mse_loss = 0`) and its regularizers."""
+
+    def __init__(self, cfg, mixed: bool):
+        cfg = as_view(cfg)
+        sde = cfg.sde
+        self.sde = sde
+        self.is_cont = bool(sde.ode_sample)
+        self.continuous = make_diffusion(sde) if self.is_cont else None
+        self.weighted = not bool(cfg.latent_pts.pvd_mse_loss)
+        self.mixed = mixed
+        self.wdn = float(sde.weight_decay_norm_dae)
+        self.use_sn = self.wdn > 0.0 and self.weighted
+        self.reg_mlogit = float(sde.regularize_mlogit)
+        self.reg_mlogit_margin = float(sde.regularize_mlogit_margin)
+        self.use_reg_mlogit = self.reg_mlogit > 0.0 and self.weighted \
+            and mixed
+        self.jac_coeff = float(sde.jac_reg_coeff) if self.weighted else 0.0
+        self.kin_coeff = float(sde.kin_reg_coeff) if self.weighted else 0.0
+        self.jac_freq = max(int(sde.jac_reg_freq), 1)
+        self.jac_samples = max(int(sde.jac_reg_samples), 1)
+        self.drop_weights = bool(sde.jac_kin_reg_drop_weights)
+        if (self.jac_coeff > 0.0 or self.kin_coeff > 0.0) and not (
+                self.is_cont and mixed):
+            raise ValueError("the Jacobian and kinetic regularizers need "
+                             "continuous diffusion (sde.ode_sample) and "
+                             "mixed prediction")
+
+    def quantities(self, discrete, b: int, generator, device,
+                   timestep=None, iw_rho=None):
+        """The diffusion of the step and its (t, var_t, m_t, obj_w): the
+        continuous VPSDE's importance sampling from `iw_rho` (B,) uniforms
+        or the generator, or the DDPM's t from `timestep` or the generator
+        with its loss weight."""
+        if self.is_cont:
+            t, var_t, m_t, obj_w, _, _ = self.continuous.iw_quantities(
+                b, float(self.sde.time_eps), self.sde.iw_sample_p, generator,
+                iw_rho, device)
+            return self.continuous, t, var_t, m_t, obj_w
+        t, var_t, m_t = discrete.iw_quantities(
+            b, generator, None if timestep is None else timestep.to(device))
+        return discrete, t, var_t, m_t, discrete.loss_weight(t)
+
+    def mixing_component(self, diffusion, eps_t, var_t, t):
+        if self.is_cont:
+            return diffusion.mixing_component(eps_t, var_t, t)
+        return diffusion.get_mixing_component(eps_t, t)
+
+    def norm_terms(self, named_params, mixing_logits, sn_state, metrics):
+        """The spectral-norm, norm-scale and mixing-logit terms (None when
+        all are off); the new power-iteration vectors go into sn_state."""
+        reg = None
+        if self.use_sn:
+            sn, new_state = spectral_norm_loss(named_params, sn_state)
+            reg = (sn + norm_scale_loss(named_params)) * self.wdn
+            metrics["train/dae_norm_loss"] = sn
+            sn_state.update(new_state)
+        if self.use_reg_mlogit:
+            ml_sum = sum(torch.sum(torch.sigmoid(ml)) for ml in mixing_logits)
+            reg = _add(reg, self.reg_mlogit * torch.square(
+                ml_sum - self.reg_mlogit_margin))
+        return reg
+
+
 def prior_loss(lion: LION, x: torch.Tensor,
                generator: Optional[torch.Generator] = None, *,
                rho: Optional[Sequence[torch.Tensor]] = None,
                timestep: Optional[torch.Tensor] = None,
-               noise: Optional[Sequence[torch.Tensor]] = None):
+               noise: Optional[Sequence[torch.Tensor]] = None,
+               iw_rho: Optional[torch.Tensor] = None,
+               jac_probes=None, sn_state=None, step: int = 0):
     """The two-prior loss of x (B, N, 3): returns (loss, metrics) with
-    metrics {"loss", "train/p_loss_0", "train/p_loss_1"} (0-d tensors).
+    metrics {"loss", "train/p_loss_0", "train/p_loss_1"} and, when they are
+    on, "train/dae_norm_loss", "train/jac_reg_{0,1}" and
+    "train/kin_reg_{0,1}" (0-d tensors).
 
     Draws from `generator` (on x's device) in this order: the encoder's two
     posterior noises unless `rho = (rho_global, rho_local)` is given, t
-    unless `timestep` (B,) is given, the two diffusion noises unless
-    `noise = (noise_global, noise_local)` is given, then the dropout masks
-    of the global prior and of the local prior. Puts the VAE in eval mode
-    and the priors in train mode."""
+    unless `timestep` (B,) (DDPM) or `iw_rho` (B,) (the continuous
+    diffusion's uniforms) is given, the two diffusion noises unless
+    `noise = (noise_global, noise_local)` is given, then per prior its
+    dropout masks and its jac_reg_samples Jacobian probes unless
+    `jac_probes = (probes_global, probes_local)` (each a sequence of
+    tensors of the latent's shape) is given. `sn_state` holds the
+    spectral-norm power-iteration vectors (required when
+    sde.weight_decay_norm_dae > 0 under the weighted objective), updated
+    in place; `step` is the optimizer step that jac_reg_freq reads. Puts
+    the VAE in eval mode and the priors in train mode."""
     check_supported(lion.cfg)
+    obj = Objective(lion.cfg, lion.mixed_prediction)
     b, dev = x.shape[0], x.device
     lion.vae.eval()
     lion.global_prior.train()
@@ -234,28 +326,48 @@ def prior_loss(lion: LION, x: torch.Tensor,
         eps, _, _ = lion.vae.encode(x, generator, rho)
     eps = eps.float()
     eps_global, eps_local = eps[:, :lion.style_dim], eps[:, lion.style_dim:]
-    diffusion = lion.diffusion
-    t, var_t, m_t = diffusion.iw_quantities(
-        b, generator, None if timestep is None else timestep.to(dev))
+    diffusion, t, var_t, m_t, obj_w = obj.quantities(
+        lion.diffusion, b, generator, dev, timestep, iw_rho)
     if noise is None:
         noise = tuple(torch.randn(e.shape, generator=generator, device=dev)
                       for e in (eps_global, eps_local))
     metrics: Dict[str, torch.Tensor] = {}
+    priors = (lion.global_prior, lion.local_prior)
+    reg_p = None
+    if obj.weighted:
+        named = [(f"{name}.{k}", p) for name in ("global_prior",
+                                                 "local_prior")
+                 for k, p in getattr(lion, name).named_parameters()]
+        reg_p = obj.norm_terms(named, [p.mixing_logit for p in priors]
+                               if obj.mixed else [], sn_state, metrics)
     losses = []
     for i, (prior, eps_i, noise_i) in enumerate(
-            ((lion.global_prior, eps_global, noise[0]),
-             (lion.local_prior, eps_local, noise[1]))):
+            zip(priors, (eps_global, eps_local), noise)):
         eps_t = diffusion.sample_q(eps_i, noise_i, var_t, m_t)
+        if obj.jac_coeff > 0.0:
+            eps_t.requires_grad_(True)
         if i == 0:
-            pred = prior(eps_t, t.float())
+            pred_raw = prior(eps_t, t.float())
         else:   # global2style is the identity
-            pred = prior(eps_t, t.float(), condition_input=eps_global)
-        pred = pred.float()
-        if lion.mixed_prediction:
+            pred_raw = prior(eps_t, t.float(), condition_input=eps_global)
+        pred_raw = pred_raw.float()
+        pred = pred_raw
+        if obj.mixed:
             pred = get_mixed_prediction(
                 pred, prior.mixing_logit,
-                diffusion.get_mixing_component(eps_t, t))
-        p_loss = torch.mean(torch.square(pred - noise_i))
+                obj.mixing_component(diffusion, eps_t, var_t, t))
+        if not obj.weighted:
+            p_loss = torch.mean(torch.square(pred - noise_i))
+        else:
+            l2 = torch.square(pred - noise_i)
+            p_obj = torch.sum(obj_w * l2.reshape(b, -1), dim=1)
+            reg = _regularizers(obj, diffusion, prior, eps_t, pred_raw,
+                                t, var_t, generator, step, metrics, i,
+                                None if jac_probes is None
+                                else jac_probes[i], reg_p)
+            p_loss = torch.mean(p_obj)
+            if reg is not None:
+                p_loss = p_loss + reg
         metrics[f"train/p_loss_{i}"] = p_loss
         losses.append(p_loss)
     loss = losses[0] + losses[1]
@@ -263,9 +375,61 @@ def prior_loss(lion: LION, x: torch.Tensor,
     return loss, metrics
 
 
+def _regularizers(obj: Objective, diffusion, prior, eps_t, pred_raw, t,
+                  var_t, generator, step, metrics, i, probes, reg):
+    """`reg` (the norm terms, or None) plus the Jacobian and kinetic terms
+    of latent i:
+    the probability-flow drift alpha (v sqrt(var_t) - J^T v), times
+    f(t) / sqrt(var_t) unless sde.jac_kin_reg_drop_weights, with alpha the
+    detached sigmoid of the prior's mixing logit; the Jacobian term is its
+    mean squared norm over Gaussian probes v with J^T v by a backward of the
+    prior's output that keeps its graph (so the loss differentiates it
+    again), times 0 on steps that jac_reg_freq skips; the kinetic term puts
+    v = eps_t and the prediction for J^T v (lion_tpu/trainers/steps.py:
+    225-269)."""
+    if obj.jac_coeff <= 0.0 and obj.kin_coeff <= 0.0:
+        return reg
+    b = eps_t.shape[0]
+    alpha = torch.sigmoid(prior.mixing_logit.detach())
+    sqrt_var = torch.sqrt(var_t)
+    f_t = diffusion.f(t).reshape(b, 1)
+
+    def drift(v, jv):
+        d = alpha * (v * sqrt_var - jv)
+        if not obj.drop_weights:
+            d = f_t / sqrt_var * d
+        return d
+
+    if obj.jac_coeff > 0.0:
+        sq_norms = []
+        for s in range(obj.jac_samples):
+            probe = probes[s].to(eps_t.device) if probes is not None else \
+                torch.randn(eps_t.shape, generator=generator,
+                            device=eps_t.device)
+            jvp = torch.autograd.grad(pred_raw, eps_t, probe,
+                                      create_graph=True, retain_graph=True)[0]
+            d = drift(probe, jvp.float())
+            sq_norms.append(torch.sum(d.reshape(b, -1) ** 2, dim=1,
+                                      keepdim=True))
+        jac_loss = torch.mean(torch.cat(sq_norms, dim=1))
+        gate = float(step % obj.jac_freq == 0) if obj.jac_freq > 1 else 1.0
+        reg = _add(reg, obj.jac_coeff * gate * jac_loss)
+        metrics[f"train/jac_reg_{i}"] = jac_loss
+    if obj.kin_coeff > 0.0:
+        kin_loss = torch.mean(torch.sum(
+            drift(eps_t.detach(), pred_raw).reshape(b, -1) ** 2, dim=1))
+        reg = _add(reg, obj.kin_coeff * kin_loss)
+        metrics[f"train/kin_reg_{i}"] = kin_loss
+    return reg
+
+
 class PriorTrainStep(TrainStep):
     """The two-prior step: `prior_loss`, Adam with sde.grad_clip_max_norm,
-    the EMA at sde.ema_decay and the mixing-logit clamp of the JAX step."""
+    the EMA at sde.ema_decay and the mixing-logit clamp of the JAX step.
+    Under the weighted objective with sde.weight_decay_norm_dae > 0 it
+    carries the spectral norm's power-iteration vectors (`sn_state`, drawn
+    by `init_sn_state` at build, not checkpointed, as in the JAX
+    package)."""
 
     def __init__(self, lion: LION, lr_schedule: Callable[[int], float]):
         cfg = as_view(lion.cfg)
@@ -279,11 +443,16 @@ class PriorTrainStep(TrainStep):
         self.bound_mlogit = (bool(cfg.sde.bound_mlogit)
                              and lion.mixed_prediction)
         self.bound_mlogit_value = float(cfg.sde.bound_mlogit_value)
+        self.sn_state = init_sn_state(
+            (f"{name}.{k}", p) for name in ("global_prior", "local_prior")
+            for k, p in getattr(lion, name).named_parameters()) \
+            if Objective(cfg, lion.mixed_prediction).use_sn else None
 
     def objective(self, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None, **draws):
         """x (B, N, 3); `draws` are `prior_loss`'s given draws."""
-        return prior_loss(self.lion, x, generator, **draws)
+        return prior_loss(self.lion, x, generator, sn_state=self.sn_state,
+                          step=self.optimizer.count, **draws)
 
     def after_update(self) -> None:
         if self.bound_mlogit:

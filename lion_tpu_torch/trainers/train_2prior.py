@@ -9,19 +9,22 @@ from trainer.seed, then the stage-1 weights of `sde.vae_checkpoint`: an
 around that frozen VAE with `make_prior_train_step`: Adam with
 sde.grad_clip_max_norm on the warmup-cosine schedule of
 sde.learning_rate_dae / learning_rate_min_dae / warmup_epochs / epochs,
-and the EMA at sde.ema_decay. Every `viz.val_freq` epochs `run_eval`
-samples `num_val_samples` shapes from the EMA priors
-(`eval_ddim_step` DDIM steps) and scores them against the test split
-(`eval_sample`); its 1-NNA-CD tracks the best checkpoint. Checkpoints go
+and the EMA at sde.ema_decay; under sde.ode_sample on the continuous
+diffusion, under `pvd_mse_loss = 0` the weighted objective with its
+regularizers (the spectral norm's power-iteration state is drawn at build
+and not checkpointed, as in the JAX package). Every `viz.val_freq` epochs
+`run_eval` samples `num_val_samples` shapes from the EMA priors
+(`eval_ddim_step` DDIM steps, or the PF-ODE under sde.ode_sample) and
+scores them against the test split (`eval_sample`); its 1-NNA-CD tracks
+the best checkpoint. Checkpoints go
 to `<save_dir>/checkpoints/*.npz` in the JAX package's layout (trees
 dae_global, dae_local, vae, opt, ema_global, ema_local), so either package
 resumes the other's; `export_torch` writes the released `.pt` schema.
 
-Refused, each raising NotImplementedError with its ROADMAP item: the
-PF-ODE (`sde.ode_sample`) and the weighted objective (`pvd_mse_loss = 0`,
-item D), class and CLIP conditioning and the visualizations (item J),
-bf16 training (item G). One process: the cross-process gather of the
-generated clouds is item I.
+Refused, each raising NotImplementedError with its ROADMAP item: class
+and CLIP conditioning and the visualizations (item J), bf16 training (item
+G). One process: the cross-process gather of the generated clouds is item
+I.
 """
 from __future__ import annotations
 
@@ -162,13 +165,14 @@ class Trainer(BaseTrainer):
                given_noise=None) -> torch.Tensor:
         """Hierarchical sampling from the (EMA) priors -> points (B, N, 3):
         the ancestral chain in 4 segments (`sample_chunked`) when
-        ddim_step is 0 and the chain has 500 steps or more, else
-        `LION.sample(..., ddim_step)` (lion_tpu/trainers/train_2prior.py:
-        230-261)."""
+        ddim_step is 0, the chain has 500 steps or more and sde.ode_sample
+        is off, else `LION.sample(..., ddim_step)`, the PF-ODE under
+        sde.ode_sample (lion_tpu/trainers/train_2prior.py:230-261)."""
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
         with self.as_lion(use_ema) as lion:
-            if ddim_step == 0 and lion.diffusion.num_steps >= 500:
+            if (ddim_step == 0 and lion.diffusion.num_steps >= 500
+                    and not self.cfg.sde.ode_sample):
                 out = lion.sample_chunked(num_samples, gen, chunks=4,
                                           given_noise=given_noise)
             else:

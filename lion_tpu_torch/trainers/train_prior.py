@@ -4,13 +4,15 @@ train_prior.py).
 One `GlobalPrior` (the 'se_drop' ResNet of sde.num_channels_dae wide
 blocks) over the composed latent eps = [z_global, z_local] of the frozen
 VAE: style_dim + N (latent_dim + input_dim) values a shape, 8320 at the
-flagship. Its step runs the released objective (pvd_mse): the frozen
-encode without gradients, t ~ U{1..T} and `sample_q`, the prior in train
-mode with dropout, mixed prediction where sde.mixed_prediction is set, the
-MSE against the noise, then Adam and the EMA. Sampling runs the ancestral
-chain over eps, splits it into the two latents and decodes. The weighted
-objective and its spectral-norm regularizer (`pvd_mse_loss = 0`) are
-refused (ROADMAP Queue 1 item D).
+flagship. Its step: the frozen encode without gradients, t ~ U{1..T}
+(or the continuous VPSDE's importance-sampled t under sde.ode_sample) and
+`sample_q`, the prior in train mode with dropout, mixed prediction where
+sde.mixed_prediction is set, the MSE against the noise (pvd_mse, the
+released objective) or the weighted objective with the spectral-norm,
+norm-scale and mixing-logit terms added once (`pvd_mse_loss = 0`; the JAX
+package's single prior takes no Jacobian or kinetic term), then Adam and
+the EMA. Sampling runs the ancestral chain over eps, splits it into the
+two latents and decodes, under sde.ode_sample too, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,14 +28,16 @@ from ..diffusion.discrete import DiffusionDiscretized, get_mixed_prediction
 from ..models.priors import GlobalPrior
 from ..models.vae import VAE
 from ..nn.common import init_weights, set_dropout_generator
-from .steps import TrainStep, default_lr_schedule
+from ..utils.spectral_norm import init_sn_state
+from .steps import Objective, TrainStep, default_lr_schedule
 from .train_2prior import Trainer as TwoPriorTrainer
 
 
 class SinglePriorTrainStep(TrainStep):
     """One optimizer step of the single prior per call, with Adam at
     sde.grad_clip_max_norm and the EMA at sde.ema_decay
-    (lion_tpu/trainers/train_prior.py:71-153, the pvd_mse branch)."""
+    (lion_tpu/trainers/train_prior.py:71-153); `sn_state` as
+    `PriorTrainStep`'s."""
 
     def __init__(self, vae: VAE, dae: GlobalPrior,
                  diffusion: DiffusionDiscretized,
@@ -44,26 +48,33 @@ class SinglePriorTrainStep(TrainStep):
                          float(cfg.sde.ema_decay))
         self.vae, self.dae, self.diffusion = vae, dae, diffusion
         self.mixed_prediction = bool(cfg.sde.mixed_prediction)
+        self.obj = Objective(cfg, self.mixed_prediction)
+        self.sn_state = init_sn_state(
+            (f"dae.{k}", p) for k, p in dae.named_parameters()) \
+            if self.obj.use_sn else None
 
     def objective(self, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None, *,
                   rho: Optional[Sequence[torch.Tensor]] = None,
                   timestep: Optional[torch.Tensor] = None,
-                  noise: Optional[torch.Tensor] = None):
-        """The loss of x (B, N, 3) -> (loss, {"loss"}). Draws from
-        `generator` in this order unless given: the encoder's two
-        posterior noises (`rho`), t (`timestep` (B,)), the diffusion noise
-        (`noise`, eps's shape), then the prior's dropout masks."""
+                  noise: Optional[torch.Tensor] = None,
+                  iw_rho: Optional[torch.Tensor] = None):
+        """The loss of x (B, N, 3) -> (loss, {"loss"} and, with the
+        spectral norm on, "train/dae_norm_loss"). Draws from `generator`
+        in this order unless given: the encoder's two posterior noises
+        (`rho`), t (`timestep` (B,), or the continuous diffusion's uniforms
+        `iw_rho` (B,)), the diffusion noise (`noise`, eps's shape), then
+        the prior's dropout masks."""
         b, dev = x.shape[0], x.device
+        obj = self.obj
         self.vae.eval()
         self.dae.train()
         set_dropout_generator(self.dae, generator)
         with torch.no_grad():
             eps, _, _ = self.vae.encode(x, generator, rho)
         eps = eps.float()
-        diffusion = self.diffusion
-        t, var_t, m_t = diffusion.iw_quantities(
-            b, generator, None if timestep is None else timestep.to(dev))
+        diffusion, t, var_t, m_t, obj_w = obj.quantities(
+            self.diffusion, b, generator, dev, timestep, iw_rho)
         if noise is None:
             noise = torch.randn(eps.shape, generator=generator, device=dev)
         eps_t = diffusion.sample_q(eps, noise, var_t, m_t)
@@ -71,9 +82,21 @@ class SinglePriorTrainStep(TrainStep):
         if self.mixed_prediction:
             pred = get_mixed_prediction(
                 pred, self.dae.mixing_logit,
-                diffusion.get_mixing_component(eps_t, t))
-        loss = torch.mean(torch.square(pred - noise))
-        return loss, {"loss": loss}
+                obj.mixing_component(diffusion, eps_t, var_t, t))
+        metrics = {}
+        if not obj.weighted:
+            loss = torch.mean(torch.square(pred - noise))
+        else:
+            l2 = torch.square(pred - noise)
+            loss = torch.mean(torch.sum(obj_w * l2.reshape(b, -1), dim=1))
+            reg = obj.norm_terms(
+                [(f"dae.{k}", p) for k, p in self.dae.named_parameters()],
+                [self.dae.mixing_logit] if self.mixed_prediction else [],
+                self.sn_state, metrics)
+            if reg is not None:
+                loss = loss + reg
+        metrics["loss"] = loss
+        return loss, metrics
 
 
 class Trainer(TwoPriorTrainer):

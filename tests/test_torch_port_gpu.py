@@ -1071,3 +1071,68 @@ def test_voxel_ops_take_non_finite_clouds_as_on_the_cpu(gen):
                                    equal_nan=True)
     assert not got[0][1].reshape(-1, 8)[1:].any()
     assert torch.isnan(got[1][1]).all()
+
+
+@pytest.mark.parametrize("r,ci,co", [(8, 16, 32), (16, 32, 32)])
+def test_conv3d_same_second_order_matches_plain(gen, r, ci, co):
+    """A gradient of a function of K10's input gradient (what the Jacobian
+    regularizer differentiates): f = <tanh(conv(x, w)), v>, J^T v = df/dx
+    by a backward with create_graph, then the input's and weight's
+    gradients of |J^T v|^2 + <J^T v, x>, on the card (K10 forward and dx,
+    inside autograd's record) against the same graph of the plain
+    version."""
+    x = _randn(gen, 2, r, r, r, ci)
+    w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+    v = _randn(gen, 2, r, r, r, co)
+
+    def second_order(conv):
+        xx = x.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        f = (torch.tanh(conv(xx, ww)) * v).sum()
+        (jtv,) = torch.autograd.grad(f, xx, create_graph=True)
+        loss = (jtv * jtv).sum() + (jtv * xx).sum()
+        return torch.autograd.grad(loss, (xx, ww))
+
+    w10 = ops.KERNELS["conv3d_3x3_same"]
+    before = w10.launches
+    got = second_order(ops.conv3d_3x3_same)
+    # the forward, dx in the first backward; in the second, the dx node's
+    # own dx (its cotangent depends on tanh(conv(x, w))) and the forward's
+    # dx again
+    assert w10.launches - before >= 4
+    ref = second_order(w10.plain)
+    for g, rr in zip(got, ref):
+        scale = float(rr.abs().max())
+        torch.testing.assert_close(g, rr, rtol=0, atol=1e-4 * scale)
+
+
+def test_ode_sample_repeats_bit_for_bit(gen):
+    """A tiny PF-ODE sample (adaptive dopri5, mixed prediction) on the card
+    twice from the same generator seed: the same latents, points and
+    evaluations."""
+    from lion_tpu_torch.config import get_default_cfg
+    from lion_tpu_torch.models import LION
+    cfg = get_default_cfg()
+    cfg.data.tr_max_sample_points = 64
+    cfg.shapelatent.latent_dim = 1
+    cfg.shapelatent.encoder_type = "models.latent_points_ada.PointTransPVC"
+    cfg.shapelatent.decoder_type = "models.latent_points_ada.LatentPointDecPVC"
+    cfg.sde.num_channels_dae = 32
+    cfg.sde.num_cell_per_scale_dae = 2
+    cfg.sde.embedding_dim = 16
+    cfg.tpu.sa_blocks = [[[8, 1, 4], [32, 0.3, 4, [8, 16]]],
+                         [[16, 1, 4], [8, 0.5, 4, [16, 16]]],
+                         [None, [4, 0.8, 4, [16, 16]]]]
+    cfg.tpu.fp_blocks = [[[16, 16], [16, 1, 4]],
+                         [[16, 16], [16, 1, 4]],
+                         [[16, 8], [8, 1, 4]]]
+    cfg.sde.ode_sample = 1
+    cfg.sde.mixed_prediction = True
+    cfg.sde.ode_solver_tol = 1e-3
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(9))
+    outs = [lion.sample(3, torch.Generator(device="cuda").manual_seed(4))
+            for _ in range(2)]
+    assert outs[0]["nfe"] == outs[1]["nfe"] > 0
+    for k in ("z_global", "z_local", "points"):
+        assert torch.equal(outs[0][k], outs[1][k]), k
+    assert torch.isfinite(outs[0]["points"]).all()

@@ -245,23 +245,29 @@ def test_sample_chunked_equals_sample():
 
 def test_sample_refuses_ode_sample_before_any_draw():
     """lion_tpu samples by the PF-ODE under sde.ode_sample
-    (lion_tpu/models/lion.py:227,246-265); the port has no such sampler yet
-    and refuses the flag instead of running another one."""
+    (lion_tpu/models/lion.py:227,246-265) and asserts that DDIM is not
+    asked for with it; the port refuses that combination before any draw.
+    The ODE's sample reports its evaluations; sample_chunked runs the
+    ancestral chain under the flag too, as lion_tpu's does."""
     cfg = tiny_cfg(get_default_cfg(), N, STEPS)
     assert cfg.sde.ode_sample == 0 and flagship_cfg().sde.ode_sample == 0
     cfg.sde.ode_sample = 1
+    cfg.sde.ode_solver_tol = 1e-2
     lion = LION(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(3))
     gen = torch.Generator().manual_seed(5)
     state = gen.get_state()
-    for call in (lambda: lion.sample(2, generator=gen),
-                 lambda: lion.sample(2, generator=gen, ddim_step=2),
-                 lambda: lion.sample_chunked(2, generator=gen, chunks=5)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item D"):
-            call()
+    with pytest.raises(ValueError, match="exclusive"):
+        lion.sample(2, generator=gen, ddim_step=2)
     assert torch.equal(gen.get_state(), state)     # nothing was drawn
+    out = lion.sample(2, generator=gen)
+    assert out["nfe"] > 0 and torch.isfinite(out["points"]).all()
+    chunked = lion.sample_chunked(2, torch.Generator().manual_seed(5),
+                                  chunks=5)
     cfg.sde.ode_sample = 0                         # the default samples
-    assert torch.isfinite(lion.sample(2, generator=gen)["points"]).all()
+    ancestral = lion.sample(2, generator=torch.Generator().manual_seed(5))
+    assert "nfe" not in ancestral and "nfe" not in chunked
+    assert torch.equal(chunked["points"], ancestral["points"])
 
 
 def test_vae_refuses_style_mlp():

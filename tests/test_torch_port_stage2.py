@@ -152,8 +152,6 @@ def test_stage2_trainers_default_to_the_card(tmp_path, data_root, name):
                                  InterpolateLatentTrainer,
                                  EncodeInterpTrainer])
 @pytest.mark.parametrize("key,value,item", [
-    ("sde__ode_sample", 1, "item D"),
-    ("latent_pts__pvd_mse_loss", 0, "item D"),
     ("data__cond_on_cat", True, "item J"),
     ("clipforge__enable", True, "item J"),
     ("tpu__bf16", True, "item G"),
@@ -166,13 +164,16 @@ def test_stage2_trainers_refuse_what_is_not_ported(tmp_path, data_root, cls,
 
 
 def test_ode_interpolation_and_vis_refuse(tmp_path, data_root):
+    """The visualizations refuse (item J); the PF-ODE interpolation, which
+    refused before continuous diffusion was ported, samples (its parity is
+    test_torch_port_weighted.py's)."""
     pt = _port(TwoPrior, tmp_path, data_root)
     with pytest.raises(NotImplementedError, match="item J"):
         pt.vis_sample(0)
-    with pytest.raises(NotImplementedError, match="item D"):
-        interpolate.generate_interpolation(pt.lion, 2, use_ode=True)
-    with pytest.raises(NotImplementedError, match="item D"):
-        interpolate.interpolate_posterior_ode(pt.lion, None, None, 2)
+    out = interpolate.generate_interpolation(
+        pt.lion, 2, torch.Generator().manual_seed(0), use_ode=True,
+        ode_eps=1e-2, ode_solver_tol=1e-1)
+    assert out["nfe"] > 0 and torch.isfinite(out["points"]).all()
 
 
 # ------------------------------------------------------- VAE hand-over

@@ -408,8 +408,7 @@ def test_entry_points_default_to_the_card():
         make_prior_train_step(LION(cfg, device="cpu"))
 
 
-@pytest.mark.parametrize("key,value", [("sde.ode_sample", 1),
-                                       ("latent_pts.pvd_mse_loss", 0),
+@pytest.mark.parametrize("key,value", [("sde.autocast_train", True),
                                        ("tpu.bf16", True)])
 def test_step_raises_on_what_is_not_ported(key, value):
     cfg = train_cfg(get_default_cfg())

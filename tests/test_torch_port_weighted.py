@@ -1,0 +1,562 @@
+"""The port's weighted objective, regularizers and ODE trainers against the
+JAX package on the CPU.
+
+One two-prior step (`make_prior_train_step`) of a tiny LION in both
+packages on the same weights, batch and draws (lion_tpu's, re-made from
+its key) under the weighted objective (`pvd_mse_loss = 0`): the discrete
+DDPM with the p2 weight, the continuous VPSDE under each importance-
+sampling mode, the spectral norm with lion_tpu's power-iteration state
+carried across, the mixing-logit penalty and clamp, and the Jacobian and
+kinetic regularizers. The metrics agree within 1e-5, the gradients (Adam's
+first moment) and second moments within 1e-4 / 1e-3, the updated
+parameters as Adam's first step allows, the new power-iteration vectors
+within 1e-5. Also: the 'plain' and random-Fourier global priors through
+`from_jax`; K10's backward staying twice differentiable when its launch is
+invisible to autograd, as on the card; the stage-2 trainer under the ODE
+(a step after a cross-package resume) and the PF-ODE interpolations.
+Dropout is 0 wherever the packages are compared.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lion_tpu.config import get_default_cfg as jax_default_cfg
+from lion_tpu.diffusion import continuous as jcont
+from lion_tpu.models import LION as JaxLION
+from lion_tpu.models.priors import GlobalPrior as JGlobalPrior
+from lion_tpu.trainers import interpolate as jinterp
+from lion_tpu.trainers import optim as joptim
+from lion_tpu.trainers.steps import make_prior_train_step as jax_step
+from lion_tpu.utils.spectral_norm import init_sn_state as jinit_sn_state
+
+from lion_tpu_torch.ckpt import state_dict_from_jax
+from lion_tpu_torch.config import get_default_cfg
+from lion_tpu_torch.models import LION
+from lion_tpu_torch.models.priors import GlobalPrior
+from lion_tpu_torch.ops import conv3d as conv3d_mod
+from lion_tpu_torch.trainers import (interpolate, make_prior_train_step,
+                                     prior_loss, warmup_cosine_schedule)
+from lion_tpu_torch.trainers.train_2prior import Trainer as TwoPrior
+from lion_tpu_torch.utils.spectral_norm import (init_sn_state,
+                                                norm_scale_loss,
+                                                sn_state_from_jax,
+                                                spectral_norm_loss)
+
+from test_torch_port_sample import (one_torch_thread,  # noqa: F401
+                                    to_jax_tree)
+from test_torch_port_stage2 import (LR, _encode_jax, _fresh, _jax, _named,
+                                    _port)
+from test_torch_port_stage2 import JaxTwoPrior
+from test_torch_port_train import _grad_bounds, _rho
+from test_torch_port_trainer import data_root  # noqa: F401
+
+B, N = 2, 32
+
+
+def weighted_cfg(cfg, **over):
+    """The stage-2 tests' tiny models (32 points, a two-stage U-Net with
+    the style encoder shrunk, a 16-wide global prior, 5 DDPM steps) under
+    the weighted objective with mixed prediction (logit 0, so that both
+    the prediction and the mixing component carry gradients), no dropout.
+    `over` sets "node__leaf" keys."""
+    cfg.data.tr_max_sample_points = N
+    cfg.shapelatent.latent_dim = 1
+    cfg.shapelatent.encoder_type = "models.latent_points_ada.PointTransPVC"
+    cfg.shapelatent.decoder_type = "models.latent_points_ada.LatentPointDecPVC"
+    cfg.latent_pts.ada_mlp_init_scale = 0.1
+    cfg.latent_pts.skip_weight = 0.01
+    cfg.shapelatent.log_sigma_offset = 6.0
+    cfg.tpu.sa_blocks = [[[8, 1, 16], [256, 0.2, 4, [8, 16]]],
+                         [None, [128, 0.4, 4, [16, 16]]]]
+    cfg.tpu.fp_blocks = [[[16, 16], [16, 1, 16]], [[16, 8], [8, 1, 16]]]
+    cfg.tpu.ncenter_mult, cfg.tpu.vres_mult = 1 / 32, 1 / 4
+    cfg.ddpm.num_steps = 5
+    cfg.ddpm.dropout = 0.0
+    cfg.sde.dropout = 0.0
+    cfg.sde.num_channels_dae = 16
+    cfg.sde.num_cell_per_scale_dae = 1
+    cfg.sde.embedding_dim = 8
+    cfg.latent_pts.pvd_mse_loss = 0
+    cfg.sde.mixed_prediction = True
+    cfg.sde.mixing_logit_init = 0.0
+    for key, value in over.items():
+        node, leaf = key.split("__")
+        setattr(getattr(cfg, node), leaf, value)
+    return cfg
+
+
+def _pair(**over):
+    lion = LION(weighted_cfg(get_default_cfg(), **over), device="cpu")
+    lion.init_params(torch.Generator().manual_seed(1))
+    jlion = JaxLION(weighted_cfg(jax_default_cfg(), **over))
+    jlion.params = jax.tree_util.tree_map(jnp.asarray, to_jax_tree(lion))
+    return lion, jlion
+
+
+# the weighted objective's cases: (id, config keys, optimizer step count);
+# the continuous diffusion's importance-sampling modes are
+# test_torch_port_weighted_iw.py's (split off for the suite's time: each
+# case compiles lion_tpu's step, ~25 s)
+CASES = [
+    ("discrete_p2", {"ddpm__use_p2_weight": 1}, 0),
+    ("sn", {"sde__ode_sample": 1, "sde__weight_decay_norm_dae": 1e-2}, 0),
+    ("regularize_mlogit", {"sde__regularize_mlogit": 1.0,
+                           "sde__regularize_mlogit_margin": 1.0}, 0),
+    ("bound_mlogit", {"sde__bound_mlogit": 1,
+                      "sde__bound_mlogit_value": -5.42}, 0),
+    ("jac1_kin", {"sde__ode_sample": 1, "sde__jac_reg_coeff": 1.0,
+                  "sde__kin_reg_coeff": 1.0, "sde__jac_reg_samples": 1}, 0),
+    # jac_reg_freq = 2 at step 1: the term is computed, reported and
+    # masked out of the loss
+    ("jac2_off_step", {"sde__ode_sample": 1, "sde__jac_reg_coeff": 1.0,
+                       "sde__jac_reg_samples": 2, "sde__jac_reg_freq": 2},
+     1),
+]
+
+
+def _lr_schedule():
+    return warmup_cosine_schedule(LR, LR, 0, 2, 0, 1)
+
+
+def _jax_draws(jlion, x, rng, jackin, cont):
+    """lion_tpu's step draws re-made from its key (lion_tpu/trainers/
+    steps.py:136-145, :148-152, :191-192, :237-239) as the port's
+    `prior_loss` draws."""
+    keys = jax.random.split(rng, 7 if jackin else 5)
+    rng_enc, rng_t, rng_n0, rng_n1 = keys[:4]
+    eps, _, latent_list = _encode_jax(jlion_trainer_view(jlion), x, rng_enc)
+    style = jlion.style_dim
+    draws = {"rho": _rho(latent_list)}
+    u = jax.random.uniform(rng_t, (B,))
+    if cont:
+        draws["iw_rho"] = torch.from_numpy(np.array(u))
+    else:
+        draws["timestep"] = torch.from_numpy(np.array(
+            (u * jlion.diffusion.num_steps).astype(jnp.int32) + 1))
+    shapes = ((B, style), (B, eps.shape[1] - style))
+    draws["noise"] = tuple(torch.from_numpy(np.array(jax.random.normal(
+        r, s))) for r, s in zip((rng_n0, rng_n1), shapes))
+    if jackin:
+        draws["jac_probes"] = tuple(
+            [torch.from_numpy(np.array(jax.random.normal(
+                jax.random.fold_in(r, s), shape))) for s in range(2)]
+            for r, shape in zip(keys[5:], shapes))
+    return draws
+
+
+class jlion_trainer_view:
+    """What `_encode_jax` reads of a lion_tpu trainer, from a JAX LION."""
+
+    def __init__(self, jlion):
+        self.vae, self.vae_params = jlion.vae, jlion.params["vae"]
+
+
+@pytest.mark.parametrize("over,count", [c[1:] for c in CASES],
+                         ids=[c[0] for c in CASES])
+def test_weighted_step_matches_lion_tpu(over, count):
+    check_weighted_step(over, count)
+
+
+def check_weighted_step(over, count):
+    """One step of both packages under the config keys `over` at optimizer
+    step `count`: the metrics, the Adam state and parameters, the power-
+    iteration vectors and the mixing-logit clamp."""
+    lion, jlion = _pair(**over)
+    jcfg = jlion.cfg
+    sde = jcfg.sde
+    cont = bool(sde.ode_sample)
+    jackin = float(sde.jac_reg_coeff) > 0 or float(sde.kin_reg_coeff) > 0
+    opt_cfg = jcfg.trainer.opt
+    opt = joptim.make_optimizer(
+        joptim.warmup_cosine_schedule(LR, LR, 0, 2, 0, 1), opt_cfg.beta1,
+        opt_cfg.beta2, opt_cfg.weight_decay, sde.grad_clip_max_norm)
+    params = {"global_prior": jlion.params["global_prior"],
+              "local_prior": jlion.params["local_prior"]}
+    state = joptim.create_train_state(params, opt, sde.ema_decay)
+    state = state.replace(step=jnp.asarray(count, jnp.int32))
+    if float(sde.weight_decay_norm_dae) > 0:
+        state = state.replace(sn_state=jinit_sn_state(params))
+    diffusion = jcont.make_diffusion(sde) if cont else jlion.diffusion
+    step = jax.jit(jax_step(jlion.vae, jlion.global_prior,
+                            jlion.local_prior, diffusion, opt, jcfg))
+    x = (np.random.RandomState(10).randn(B, N, 3) * 0.3).astype(np.float32)
+    rng = jax.random.PRNGKey(11)
+    new_state, metrics = step(state, jlion.params["vae"], jnp.asarray(x),
+                              rng)
+    draws = _jax_draws(jlion, x, rng, jackin, cont)
+    if jackin:
+        n_probes = int(sde.jac_reg_samples)
+        draws["jac_probes"] = tuple(p[:n_probes]
+                                    for p in draws["jac_probes"])
+
+    pstep = make_prior_train_step(lion, _lr_schedule(), device="cpu")
+    pstep.optimizer.count = count
+    if state.sn_state is not None:
+        pstep.sn_state = sn_state_from_jax(jax.device_get(state.sn_state))
+    before = {n: p.detach().clone() for n, p in zip(_names(lion),
+                                                    pstep.params)}
+    got = pstep(torch.from_numpy(x), **draws)
+    assert set(got) == set(metrics)
+    for k in metrics:
+        # the Jacobian term is a squared norm of J^T v, a backward through
+        # the U-Net: it is held to the gradients' 1e-4 (measured 1.2e-5
+        # apart on the local prior's second probe), the rest to 1e-5
+        rtol = 1e-4 if "jac_reg" in k else 1e-5
+        np.testing.assert_allclose(float(got[k]), float(metrics[k]),
+                                   rtol=rtol, atol=1e-7, err_msg=k)
+    _assert_adam_step(_names(lion), pstep, before, new_state, opt_cfg)
+    if state.sn_state is not None:
+        want_sn = sn_state_from_jax(jax.device_get(new_state.sn_state))
+        assert set(want_sn) == set(pstep.sn_state)
+        for k, (u, v) in want_sn.items():
+            for a, b in zip(pstep.sn_state[k], (u, v)):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                           atol=1e-6, err_msg=k)
+    if float(sde.bound_mlogit):
+        for prior in (lion.global_prior, lion.local_prior):
+            assert float(prior.mixing_logit.detach().max()) == \
+                np.float32(-5.42)
+
+
+def _names(lion):
+    return [f"{p}.{n}" for p in ("global_prior", "local_prior")
+            for n, _ in getattr(lion, p).named_parameters()]
+
+
+def _assert_adam_step(names, pstep, before, state, opt_cfg):
+    """Adam's first moment is (1 - beta1) g and its second (1 - beta2) g^2:
+    both held to the gradients' bounds; the updated parameters (`names`,
+    in `pstep.params`' order) as test_torch_port_stage2's
+    `_assert_step_matches` holds them (~lr sign(g) each, exact where g is
+    not rounding noise)."""
+    adam = state.opt_state[-1][0]
+    mu, nu = pstep.optimizer.moments()
+    want_mu, want_nu = _named(adam.mu), _named(adam.nu)
+    _grad_bounds(dict(zip(names, mu)), want_mu)
+    # sqrt(nu) = sqrt(1 - beta2) |g|: the gradients' bounds (nu's own
+    # relative error is twice the gradient's)
+    _grad_bounds({k: torch.sqrt(v) for k, v in zip(names, nu)},
+                 {k: torch.sqrt(v) for k, v in want_nu.items()})
+    beta1 = float(opt_cfg.beta1)
+    want_g = {k: v / (1.0 - beta1) for k, v in want_mu.items()}
+    want_p = _named(state.params)
+    g_norm = float(torch.cat([g.reshape(-1) for g in want_g.values()])
+                   .norm())
+    for name, p in zip(names, pstep.params):
+        d = (p.detach() - want_p[name]).abs()
+        assert float(d.max()) <= 2.0 * LR + 1e-6, name
+        off = d > 1e-2 * LR
+        noise_g = torch.where(off, want_g[name].abs(), 0.0)
+        assert float(noise_g.max()) <= 1e-6 * g_norm, name
+        assert not torch.equal(p.detach(), before[name]) or \
+            float(want_g[name].abs().max()) == 0.0, name
+
+
+# --------------------------------------------------------- the priors
+@pytest.mark.parametrize("block_type,embedding", [
+    ("plain", "positional"), ("se_drop", "fourier"), ("plain", "fourier")])
+def test_global_prior_variants_forward_through_from_jax(block_type,
+                                                        embedding):
+    """lion_tpu's GlobalPrior initialized by flax, loaded into the port's
+    through `state_dict_from_jax` (strict), the same forward within 1e-5;
+    the Fourier embedding's w is a parameter of both trees."""
+    kw = dict(num_input_channels=24, nf=32, num_blocks=2, embedding_dim=16,
+              embedding_type=embedding, embedding_scale=1.0, dropout=0.0,
+              block_type=block_type, mixed_prediction=True)
+    jp = JGlobalPrior(**kw)
+    x = np.random.RandomState(12).randn(3, 24).astype(np.float32)
+    t = np.asarray([0.3, 1.0, 0.01], np.float32)
+    params = jax.jit(lambda: jp.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                     jnp.asarray(t)))()["params"]
+    want = jp.apply({"params": params}, jnp.asarray(x), jnp.asarray(t))
+    port = GlobalPrior(**kw)
+    port.load_state_dict(state_dict_from_jax(jax.device_get(params)),
+                         strict=True)
+    got = port.eval()(torch.from_numpy(x), torch.from_numpy(t))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    assert ("temb_fun.w" in dict(port.named_parameters())) == \
+        (embedding == "fourier")
+    if block_type == "plain":
+        assert port.block0.groups == min(32 // 4, 32)
+
+
+def test_registry_builds_the_plain_prior_and_refuses_se_clip():
+    from lion_tpu_torch.models.registry import build_global_prior
+    cfg = weighted_cfg(get_default_cfg())
+    cfg.latent_pts.style_prior = "models.score_sde.resnet.Prior"
+    cfg.sde.embedding_type = "fourier"
+    prior = build_global_prior(cfg)
+    assert prior.temb_fun is not None and hasattr(prior.block0, "norm1")
+    cfg.latent_pts.style_prior = "models.score_sde.resnet.PriorSEClip"
+    with pytest.raises(NotImplementedError, match="item J"):
+        build_global_prior(cfg)
+
+
+def test_fourier_w_gets_a_zero_gradient_and_adam_state():
+    """The Fourier embedding's w: no gradient reaches it, so the step gives
+    it a zero one (as optax sees it), and with AdamW's weight decay it
+    decays as in the JAX package."""
+    lion, _ = _pair(sde__embedding_type="fourier",
+                    latent_pts__pvd_mse_loss=1)
+    lion.cfg.trainer.opt.weight_decay = 1e-2
+    step = make_prior_train_step(lion, _lr_schedule(), device="cpu")
+    w0 = lion.global_prior.temb_fun.w.detach().clone()
+    x = torch.from_numpy(
+        (np.random.RandomState(3).randn(B, N, 3) * 0.3).astype(np.float32))
+    step(x, torch.Generator().manual_seed(0))
+    w = lion.global_prior.temb_fun.w
+    assert torch.equal(w.grad, torch.zeros_like(w))
+    mu, nu = step.optimizer.moments()
+    i = [n for n, _ in lion.global_prior.named_parameters()].index(
+        "temb_fun.w")
+    assert not mu[i].any() and not nu[i].any()
+    torch.testing.assert_close(w.detach(), w0 * (1.0 - LR * 1e-2))
+
+
+def test_spectral_norm_matches_lion_tpu():
+    """init_sn_state's shapes and unit norms, the loss and new vectors
+    from lion_tpu's state, the gradient only through W, the norm-scale
+    loss."""
+    from lion_tpu.utils.spectral_norm import (
+        norm_scale_loss as jnorm_scale_loss,
+        spectral_norm_loss as jspectral_norm_loss)
+    lion, jlion = _pair()
+    named = [(n, p) for n, p in zip(_names(lion), list(
+        lion.global_prior.parameters()) + list(lion.local_prior.parameters()))]
+    params = {"global_prior": jlion.params["global_prior"],
+              "local_prior": jlion.params["local_prior"]}
+    jstate = jinit_sn_state(params)
+    mine = init_sn_state(named)
+    state = sn_state_from_jax(jax.device_get(jstate))
+    assert set(mine) == set(state)
+    for k, (u, v) in mine.items():
+        assert u.shape == state[k][0].shape and v.shape == state[k][1].shape
+        np.testing.assert_allclose(float(u.norm()), 1.0, rtol=1e-6)
+    want, want_state = jax.jit(jspectral_norm_loss)(params, jstate)
+    got, new_state = spectral_norm_loss(named, state)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    for k, (u, v) in sn_state_from_jax(jax.device_get(want_state)).items():
+        np.testing.assert_allclose(new_state[k][0].numpy(), u.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(new_state[k][1].numpy(), v.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(norm_scale_loss(named)),
+                               float(jnorm_scale_loss(params)), rtol=1e-6)
+    got.backward()
+    kernel = dict(named)["global_prior.input_layer.kernel"]
+    u, v = new_state["global_prior.input_layer.kernel"]
+    torch.testing.assert_close(kernel.grad, torch.outer(v, u))
+
+
+# ------------------------------------------------- K10's second order
+def test_conv_backward_stays_differentiable_when_its_launch_is_invisible(
+        monkeypatch):
+    """On the card K10's wrapper is a raw launch that autograd does not
+    record. A twin that runs the plain version under no_grad stands in for
+    it here: the Jacobian-regularized step's gradients (J^T v differentiated
+    again through every training conv's dx) must stay equal to the
+    recorded ones. With dx called on the wrapper directly, the
+    second-order terms through the convs vanish and this fails."""
+    lion, jlion = _pair(sde__ode_sample=1, sde__jac_reg_coeff=1.0,
+                        sde__jac_reg_samples=1)
+    x = (np.random.RandomState(10).randn(B, N, 3) * 0.3).astype(np.float32)
+    draws = _jax_draws(jlion, x, jax.random.PRNGKey(11), True, True)
+    draws["jac_probes"] = tuple(p[:1] for p in draws["jac_probes"])
+    calls = []
+
+    def grads():
+        lion.zero_grad(set_to_none=True)
+        loss, metrics = prior_loss(lion, torch.from_numpy(x), **draws)
+        loss.backward()
+        return {n: p.grad.clone() for n, p in
+                zip(_names(lion), list(lion.global_prior.parameters())
+                    + list(lion.local_prior.parameters()))}
+
+    want = grads()
+    plain = conv3d_mod.conv3d_3x3_same_kernel.plain
+
+    def invisible(x, w):
+        calls.append(x.shape)
+        with torch.no_grad():
+            return plain(x, w)
+    monkeypatch.setattr(conv3d_mod, "conv3d_3x3_same_kernel", invisible)
+    got = grads()
+    assert calls                      # the training convs ran through it
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=0,
+                                   msg=k)
+
+
+# ---------------------------------------------- stage-2 under the ODE
+ODE_OVER = {"sde__ode_sample": 1, "latent_pts__pvd_mse_loss": 0,
+            "sde__mixed_prediction": True,
+            "sde__weight_decay_norm_dae": 1e-2}
+ODE_TOL = {"ode_eps": 1e-3, "ode_solver_tol": 1e-2}
+
+
+@pytest.fixture(scope="module")
+def jax_ode(tmp_path_factory, data_root):  # noqa: F811
+    """lion_tpu's two-prior Trainer on the continuous diffusion with the
+    weighted objective and SN, with its state and rng at build."""
+    jt = _jax(JaxTwoPrior, str(tmp_path_factory.mktemp("jax_ode")),
+              data_root, **ODE_OVER)
+    return {"trainer": jt, "state": jt.state, "rng": jt.rng}
+
+
+def test_ode_trainer_step_after_resume_matches_lion_tpu(tmp_path, data_root,
+                                                        jax_ode):
+    """lion_tpu's ODE trainer at build is saved and resumed by the port's,
+    whose power-iteration state is lion_tpu's (neither checkpoints it);
+    both take one train_iter on the same batch, the port on lion_tpu's
+    draws."""
+    jt = _fresh(jax_ode)
+    jt.save(tag="init")
+    pt = _port(TwoPrior, tmp_path, data_root, **ODE_OVER)
+    assert pt.resume(os.path.join(jt.ckpt_dir, "init.npz"))
+    assert pt.step_fn.sn_state is not None
+    pt.step_fn.sn_state = sn_state_from_jax(
+        jax.device_get(jt.state.sn_state))
+    before = {n: p.detach().clone()
+              for n, p in zip(pt.param_names, pt.step_fn.params)}
+    batch = next(iter(pt.train_loader))
+    x = np.asarray(batch["tr_points"], np.float32)
+    b = x.shape[0]
+    _, sub = jax.random.split(jt.rng)
+    rng_enc, rng_t, rng_n0, rng_n1, _ = jax.random.split(sub, 5)
+    eps, _, latent_list = _encode_jax(jt, x, rng_enc)
+    style = pt.cfg.latent_pts.style_dim
+    noise = tuple(torch.from_numpy(np.array(jax.random.normal(r, s)))
+                  for r, s in ((rng_n0, (b, style)),
+                               (rng_n1, (b, eps.shape[1] - style))))
+    want = jt.train_iter(batch, 0)
+    got = pt.train_iter(batch, 0, rho=_rho(latent_list),
+                        iw_rho=torch.from_numpy(np.array(
+                            jax.random.uniform(rng_t, (b,)))),
+                        noise=noise)
+    assert set(got) == set(want) and "train/dae_norm_loss" in got
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    _assert_adam_step(pt.param_names, pt.step_fn, before, jt.state,
+                      pt.cfg.trainer.opt)
+    assert_ema_step(pt, jt.state)
+    _fresh(jax_ode)
+
+
+def assert_ema_step(pt, state):
+    """The port trainer's EMA against lion_tpu's state after one step:
+    e decay + p (1 - decay) in float32, as test_torch_port_stage2's
+    `_assert_step_matches` holds it, plus one ulp of the value: the mixing
+    logits sit at -6, where an ulp (4.8e-7) exceeds that bound, and the
+    port's foreach add rounds once where lion_tpu's multiply-add rounds
+    twice."""
+    want_e = _named(state.ema_params)
+    for i, k in enumerate(pt.param_names):
+        e = pt.step_fn.ema.shadow[i]
+        d = (e - want_e[k]).abs()
+        ulp = torch.finfo(torch.float32).eps * e.abs()
+        assert bool((d <= 0.1 * 2.0 * LR + ulp + 1e-7).all()), k
+
+
+def test_ode_interpolations_match_lion_tpu(tmp_path, data_root, jax_ode):
+    """generate_interpolation(use_ode=True) from lion_tpu's starting
+    noises, and interpolate_posterior_ode on lion_tpu's posterior draws
+    (the local encode conditioned on the endpoints' global latents), both
+    to ode_eps 1e-3 at tolerance 1e-2 (at lion_tpu's defaults, 1e-5 each,
+    the tiny local ODEs take thousands of evaluations at random weights).
+    The global prior's ODEs agree within 1e-4 of their size with equal
+    evaluations. The local prior's do not, a standing divergence (ROADMAP
+    Queue 3): these ODEs take no mixed prediction, and their right-hand
+    side is discontinuous in the latent points' coordinates (FPS, ball
+    query and voxel cells), so a one-ulp difference flips a neighbour and
+    the trajectories part (measured: the posterior decode's local ODE took
+    126 evaluations here, 133 in lion_tpu, on the CPU; generate_interpolation's local
+    latents 31% apart at ode_eps 0.5). They are held to run, finite, with
+    the shapes lion_tpu's have."""
+    jt = _fresh(jax_ode)
+    jt.save(tag="interp")
+    pt = _port(TwoPrior, tmp_path, data_root, **ODE_OVER)
+    assert pt.resume(os.path.join(jt.ckpt_dir, "interp.npz"))
+    jlion = jt.as_lion(use_ema=False)
+    n, rng = 4, jax.random.PRNGKey(8)
+    want = jax.jit(lambda r: jinterp.generate_interpolation(
+        jlion, n, r, use_ode=True, **ODE_TOL))(rng)
+    rng_g, rng_l, _ = jax.random.split(rng, 3)
+    noise = (torch.from_numpy(np.array(jax.random.normal(
+        rng_g, (n, jlion.style_dim)))), torch.from_numpy(np.array(
+            jax.random.normal(rng_l, (n, jlion.local_dim)))))
+    with pt.as_lion(use_ema=False) as lion:
+        got = interpolate.generate_interpolation(lion, n, noise=noise,
+                                                 use_ode=True, **ODE_TOL)
+    _close_to_size(got["z_global"], want["z_global"], "z_global")
+    _same_shape_finite(got, want, ("z_local", "points"))
+
+    rs = np.random.RandomState(10)
+    xa, xb = ((rs.randn(N, 3) * 0.3).astype(np.float32) for _ in range(2))
+    rows, rng = 4, jax.random.PRNGKey(12)
+    want = jax.jit(lambda a, b, r: jinterp.interpolate_posterior_ode(
+        jlion, a, b, rows, r, **ODE_TOL))(xa, xb, rng)
+    rng_e, _ = jax.random.split(rng)
+    _, _, latent_list = _encode_jax(jt, np.stack([xa, xb]), rng_e)
+    with pt.as_lion(use_ema=False) as lion:
+        got = interpolate.interpolate_posterior_ode(
+            lion, torch.from_numpy(xa), torch.from_numpy(xb), rows,
+            rho=_rho(latent_list), **ODE_TOL)
+    for k in ("enc_g", "dec_g"):
+        assert got["nfe"][k] == int(want["nfe"][k]), k
+    _same_shape_finite(got, want, ("points",))
+    assert got["points"].shape == (rows, N, 3)
+    _fresh(jax_ode)
+
+
+def _same_shape_finite(got, want, keys):
+    for k in keys:
+        assert tuple(got[k].shape) == tuple(np.shape(want[k])), k
+        assert bool(torch.isfinite(got[k]).all()), k
+
+
+def _close_to_size(got, want, name):
+    want = np.asarray(want, np.float64)
+    err = np.abs(got.double().numpy() - want).max()
+    assert err <= 1e-4 * np.abs(want).max(), (name, err)
+
+
+def test_ode_trainers_sample_and_evaluate_on_the_cpu(tmp_path, data_root,
+                                                    monkeypatch):
+    """Under sde.ode_sample the two-prior trainer samples through the ODE
+    (finite, repeatable) and run_eval scores those samples. The
+    interpolation trainers take their ODE branches with what lion_tpu's
+    pass (lion_tpu/trainers/interpolate.py:286-291, :318-319):
+    InterpolateLatentTrainer sde.ode_eps at the function's fixed
+    tolerance, EncodeInterpTrainer neither. Their calls are recorded, then
+    run at the loosened tolerances above (at the fixed 1e-5 the tiny local
+    ODEs take thousands of evaluations at random weights)."""
+    pt = _port(TwoPrior, tmp_path, data_root, sde__ode_eps=1e-3,
+               sde__ode_solver_tol=1e-2, **ODE_OVER)
+    out = pt.sample(2, torch.Generator().manual_seed(0))
+    assert out.shape == (2, N, 3) and torch.isfinite(out).all()
+    assert torch.equal(pt.sample(2, torch.Generator().manual_seed(0)), out)
+    assert np.isfinite(pt.run_eval())
+    seen = {}
+    for name in ("generate_interpolation", "interpolate_posterior_ode"):
+        def loosened(*args, _fn=getattr(interpolate, name), _name=name,
+                     **kwargs):
+            seen[_name] = dict(kwargs)
+            return _fn(*args, **{**ODE_TOL, **kwargs,
+                                 "ode_solver_tol": ODE_TOL["ode_solver_tol"]})
+        monkeypatch.setattr(interpolate, name, loosened)
+    for cls in (interpolate.InterpolateLatentTrainer,
+                interpolate.EncodeInterpTrainer):
+        it = _port(cls, tmp_path, data_root, sde__ode_eps=1e-3,
+                   sde__ode_solver_tol=1e-2, **ODE_OVER)
+        pts = it.sample(3, torch.Generator().manual_seed(0))
+        assert pts.shape == (3, N, 3) and torch.isfinite(pts).all()
+    kw = seen["generate_interpolation"]
+    assert kw["use_ode"] is True and kw["ode_eps"] == 1e-3
+    assert "ode_solver_tol" not in kw
+    kw = seen["interpolate_posterior_ode"]
+    assert "ode_eps" not in kw and "ode_solver_tol" not in kw
