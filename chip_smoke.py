@@ -6,7 +6,8 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero:
   1. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off for matmuls and cuDNN.
-  2. build: compiles the thirteen CUDA kernels from lion_tpu_torch/csrc.
+  2. build: compiles the fourteen CUDA kernels from lion_tpu_torch/csrc
+     (K1-K13 and the ordered row sum of the backwards).
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main paths' shapes (batch 16), fp32 and bf16, with times
      from CUDA events; every K4 and K10 case with its bound and cuDNN's
@@ -15,7 +16,13 @@ non-zero:
      K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
      2048-point clouds (repeating bit for bit), N != M both ways and a
      permuted copy; K13's
-     backward against K2's backward of the permuted gradient; K1 at the
+     backward against K2's backward of the permuted gradient, bit for bit;
+     K2's, K13's, K5's and K6's backwards at the training shapes, fp32 and
+     bf16, twice each, bit for bit; the ordered row sum at those backwards'
+     shapes (fp32 and bf16 rows) against its plain version on a CPU copy,
+     bit for bit, beside index_add_; K10 in bf16 at the training shapes
+     (forward and dx, down to Co = 4) within 2e-2 of the output's size
+     beside cuDNN's bf16 conv, and K2 on bf16 features, exact; K1 at the
      local step's four levels (N 2048 -> 1024 -> 256 -> 64 -> 16), K2 and
      K11 at its four SA levels, K13 at the first three (CF_SHAPES, fp32
      and bf16) and K6 at its four FP levels (fp32 and bf16, with its
@@ -118,6 +125,22 @@ non-zero:
      steps at batch 16 (ms/step, samples/s, peak memory; every kernel of
      the training path launched) and the device ms of the objective and
      the whole step under torch.profiler.
+ 18. bf16 gradient parity (after phase 11): phases 7's and 11's losses under
+     tpu.bf16, their gradients on the card against the CPU within
+     BF16_LOSS_TOL / BF16_GRAD_TOL.
+ 19. repeat steps: one fp32 two-prior step at batch 16 and one bf16 stage-1
+     step at batch 32, each on two fresh copies from one seed and the same
+     draws: the updated parameters and EMA equal bit for bit.
+ 20. bf16 training steps: the two-prior step at batch 16 and the stage-1
+     step at batch 32 under tpu.bf16, 2 warm-up + 5 timed steps each
+     (ms/step, samples/s, peak, busy share under torch.profiler); every
+     kernel of the training path launched, K10, K2, K3, K5, K6 and the row
+     sum on bf16 tensors; fp32 parameters.
+ 21. bf16 trainers (after phase 13, on its and phase 12's splits): the
+     stage-1 Trainer under sde.autocast_train (which sets tpu.bf16) and the
+     two-prior Trainer under tpu.bf16 on its final checkpoint, one epoch
+     each; fp32 parameters; each final checkpoint resumed equal by a bf16
+     and by an fp32 trainer.
  17. the stage-2 trainer under the PF-ODE: the flagship two-prior trainer
      with sde.ode_sample = 1 and the weighted objective (SN, mixed
      prediction) on phase 12's checkpoint: 2 + 5 steps at batch 10, one
@@ -159,8 +182,9 @@ BF16_PATH = ("fps", "avg_voxelize", "conv3d_3x3_fused",
              "trilinear_devoxelize", "three_nn_interpolate", "sa_fused",
              "conv3d_pair", "pvconv_block_pair")
 # the two-prior step: the frozen encode's eval flow (K1-K6), the priors'
-# train flow (K10 forward and dx) and the SA blocks' backward (K11)
-TRAIN_PATH = FP32_PATH + ("conv3d_3x3_same", "ball_query")
+# train flow (K10 forward and dx), the SA blocks' backward (K11) and the
+# point ops' backwards (the ordered row sum)
+TRAIN_PATH = FP32_PATH + ("conv3d_3x3_same", "ball_query", "row_sum")
 # the channel-first grouping op (K13) has no model caller; its path is the
 # op at scripts/profile_bqg_cf.py's shapes. Evaluation samples on the bf16
 # path and scores with K12.
@@ -175,9 +199,19 @@ VAE_TRAIN_PATH = TRAIN_PATH + ("emd_cost",)
 # backward passes), fp32 sampling (K1-K6) in run_eval, eval_sample's EMD on
 # K12, the single-prior and the interpolation trainers (K1-K6)
 STAGE2_TRAINER_PATH = VAE_TRAIN_PATH
+# the bare stage-1 step: the three networks of the VAE in train mode, no
+# eval flow (no K4)
+STAGE1_STEP_PATH = ("fps", "ball_query_group", "avg_voxelize",
+                    "trilinear_devoxelize", "three_nn_interpolate",
+                    "conv3d_3x3_same", "ball_query", "row_sum")
+# the bf16 training steps and trainers launch the training path's kernels,
+# these among them on bf16 tensors (the U-Nets' convs and grouping)
+BF16_TRAIN_KERNELS = ("conv3d_3x3_same", "ball_query_group",
+                      "avg_voxelize", "trilinear_devoxelize",
+                      "three_nn_interpolate", "row_sum")
 REPORT_ORDER = FP32_PATH + ("sa_fused", "conv3d_pair", "pvconv_block_pair",
                             "conv3d_3x3_same", "ball_query",
-                            "ball_query_group_cf", "emd_cost")
+                            "ball_query_group_cf", "emd_cost", "row_sum")
 BATCH_TRAIN = 16   # scripts/profile_train_step.py's batch
 WARMUP_STEPS, TRAIN_STEPS = 2, 5
 BATCH_VAE = 32     # stage 1's released batch a GPU (script/train_vae.sh)
@@ -454,34 +488,70 @@ def _conv_fused_check(randn, b, r, ci, co, dtype, pro):
         lambda: F.conv3d(xc, wc, padding=1))
 
 
-def _conv_same_check(randn, case, b, r, ci, co, iters):
-    """K10 forward at one shape, with cuDNN's fp32 conv beside it."""
+def _k10_gate(dtype):
+    """fp32: sums of 27*Ci terms in another order (cuDNN, TF32 off); bf16:
+    the same float32 sums rounded once, a one-ulp rounding apart where the
+    order differs, held to 2e-2 of the output's size."""
+    return _close(1e-4, 1e-4) if dtype == torch.float32 else \
+        _bf16_close(2e-2)
+
+
+def _conv_same_check(randn, case, b, r, ci, co, iters, dtype=torch.float32):
+    """K10 forward at one shape, with cuDNN's conv of the same dtype beside
+    it (bf16 in channels-last)."""
     import torch.nn.functional as F
-    x = randn(b, r, r, r, ci)
-    w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+    x = randn(b, r, r, r, ci).to(dtype)
+    w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(dtype)
     xc, wc = _ncdhw(x), _oidhw(w)
+    bf = dtype == torch.bfloat16
     return KernelCheck(
-        "conv3d_3x3_same", case, (x, w), {}, _close(1e-4, 1e-4), iters,
-        iters, bound(nbytes(x, w) + b * r ** 3 * co * 4,
-                     fp32_ops=_conv_ops(b, r, ci, co)),
+        "conv3d_3x3_same", f"{'bf16 ' if bf else ''}{case}", (x, w), {},
+        _k10_gate(dtype), iters, iters,
+        bound(nbytes(x, w) + b * r ** 3 * co * x.element_size(),
+              **{"bf16_ops" if bf else "fp32_ops": _conv_ops(b, r, ci, co)}),
         lambda: F.conv3d(xc, wc, padding=1))
 
 
-def _conv_dx_check(randn, b, r, ci, co, iters):
+def _conv_dx_check(randn, b, r, ci, co, iters, dtype=torch.float32):
     """K10 as the dx of a (ci -> co) conv: the output's gradient (co
     channels) through the flipped, transposed weights to ci channels, with
-    cuDNN's `conv3d_input` beside it."""
-    gy = randn(b, r, r, r, co)
-    w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+    cuDNN's `conv3d_input` of the same dtype beside it."""
+    gy = randn(b, r, r, r, co).to(dtype)
+    w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(dtype)
     w_flip = w.flip(0, 1, 2).transpose(3, 4).contiguous()
     gyc, wc = _ncdhw(gy), _oidhw(w)
     shape = (b, ci, r, r, r)
+    bf = dtype == torch.bfloat16
     return KernelCheck(
-        "conv3d_3x3_same", f"dx B{b} r{r} C{co}->{ci}", (gy, w_flip), {},
-        _close(1e-4, 1e-4), iters, iters,
-        bound(nbytes(gy, w) + b * r ** 3 * ci * 4,
-              fp32_ops=_conv_ops(b, r, co, ci)),
+        "conv3d_3x3_same", f"{'bf16 ' if bf else ''}dx B{b} r{r} C{co}->{ci}",
+        (gy, w_flip), {}, _k10_gate(dtype), iters, iters,
+        bound(nbytes(gy, w) + b * r ** 3 * ci * gy.element_size(),
+              **{"bf16_ops" if bf else "fp32_ops": _conv_ops(b, r, co, ci)}),
         lambda: torch.nn.grad.conv3d_input(shape, wc, gyc, padding=1))
+
+
+def _row_sum_check(randn, case, idx, rows, n, iters):
+    """The ordered row sum at one backward's shape: bit for bit against its
+    plain version (a float32 scatter_add_) on a CPU copy, which adds in
+    ascending r; the plain version on the card (atomics) is timed only.
+    Bound: the rows and indices read once, the sums written once; library:
+    one index_add_ over the flattened items."""
+    from lion_tpu_torch import ops
+    b, r, c = rows.shape
+    plain = ops.KERNELS["row_sum"].plain
+    want = plain(idx.cpu(), rows.cpu(), n)
+
+    def compare(got, _):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"row_sum {case}: not the CPU's sums")
+        return 0.0
+    flat = (idx.long() + n * torch.arange(b, device=idx.device)[:, None]
+            ).reshape(-1)
+    return KernelCheck(
+        "row_sum", case, (idx, rows, n), {}, compare, iters, iters,
+        bound(nbytes(idx, rows) + b * n * c * 4, fp32_ops=float(b * r * c)),
+        lambda: torch.zeros(b * n, c, device=rows.device).index_add_(
+            0, flat, rows.reshape(-1, c).float()))
 
 
 def _emd_work(sample, ref, pairs):
@@ -495,20 +565,53 @@ def _emd_work(sample, ref, pairs):
 
 
 def check_cf_backward(cloud, centers, feats, g):
-    """K13's backward against K2's backward of the permuted gradient: both
-    scatter-add with atomics, so they agree to fp32 rounding."""
+    """K13's backward against K2's backward of the permuted gradient: the
+    same code on the same gradient, every row summed in a fixed order
+    (the ordered row sum), so they are equal bit for bit."""
     from lion_tpu_torch import ops
     xs = [t.detach().clone().requires_grad_(True)
           for t in (cloud, centers, feats)]
     cf = torch.autograd.grad(ops.ball_query_group_cf(*xs, 0.1, 32), xs, g)
     rows = torch.autograd.grad(ops.ball_query_group(*xs, 0.1, 32), xs,
                                g.permute(0, 3, 1, 2))
-    err = 0.0
-    for a, b in zip(cf, rows):
-        err = max(err, max_abs(a, b))
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    same = all(torch.equal(a, b) for a, b in zip(cf, rows))
     log(f"[kernels] ball_query_group_cf backward vs K2's backward of the "
-        f"permuted gradient: max_abs_err {err:.3e}")
+        f"permuted gradient: bit-equal {same}")
+    if not same:
+        raise AssertionError("K13's backward differs from K2's")
+
+
+def check_backward_repeats(b, randn):
+    """K2's, K13's, K5's and K6's backwards at the training shapes (SA0,
+    r32 C64, the top FP level), fp32 and bf16, twice on the same gradient:
+    equal bit for bit (the ordered row sum, no float atomics)."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.ops.voxel import normalize_coords
+    from lion_tpu_torch.profile_step import bqg_level_inputs
+    _, (p, c, f, r, k) = bqg_level_inputs(b, randn)[0]
+    nc = normalize_coords(p, 32).contiguous()
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        x, grid = f.to(dt), randn(b, 32, 32, 32, 64).to(dt)
+        cf = randn(b, c.shape[1], 192).to(dt)
+        g2 = randn(b, c.shape[1], k, 3 + f.shape[-1]).to(dt)
+        cases = (
+            ("ball_query_group", lambda *a: ops.ball_query_group(*a, r, k),
+             (p, c, x), g2),
+            ("ball_query_group_cf",
+             lambda *a: ops.ball_query_group_cf(*a, r, k), (p, c, x),
+             g2.permute(0, 2, 3, 1).contiguous()),
+            ("trilinear_devoxelize",
+             lambda gg: ops.trilinear_devoxelize(gg, nc, 32), (grid,),
+             randn(b, p.shape[1], 64).to(dt)),
+            ("three_nn_interpolate",
+             lambda ff: ops.nearest_neighbor_interpolate(p, c, ff), (cf,),
+             randn(b, p.shape[1], 192).to(dt)))
+        for label, fn, inputs, cot in cases:
+            def grads(fn=fn, inputs=inputs, cot=cot):
+                xs = [t.detach().clone().requires_grad_(True)
+                      for t in inputs]
+                return torch.autograd.grad(fn(*xs), xs, cot)
+            _bit_equal(f"{label} backward B{b} {name}", grads)
 
 
 def _ordered_mean(feats, vox, r):
@@ -678,9 +781,9 @@ def phase_kernels():
     from lion_tpu_torch import ops
     from lion_tpu_torch.eval.metrics import block_pairs
     from lion_tpu_torch.ops._cuda import no_tf32
-    from lion_tpu_torch.ops.voxel import normalize_coords
-    from lion_tpu_torch.profile_step import (K4_CASES, STAGE1_K10_CASES,
-                                             STAGE1_K10_DX)
+    from lion_tpu_torch.ops.voxel import _corners, normalize_coords
+    from lion_tpu_torch.profile_step import (K4_CASES, K10_CASES,
+                                             STAGE1_K10_CASES, STAGE1_K10_DX)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     b = BATCH_KERNELS
@@ -728,6 +831,13 @@ def phase_kernels():
     emd_block = (emd_s, emd_r, block_pairs(0, 0, 16, 33, dev))
     half = randn(4, 1024, 3, scale=0.3)
     pairs4 = block_pairs(0, 0, 4, 4, dev)
+    # the backwards' indices: K11's balls at SA0, K5's eight corners at r32,
+    # K6's three neighbours at the top FP level
+    bq_idx = ops.ball_query(centers, cloud, 0.1, 32).reshape(b, -1)
+    devox_idx = torch.cat([i for i, _ in _corners(nc32, 32, torch.float32)],
+                          dim=1).to(torch.int32)
+    nn_idx = ops.KERNELS["three_nn_interpolate"](
+        cloud, centers, f192, with_weights=True)[1].reshape(b, -1)
     checks = [
         # K1, K2, K5, K6, K11 evaluate the same unfused arithmetic in the
         # same order as their plain versions, so they must agree bit for bit
@@ -812,6 +922,32 @@ def phase_kernels():
           for r, ci, co in STAGE1_K10_CASES),
         *(_conv_dx_check(randn, BATCH_VAE, r, co, ci, 5)
           for r, ci, co in STAGE1_K10_DX),
+        # K10 in bf16 (bf16 training): the same training shapes, forward
+        # and dx, down to Co = 4 (the first is the report's bf16 case)
+        *(_conv_same_check(randn, f"B16 r{r} C{ci}->{co}", b, r, ci, co,
+                           5 if r == 32 else 10, bf)
+          for r, ci, co in K10_CASES),
+        _conv_dx_check(randn, b, 32, 64, 64, 5, bf),
+        *(_conv_dx_check(randn, BATCH_VAE, r, co, ci, 5, bf)
+          for r, ci, co in STAGE1_K10_DX),
+        # K2 on bf16 features (the SA blocks' train flow under bf16): the
+        # coordinates rounded once, the features copied, bit for bit
+        KernelCheck("ball_query_group", "bf16 B16 N2048 M1024 K32 r0.1 C32",
+                    (cloud, centers, f32c.to(bf), 0.1, 32), {}, _exact, 20,
+                    3, bound(nbytes(cloud, centers) + b * 2048 * 32 * 2
+                             + b * 1024 * 32 * 35 * 2,
+                             fp32_ops=8 * _scan_pairs(centers, cloud, 0.1,
+                                                      32))),
+        # the ordered row sum at the training backwards' shapes: K2's at
+        # SA0 (fp32 and bf16 gradients), K5's at r32 C64, K6's top level
+        _row_sum_check(randn, "K2 backward B16 R32768 n2048 C35",
+                       bq_idx, randn(b, 1024 * 32, 35), 2048, 10),
+        _row_sum_check(randn, "bf16 K2 backward B16 R32768 n2048 C35",
+                       bq_idx, randn(b, 1024 * 32, 35).to(bf), 2048, 10),
+        _row_sum_check(randn, "K5 backward B16 R16384 n32768 C64",
+                       devox_idx, randn(b, 8 * 2048, 64), 32 ** 3, 10),
+        _row_sum_check(randn, "K6 backward B16 R6144 n1024 C192",
+                       nn_idx, randn(b, 3 * 2048, 192), 1024, 10),
         KernelCheck("ball_query", "B16 N2048 M1024 K32 r0.1",
                     (centers, cloud, 0.1, 32), {}, _exact, 20, 3,
                     bound(nbytes(centers, cloud) + b * 1024 * 32 * 4,
@@ -838,16 +974,25 @@ def phase_kernels():
         KernelCheck("emd_cost", "4 x 4 pairs N1024 M2048",
                     (half, emd_r, pairs4), {}, _close(2e-3, 1e-5), 5, 1),
     ]
-    results = {}
+    results, bf16_first = {}, set()
     with no_tf32():
         for c in checks:
             r = c.run(ops.KERNELS)
+            bf = c.case.startswith("bf16 ")
             prev = results.get(c.name)
             if prev is None:
                 results[c.name] = r
-            else:   # keep the first case's times, the worst error
-                prev["max_abs_err"] = max(prev["max_abs_err"],
-                                          r["max_abs_err"])
+                if bf:
+                    bf16_first.add(c.name)
+                continue
+            # a kernel's first bf16 case beside its fp32 one; each keeps
+            # its first case's times and the worst error of its dtype
+            if bf and c.name not in bf16_first:
+                if "bf16" not in prev:
+                    prev["bf16"] = {"case": c.case, **r}
+                    continue
+                prev = prev["bf16"]
+            prev["max_abs_err"] = max(prev["max_abs_err"], r["max_abs_err"])
         # the library calls compute the kernels' functions: K3's scatter
         # mean and K5's trilinear sample against the kernels
         mean = torch.zeros(b, 32 ** 3, 64, device=dev).scatter_reduce_(
@@ -883,6 +1028,7 @@ def phase_kernels():
         _bit_equal("emd_cost 16 x 33 pairs N2048 M2048",
                    lambda: ops.emd_cost(*emd_block))
         check_cf_backward(cloud, centers, f32c, randn(b, 32, 35, 1024))
+        check_backward_repeats(b, randn)
         results["fps"]["ms_levels"] = check_fps_levels(b, randn)
         (results["ball_query_group"]["ms_levels"],
          results["ball_query"]["ms_levels"]) = check_bqg_levels(b, randn)
@@ -1071,9 +1217,10 @@ def _to(draws, dev):
                 else v.to(dev)) for k, v in draws.items()}
 
 
-def phase_grad_parity(cfg):
+def phase_grad_parity(cfg, loss_tol=1e-4, grad_tol=1e-3):
     """One full-width flagship two-prior loss at batch 2 with dropout 0, its
-    gradients on the card against the same modules on the CPU."""
+    gradients on the card against the same modules on the CPU (in bf16
+    under cfg.tpu.bf16)."""
     from lion_tpu_torch.models import LION
     from lion_tpu_torch.ops._cuda import no_tf32
     from lion_tpu_torch.trainers import prior_loss
@@ -1108,7 +1255,9 @@ def phase_grad_parity(cfg):
     # sum taken in another order on each side; the index decisions (FPS,
     # ball query, voxel rounding, 3-NN) match, so the gradients agree to
     # fp32 rounding amplified by depth
-    return _grad_gate("grad parity", "flagship prior loss B2", runs, seconds)
+    label = "flagship prior loss B2" + (" bf16" if cfg.tpu.bf16 else "")
+    return _grad_gate("grad parity", label, runs, seconds, loss_tol,
+                      grad_tol)
 
 
 def _grad_gate(tag, label, runs, seconds, loss_tol=1e-4, grad_tol=1e-3):
@@ -1191,11 +1340,11 @@ def phase_train(cfg, batch, warmup, steps):
     return counts
 
 
-def phase_vae_grad_parity(cfg):
+def phase_vae_grad_parity(cfg, loss_tol=1e-4, grad_tol=1e-3):
     """One full-width flagship VAE `get_loss` at batch 2 (dropout 0,
     `l1_sum`, train mode: the modular PVConv flow on K10 and the SA blocks'
     unfused branch), its gradients on the card against the same module on
-    the CPU."""
+    the CPU (in bf16 under cfg.tpu.bf16)."""
     from lion_tpu_torch.models.vae import VAE
     from lion_tpu_torch.nn import init_weights
     from lion_tpu_torch.ops._cuda import no_tf32
@@ -1225,8 +1374,114 @@ def phase_vae_grad_parity(cfg):
         seconds.append(time.perf_counter() - t0)
     # the three networks and their backward in fp32, sums in other orders;
     # FPS, ball query, voxel rounding and 3-NN decide alike on both sides
-    return _grad_gate("vae grad parity", "flagship VAE get_loss B2", runs,
-                      seconds)
+    label = "flagship VAE get_loss B2" + (" bf16" if cfg.tpu.bf16 else "")
+    return _grad_gate("vae grad parity", label, runs, seconds, loss_tol,
+                      grad_tol)
+
+
+# bf16 training's card-vs-CPU gate: both sides round to bf16 at the same
+# places (the kernels and their plain versions), but their float32 sums run
+# in other orders, so a rounding lands one bf16 ulp (2^-8) apart here and
+# there and moves what follows; the bf16 forward gate of the JAX package
+# (relative L2 0.03, tests/test_bf16_quality.py:87) bounds the gradient,
+# and the loss, a mean over the batch, is held to 1e-2
+BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-2, 3e-2
+
+
+def phase_bf16_grad_parity():
+    """bf16 training (tpu.bf16): phase 7's two-prior loss and phase 11's VAE
+    get_loss in bf16, their gradients on the card against the CPU."""
+    from lion_tpu_torch.config import flagship_cfg
+    out = {}
+    for name, fn in (("prior", phase_grad_parity),
+                     ("vae", phase_vae_grad_parity)):
+        cfg = flagship_cfg()
+        cfg.tpu.bf16 = True
+        out[name] = fn(cfg, BF16_LOSS_TOL, BF16_GRAD_TOL)
+    return out
+
+
+def phase_repeat_steps():
+    """Run-to-run reproducibility of training: one fp32 two-prior step at
+    batch 16 and one bf16 stage-1 step at batch 32, each on two fresh
+    flagship copies from one seed and the same draws
+    (profile_step.step_twice): the updated parameters and EMA must be
+    equal bit for bit."""
+    from lion_tpu_torch.profile_step import step_twice
+    for kind, bf16, batch in (("prior", False, BATCH_TRAIN),
+                              ("vae", True, BATCH_VAE)):
+        t0 = time.perf_counter()
+        differ, losses = step_twice(kind, bf16, batch)
+        label = f"{kind} {'bf16' if bf16 else 'fp32'} B{batch} step"
+        log(f"[repeat steps] {label}: losses {losses}; "
+            f"{'bit-equal' if not differ else f'{len(differ)} tensors differ'}"
+            f" ({time.perf_counter() - t0:.1f} s)")
+        if differ:
+            raise AssertionError(f"{label} does not repeat: {differ[:6]}")
+
+
+def _timed_steps(tag, step, x, gen, warmup, steps, batch, path):
+    """warmup + steps calls of a training step with the launch counters
+    zeroed just before and read just after (every kernel of the training
+    path launched, K10 and K2 among them on bf16 tensors); ms/step,
+    samples/s, peak; then the device ms and busy share of 2 steps under
+    torch.profiler. Returns the launch counts."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.profile_step import _device_groups
+    params0 = [p.detach().clone() for p in step.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(x, gen)["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = _path_counts(path, tag)
+    bf16 = {n: ops.KERNELS[n].launches_bf16 for n in BF16_TRAIN_KERNELS}
+    log(f"[{tag}] launches on bf16 tensors: {bf16}")
+    if not all(bf16.values()):
+        raise AssertionError(f"kernels not launched on bf16: {bf16}")
+    losses = [float(v) for v in losses]
+    moved = sum(int((p.detach() != q).sum())
+                for p, q in zip(step.params, params0))
+    if not np.isfinite(losses).all() or moved == 0 or not all(
+            bool(torch.isfinite(p).all()) and p.dtype == torch.float32
+            for p in step.params + step.ema.shadow):
+        raise AssertionError(f"{tag}: losses {losses}, {moved} moved")
+    wall_p, groups = _device_groups(lambda: step(x, gen), 2)
+    busy = sum(v[0] for v in groups.values())
+    k10 = groups.get("K conv3d_3x3_same", [0.0, 0])
+    wgrad = groups.get("cuDNN wgrad", [0.0, 0])
+    log(f"[{tag}] losses {[round(v, 4) for v in losses]}; "
+        f"{wall / steps * 1e3:.3f} ms/step, {batch * steps / wall:.3f} "
+        f"samples/s at batch {batch}; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; fp32 parameters, {moved} values "
+        f"changed; under torch.profiler {wall_p:.3f} ms wall, device "
+        f"{busy:.3f} ms, busy share {busy / wall_p:.3f}: K10 "
+        f"{k10[0]:.3f} ms, cuDNN wgrad {wgrad[0]:.3f} ms")
+    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"[{tag}]   {ms:9.3f} ms {n:6d} ops  {name}")
+    return counts
+
+
+def phase_bf16_train(warmup, steps):
+    """bf16 training's main steps: the flagship two-prior step at batch 16
+    and the stage-1 VAE step at batch 32 under tpu.bf16 (profile_step's
+    inputs), warmup + steps each (`_timed_steps`)."""
+    from lion_tpu_torch.profile_step import train_step_of
+    out = {}
+    for kind, batch, path in (("prior", BATCH_TRAIN, TRAIN_PATH),
+                              ("vae", BATCH_VAE, STAGE1_STEP_PATH)):
+        step, _, x, gen = train_step_of(kind, True, batch)
+        out[kind] = _timed_steps(f"bf16 train {kind}", step, x, gen, warmup,
+                                 steps, batch, path)
+        del step, x
+    return out
 
 
 def _write_pointflow(root, counts, seed):
@@ -1252,20 +1507,10 @@ def _equal_steps(a, b):
         and a.optimizer.count == b.optimizer.count
 
 
-def phase_vae_trainer(tmp, batch, warmup, steps):
-    """The flagship stage-1 trainer: `Trainer(cfg, args).train_epochs()`
-    over one epoch of warmup + steps batches of a synthetic dataset under
-    `tmp`, a resume of its final checkpoint, and `eval_nll` on the test
-    split; the launch counters are zeroed just before the epoch and read
-    just after eval_nll. Returns the counts and the final checkpoint's
-    path (stage 2's sde.vae_checkpoint)."""
-    from lion_tpu_torch import ops
+def _stage1_cfg(batch):
+    """Phase 12's stage-1 trainer configuration: the flagship VAE, `l1_sum`,
+    the KL anneal, one epoch, the visualizations off."""
     from lion_tpu_torch.config import flagship_cfg
-    from lion_tpu_torch.trainers.hvae_trainer import Trainer
-    data = os.path.join(tmp, "data")
-    t0 = time.perf_counter()
-    _write_pointflow(data, {"train": (warmup + steps) * batch,
-                            "val": batch, "test": batch}, seed=41)
     cfg = flagship_cfg()
     cfg.data.cates = "chair"
     cfg.data.batch_size = cfg.data.batch_size_test = batch
@@ -1274,6 +1519,42 @@ def phase_vae_trainer(tmp, batch, warmup, steps):
     cfg.trainer.anneal_kl = 1
     cfg.trainer.epochs = 1
     cfg.viz.viz_freq = 0
+    return cfg
+
+
+def _stage2_cfg(batch, vae_checkpoint):
+    """Phase 13's two-prior trainer configuration on a stage-1 checkpoint:
+    one epoch, run_eval every epoch (STAGE2_VAL_SAMPLES shapes at
+    STAGE2_DDIM_STEPS DDIM steps), the visualizations off."""
+    from lion_tpu_torch.config import flagship_cfg
+    cfg = flagship_cfg()
+    cfg.trainer.type = "trainers.train_2prior"
+    cfg.data.cates = "chair"
+    cfg.data.batch_size = cfg.data.batch_size_test = batch
+    cfg.data.eval_test_split = 1
+    cfg.sde.vae_checkpoint = vae_checkpoint
+    cfg.trainer.epochs = 1
+    cfg.viz.viz_freq = 0
+    cfg.viz.val_freq = 1
+    cfg.eval_ddim_step = STAGE2_DDIM_STEPS
+    cfg.num_val_samples = STAGE2_VAL_SAMPLES
+    return cfg
+
+
+def phase_vae_trainer(tmp, batch, warmup, steps):
+    """The flagship stage-1 trainer: `Trainer(cfg, args).train_epochs()`
+    over one epoch of warmup + steps batches of a synthetic dataset under
+    `tmp`, a resume of its final checkpoint, and `eval_nll` on the test
+    split; the launch counters are zeroed just before the epoch and read
+    just after eval_nll. Returns the counts and the final checkpoint's
+    path (stage 2's sde.vae_checkpoint)."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.trainers.hvae_trainer import Trainer
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    _write_pointflow(data, {"train": (warmup + steps) * batch,
+                            "val": batch, "test": batch}, seed=41)
+    cfg = _stage1_cfg(batch)
     args = argparse.Namespace(save_dir=os.path.join(tmp, "exp"),
                               data_root=data)
     trainer = Trainer(cfg, args)
@@ -1353,7 +1634,6 @@ def phase_stage2_trainer(tmp, vae_checkpoint, batch, warmup, steps):
     from lion_tpu_torch import ops
     from lion_tpu_torch.ckpt import load_checkpoint, load_lion_checkpoint
     from lion_tpu_torch.ckpt.io import flatten_tree
-    from lion_tpu_torch.config import flagship_cfg
     from lion_tpu_torch.models import LION
     from lion_tpu_torch.trainers import get_trainer
     data = os.path.join(tmp, "data_stage2")
@@ -1361,17 +1641,7 @@ def phase_stage2_trainer(tmp, vae_checkpoint, batch, warmup, steps):
     _write_pointflow(data, {"train": (warmup + steps) * batch,
                             "val": batch, "test": STAGE2_VAL_SAMPLES},
                      seed=43)
-    cfg = flagship_cfg()
-    cfg.trainer.type = "trainers.train_2prior"
-    cfg.data.cates = "chair"
-    cfg.data.batch_size = cfg.data.batch_size_test = batch
-    cfg.data.eval_test_split = 1
-    cfg.sde.vae_checkpoint = vae_checkpoint
-    cfg.trainer.epochs = 1
-    cfg.viz.viz_freq = 0
-    cfg.viz.val_freq = 1
-    cfg.eval_ddim_step = STAGE2_DDIM_STEPS
-    cfg.num_val_samples = STAGE2_VAL_SAMPLES
+    cfg = _stage2_cfg(batch, vae_checkpoint)
     args = argparse.Namespace(save_dir=os.path.join(tmp, "exp2"),
                               data_root=data)
     trainer = get_trainer(cfg.trainer.type)(cfg, args)
@@ -1515,6 +1785,97 @@ def phase_stage2_trainer(tmp, vae_checkpoint, batch, warmup, steps):
     return _path_counts(STAGE2_TRAINER_PATH, "stage2 train")
 
 
+def phase_bf16_trainers(tmp, batch_vae, batch_stage2):
+    """bf16 training through the trainers, on phases 12's and 13's
+    synthetic splits: the stage-1 Trainer under sde.autocast_train (which
+    sets tpu.bf16) for one epoch at batch `batch_vae`, then the two-prior
+    Trainer under tpu.bf16 on that run's final checkpoint for one epoch at
+    `batch_stage2` (run_eval off). Each: fp32 parameters, every kernel of
+    the training path launched (K10, K2, K3, K5, K6 and the row sum on
+    bf16 tensors), its final checkpoint resumed equal by a bf16 trainer and
+    by an fp32 one. The launch counters are zeroed before each epoch. The
+    stage-1 VAE's style posterior head starts damped by 0.01, as in
+    profile_step.train_step_of."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.profile_step import damp_style_head
+    from lion_tpu_torch.trainers import get_trainer
+    out, stage1 = {}, None
+    for kind, batch, key, data, path in (
+            ("trainers.hvae_trainer", batch_vae, "sde.autocast_train",
+             "data", STAGE1_STEP_PATH),
+            ("trainers.train_2prior", batch_stage2, "tpu.bf16",
+             "data_stage2", TRAIN_PATH)):
+        def cfg_of(bf16, kind=kind, batch=batch, key=key):
+            cfg = _stage1_cfg(batch) if stage1 is None else \
+                _stage2_cfg(batch, stage1)
+            cfg.trainer.type = kind
+            cfg.viz.val_freq = 0
+            if bf16:
+                node, leaf = key.split(".")
+                setattr(getattr(cfg, node), leaf, True)
+            return cfg
+        args = argparse.Namespace(save_dir=os.path.join(tmp, f"bf16_{kind}"),
+                                  data_root=os.path.join(tmp, data))
+        t0 = time.perf_counter()
+        cfg = cfg_of(True)
+        trainer = get_trainer(kind)(cfg, args)
+        if stage1 is None:
+            # lion_tpu's bf16 trainer test damps the random-init style
+            # posterior head, whose log sigma can overflow exp()
+            # (profile_step.damp_style_head); stage 2 loads this run's VAE
+            damp_style_head(trainer.vae)
+        if not cfg.tpu.bf16:
+            raise AssertionError(f"{kind}: {key} did not set tpu.bf16")
+        ends = []
+        train_iter = trainer.train_iter
+
+        def timed_iter(b, step, train_iter=train_iter, ends=ends):
+            metrics = train_iter(b, step)   # floats: synchronised
+            ends.append((time.perf_counter(), metrics["loss"]))
+            return metrics
+        trainer.train_iter = timed_iter
+        tag = f"bf16 trainer {kind.split('.')[-1]}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t1 = time.perf_counter()
+        trainer.train_epochs()
+        peak = torch.cuda.max_memory_allocated()
+        out[kind] = _path_counts(path, tag)
+        bf16 = {n: ops.KERNELS[n].launches_bf16 for n in BF16_TRAIN_KERNELS}
+        step = trainer.step_fn
+        losses = [v for _, v in ends]
+        if not all(bf16.values()) or not np.isfinite(losses).all() or not \
+                all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+                    for p in step.params + step.ema.shadow):
+            raise AssertionError(f"{tag}: bf16 launches {bf16}, losses "
+                                 f"{losses}")
+        n = len(ends)
+        if n < 2:
+            raise AssertionError(f"{tag}: {n} steps")
+        wall = (ends[-1][0] - ends[0][0]) / (n - 1)
+        log(f"[{tag}] {key} -> tpu.bf16: {n} steps at batch {batch}, "
+            f"losses {[round(v, 4) for v in losses]}; "
+            f"{wall * 1e3:.3f} ms/step after the first; "
+            f"peak {peak / 2 ** 30:.3f} GiB; launches on bf16 {bf16}; "
+            f"built in {t1 - t0:.1f} s")
+        final = os.path.join(trainer.ckpt_dir, "final.npz")
+        for bf in (True, False):
+            again = get_trainer(kind)(cfg_of(bf), args)
+            again.resume(final)
+            if not _equal_steps(step, again.step_fn):
+                raise AssertionError(f"{tag}: the resumed "
+                                     f"{'bf16' if bf else 'fp32'} trainer "
+                                     f"differs")
+            del again
+        log(f"[{tag}] final.npz (fp32 parameters) resumed equal by a bf16 "
+            f"and an fp32 trainer")
+        stage1 = final
+        trainer.writer.close()
+        del trainer, step
+    return out
+
+
 def _ode_cfg(cfg, tol):
     cfg.sde.ode_sample = 1
     cfg.sde.ode_solver_tol = tol
@@ -1611,24 +1972,6 @@ def phase_ode_sample(cfg, batch, tol):
     return counts
 
 
-def _weighted_cfg(cfg):
-    """The weighted objective on the continuous diffusion with every
-    regularizer at tests/test_regularization.py's values (_reg_cfg,
-    _jackin_cfg): ll_iw, mixed prediction, SN and norm scale at 1e-2, the
-    Jacobian term with 2 probes and the kinetic term at 1."""
-    cfg.sde.ode_sample = 1
-    cfg.sde.iw_sample_p = "ll_iw"
-    cfg.latent_pts.pvd_mse_loss = 0
-    cfg.sde.mixed_prediction = True
-    cfg.sde.weight_decay_norm_dae = 1e-2
-    cfg.sde.regularize_mlogit_margin = 1.0
-    cfg.sde.bound_mlogit_value = -5.42
-    cfg.sde.jac_reg_coeff = 1.0
-    cfg.sde.kin_reg_coeff = 1.0
-    cfg.sde.jac_reg_samples = 2
-    return cfg
-
-
 @contextlib.contextmanager
 def _unrecorded_dx():
     """K10's backward as it was before its dx went through the autograd
@@ -1695,8 +2038,9 @@ def phase_weighted_grad_parity(cfg):
     gradient is all second order. Then the card again with K10's backward
     as it was before (dx unrecorded): the Jacobian gate must fail on it."""
     from lion_tpu_torch.models import LION
+    from lion_tpu_torch.profile_step import weighted_cfg
     from lion_tpu_torch.utils.spectral_norm import init_sn_state
-    cfg = _weighted_cfg(cfg)
+    cfg = weighted_cfg(cfg)
     cfg.sde.dropout = cfg.ddpm.dropout = 0.0
     cpu = LION(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(11))
@@ -1766,10 +2110,10 @@ def phase_weighted_train(cfg, batch, warmup, steps):
     (forward with J^T v) and of the whole step under torch.profiler."""
     from lion_tpu_torch import ops
     from lion_tpu_torch.models import LION
-    from lion_tpu_torch.profile_step import _device_groups
+    from lion_tpu_torch.profile_step import _device_groups, weighted_cfg
     from lion_tpu_torch.trainers import (make_prior_train_step,
                                          warmup_cosine_schedule)
-    cfg = _weighted_cfg(cfg)
+    cfg = weighted_cfg(cfg)
     lion = LION(cfg).init_params(torch.Generator().manual_seed(0))
     step = make_prior_train_step(
         lion, warmup_cosine_schedule(2e-4, 2e-4, 10, 10, 1, 10))
@@ -2111,11 +2455,15 @@ def main(argv=None):
     train = phase_train(flagship_cfg(), BATCH_TRAIN, WARMUP_STEPS,
                         TRAIN_STEPS)
     phase_vae_grad_parity(flagship_cfg())
+    phase_bf16_grad_parity()
+    phase_repeat_steps()
+    bf16_train = phase_bf16_train(WARMUP_STEPS, TRAIN_STEPS)
     with tempfile.TemporaryDirectory() as tmp:
         vae_train, vae_ckpt = phase_vae_trainer(tmp, BATCH_VAE, WARMUP_STEPS,
                                                 TRAIN_STEPS)
         stage2 = phase_stage2_trainer(tmp, vae_ckpt, BATCH_STAGE2,
                                       WARMUP_STEPS, TRAIN_STEPS)
+        bf16_trainers = phase_bf16_trainers(tmp, BATCH_VAE, BATCH_STAGE2)
         ode_trainer = phase_ode_trainer(tmp, vae_ckpt, BATCH_STAGE2,
                                         WARMUP_STEPS, TRAIN_STEPS, ODE_TOL)
     ode = phase_ode_sample(flagship_cfg(), ODE_BATCH, ODE_TOL)
@@ -2134,7 +2482,11 @@ def main(argv=None):
     paths = {"fp32": fp32, "bf16": bf16, "train": train, "cf_op": cf,
              "eval": evaluation, "vae_train": vae_train,
              "stage2_trainer": stage2, "ode_sample": ode,
-             "weighted_train": weighted, "ode_trainer": ode_trainer}
+             "weighted_train": weighted, "ode_trainer": ode_trainer,
+             "bf16_train": bf16_train["prior"],
+             "bf16_vae_train": bf16_train["vae"],
+             "bf16_vae_trainer": bf16_trainers["trainers.hvae_trainer"],
+             "bf16_stage2_trainer": bf16_trainers["trainers.train_2prior"]}
     report = []
     for name in REPORT_ORDER:
         w = KERNELS[name]

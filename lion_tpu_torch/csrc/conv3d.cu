@@ -19,11 +19,16 @@
 // the products are summed in float32, y is rounded to bf16 once and the
 // statistics are those of the rounded y (conv3d_packed.py:466-472).
 //
-// K10: y = conv3d_SAME(x, w) in fp32 with no bias, no prologue and no
-// statistics. Replaces lion_tpu/ops/pallas/conv3d.py: conv3d_3x3_same
+// K10: y = conv3d_SAME(x, w) in fp32 or bf16 with no bias, no prologue and
+// no statistics. Replaces lion_tpu/ops/pallas/conv3d.py: conv3d_3x3_same
 // (_conv3d_pallas_fwd, _conv3d_pallas_planes); its custom VJP runs the same
 // kernel again for dL/dx with flipped, channel-transposed weights
-// (ops/conv3d.py). It is the fp32 kernel with the statistics compiled out.
+// (ops/conv3d.py). It is K4's kernel with the statistics compiled out: fp32
+// exact FFMA, or bf16 on wgmma with the products summed in fp32 and y
+// rounded once (the JAX form's preferred_element_type, conv3d.py:575-579).
+// Narrow convs (Co = 4, Ci = 4 or 3) run the same 64-channel tile: the
+// weights' columns past Co are zero (ldw pads Co to 16 bytes), the halo's
+// channels past Ci are zero-filled, and the store keeps channels < Co.
 //
 // Bound on the H100: operations. 2 * 27 * Ci * Co per voxel against
 // (Ci + Co) elements moved: at r32 C64 fp32 116 GFLOP over 67 TFLOP/s; at r16
@@ -52,8 +57,10 @@ __device__ lion::BrickPrologue prologue_of(const BrickConv& p, int b) {
 
 // bf16: two warpgroups over a brick of 2 PD x 8 x 8 voxels by 64 channels;
 // registers for kMinBlocks blocks per SM (2: a block's staging overlaps
-// another's products where a block has one chunk only).
-template <int PD, int kMinBlocks>
+// another's products where a block has one chunk only). kStats false is
+// K10 (p.stats is null): the same body, a distinct instance so that a
+// profile tells K10 from K4.
+template <int PD, int kMinBlocks, bool kStats>
 __global__ void __launch_bounds__(256, kMinBlocks)
 conv3d_brick_bf16(const BrickConv p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -128,9 +135,11 @@ LION_EXPORT int lion_conv3d_brick(const void* x, const void* w,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return lion::dispatch_bf16(bn, tile, min_blocks, [&](auto pd, auto mb) {
-      return lion::launch_smem(
-          conv3d_brick_bf16<decltype(pd)::value, decltype(mb)::value>, grid,
-          256, smem, s, p);
+      constexpr int PD = decltype(pd)::value, MB = decltype(mb)::value;
+      return stats ? lion::launch_smem(conv3d_brick_bf16<PD, MB, true>, grid,
+                                       256, smem, s, p)
+                   : lion::launch_smem(conv3d_brick_bf16<PD, MB, false>,
+                                       grid, 256, smem, s, p);
     });
   return stats ? launch_f32<true>(p, grid, bn, tile, smem, s)
                : launch_f32<false>(p, grid, bn, tile, smem, s);

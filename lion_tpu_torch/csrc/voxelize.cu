@@ -19,25 +19,22 @@
 // (B, r^3, C) output (134 MB at B = 16, r = 32, C = 64 in float32).
 // Design: two launches, no zero fill, no float atomics.
 //   1. vox_order: one block per item builds a stable cell order of its
-//      points. It counts the points of each cell with integer atomics (an
-//      integer sum does not depend on order) in shared memory, or in
-//      global memory when r^3 does not fit, takes the exclusive scan as the
-//      cells' offsets (B, r^3 + 1), and places the points 1024 at a time:
-//      a point goes to its cell's running cursor plus its rank among the
-//      lanes of its warp in the same cell (__match_any_sync), the warps
-//      taking turns in order, so each cell's slice of the (B, N) order
-//      lists its points in ascending order.
+//      points (stable_order.cuh: integer counts, their scan as the cells'
+//      offsets (B, r^3 + 1), each warp's peers by __match_any_sync), so
+//      each cell's slice of the (B, N) order lists its points in
+//      ascending order.
 //   2. vox_mean: a thread per (cell, group of V neighbouring channels; V = 4
 //      fp32 or 8 bf16 values, 16 bytes) sums the cell's rows in that order,
 //      divides and stores once; empty cells store 0. Neighbouring threads take neighbouring channels, so
 //      the stores (every output element exactly once) are coalesced.
 #include "common.cuh"
+#include "stable_order.cuh"
 
 namespace {
 
-constexpr int kOrderThreads = 1024;
 constexpr int kMeanThreads = 256;
 constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
+using lion::kOrderThreads;
 
 __device__ __forceinline__ int cell_of(const int* v, int r) {
   const int x = v[0], y = v[1], z = v[2];
@@ -45,86 +42,23 @@ __device__ __forceinline__ int cell_of(const int* v, int r) {
   return (x * r + y) * r + z;
 }
 
-// The counts' layout: one pad word after every 32 cells, so a lane that
-// walks its own run of 32 cells meets no bank conflict.
-__device__ __forceinline__ int padded(int cell) { return cell + (cell >> 5); }
-
-// Grid (B), kOrderThreads threads. The counts (padded, r^3 + r^3 / 32 + 1)
-// and the N cells live in shared memory (shared != 0) or in the global
-// scratch (B, padded r^3 + N) int32.
+// Grid (B), kOrderThreads threads: the stable cell order of each item's
+// points (stable_order.cuh). The counts and the N cells live in shared
+// memory (shared != 0) or in the global scratch (B, order_words) int32.
 __global__ void __launch_bounds__(kOrderThreads)
 vox_order_kernel(const int* __restrict__ vox, int n, int r, int shared,
                  int* __restrict__ scratch, int* __restrict__ offsets,
                  int* __restrict__ order) {
   extern __shared__ __align__(16) int smem[];
-  __shared__ int warp_total[kOrderThreads / 32];
   const int b = blockIdx.x;
-  const int r3 = r * r * r, r3p = padded(r3) + 1;
-  int* cnt = shared ? smem : scratch + static_cast<size_t>(b) * (r3p + n);
-  int* cells = cnt + r3p;
+  const int r3 = r * r * r;
+  int* cnt = shared ? smem
+                    : scratch + static_cast<size_t>(b) *
+                                    lion::order_words(n, r3);
   const int* vb = vox + static_cast<size_t>(b) * n * 3;
-  int* off = offsets + static_cast<size_t>(b) * (r3 + 1);
-  int* ord = order + static_cast<size_t>(b) * n;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int kWarps = kOrderThreads / 32;
-
-  for (int i = threadIdx.x; i < r3p; i += kOrderThreads) cnt[i] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kOrderThreads) {
-    const int cell = cell_of(vb + 3 * i, r);
-    cells[i] = cell;
-    if (cell >= 0) atomicAdd(cnt + padded(cell), 1);
-  }
-  __syncthreads();
-
-  // exclusive scan: thread t owns the run [t * per, (t + 1) * per)
-  const int per = (r3 + kOrderThreads - 1) / kOrderThreads;
-  const int lo = min(threadIdx.x * per, r3), hi = min(lo + per, r3);
-  int total = 0;
-  for (int i = lo; i < hi; ++i) total += cnt[padded(i)];
-  int inc = total;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, inc, d);
-    if (lane >= d) inc += v;
-  }
-  if (lane == 31) warp_total[warp] = inc;
-  __syncthreads();
-  int base = inc - total;
-  for (int w = 0; w < warp; ++w) base += warp_total[w];
-  for (int i = lo; i < hi; ++i) {  // the cursor starts at the offset
-    const int v = cnt[padded(i)];
-    cnt[padded(i)] = base;
-    base += v;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < r3; i += kOrderThreads) off[i] = cnt[padded(i)];
-  if (threadIdx.x == 0) {
-    int all = 0;
-    for (int w = 0; w < kWarps; ++w) all += warp_total[w];
-    off[r3] = all;
-  }
-  __syncthreads();
-
-  // stable placement in point order, 1024 points a round: every warp finds
-  // its lanes' peers (__match_any_sync) at once, then the warps take turns
-  // in warp order to read and move their cells' cursors
-  for (int i0 = 0; i0 < n; i0 += kOrderThreads) {
-    const int i = i0 + threadIdx.x;
-    const int cell = i < n ? cells[i] : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, cell);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    int at = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      if (warp == w) {
-        if (cell >= 0) at = cnt[padded(cell)];
-        __syncwarp();
-        if (cell >= 0 && rank == 0) cnt[padded(cell)] = at + __popc(peers);
-      }
-      __syncthreads();
-    }
-    if (cell >= 0) ord[at + rank] = i;
-  }
+  lion::stable_order([&](int i) { return cell_of(vb + 3 * i, r); }, n, r3,
+                     cnt, offsets + static_cast<size_t>(b) * (r3 + 1),
+                     order + static_cast<size_t>(b) * n);
 }
 
 template <typename T, int V>
@@ -201,14 +135,11 @@ cudaError_t launch_mean(const void* feats, const int* offsets,
 
 }  // namespace
 
-// Shared memory of vox_order for N points at resolution r: the padded
-// r^3 counts and the N cells, or 0 when they do not fit (they then live in the global
-// scratch). ops/voxel.py: vox_order_smem mirrors this.
+// Shared memory of vox_order for N points at resolution r, or 0 when its
+// words do not fit (they then live in the global scratch). ops/voxel.py:
+// vox_order_smem mirrors this.
 static int vox_order_smem(int n, int r) {
-  const long long r3 = static_cast<long long>(r) * r * r;
-  const long long bytes = (r3 + (r3 >> 5) + 1 + n) * 4;
-  return bytes + 4 * (kOrderThreads / 32) <= kSmemMax
-             ? static_cast<int>(bytes) : 0;
+  return lion::order_smem(n, r * r * r, kSmemMax);
 }
 
 // feats (B, N, C) f32 or bf16 (bf16 != 0), vox (B, N, 3) i32 -> out

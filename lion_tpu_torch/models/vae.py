@@ -10,7 +10,9 @@ tree, so the whole JAX VAE loads with a flatten (ckpt/from_jax.py).
 trains, in train mode (dropout, the PVConv modular flow on K10). The
 module's mode decides the flow, where the JAX methods take `train=`.
 The class-conditional decoder (`data.cond_on_cat`) is refused (ROADMAP
-Queue 1 item 12).
+Queue 1 item J2). Under `tpu.bf16` the encoder's and the decoder's U-Nets
+compute in bf16 (`compute_dtype`), in training too; the style encoder
+stays float32, as the JAX VAE builds it.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ class VAE(nn.Module):
         cfg = as_view(cfg)
         if cfg.data.cond_on_cat:
             raise NotImplementedError("class-conditional decoding is not "
-                                      "ported (ROADMAP Queue 1 item 12)")
+                                      "ported (ROADMAP Queue 1 item J2)")
         for name, want in (
                 (cfg.latent_pts.style_encoder, "PointNetPlusEncoder"),
                 (cfg.shapelatent.encoder_type, "PointTransPVC"),

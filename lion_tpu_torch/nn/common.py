@@ -16,7 +16,7 @@ generator's device, so one generator gives the same weights on any device.
 Train mode is `self.training`. `Dropout` draws its masks from a generator
 that the caller sets (`set_dropout_generator`), never from the global RNG.
 `Conv3dSame` has the fused eval call (no gradient) and the modular call
-(`modular`, the training conv with its gradient).
+(`modular`, the training conv with its gradient, in float32 or bf16).
 
 Compute dtype: modules built with `dtype=torch.bfloat16` compute in bf16
 while their parameters stay fp32, as the JAX package's `dtype` does. Dense
@@ -112,10 +112,13 @@ class Conv3dSame(nn.Module):
                                  pre_swish=pre_swish)
         return y, st, self.bias
 
-    def modular(self, x):
-        """conv3d_3x3_same(x, kernel) + bias in float32, with gradients
-        (lion_tpu/nn/common.py:129-136)."""
-        return conv3d_3x3_same(x, self.kernel) + self.bias
+    def modular(self, x, dtype: Optional[torch.dtype] = None):
+        """conv3d_3x3_same(x, kernel) + bias with gradients, in `dtype`
+        (None: x's): x and the kernel cast to it, the bias added in the
+        output's dtype (lion_tpu/nn/common.py:101, 129-136)."""
+        dt = dtype or x.dtype
+        y = conv3d_3x3_same(x.to(dt), self.kernel.to(dt))
+        return y + self.bias.to(y.dtype)
 
 
 class GNAffine(nn.Module):

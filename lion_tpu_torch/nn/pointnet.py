@@ -5,8 +5,9 @@ The SA block runs FPS, then either the fused bf16 kernel (K7, where
 `_fused_ok` holds: eval mode, lion_tpu/nn/pointnet.py:103-150) or the fused
 ball-query+group kernel and a SharedMLP, then a max over the neighbours.
 In train mode the second branch runs, with gradients through
-`ball_query_group`; the FP and A modules get theirs through
-`nearest_neighbor_interpolate` and plain PyTorch.
+`ball_query_group` (K2 in the features' dtype, fp32 or bf16); the FP and A
+modules get theirs through `nearest_neighbor_interpolate` and plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -114,13 +115,12 @@ class PointNetSAModule(nn.Module):
         centers = furthest_point_sample(xyz, self.num_centers)
         if self._fused_ok():
             return self._fused_branch(xyz, centers, features, style), centers
-        # K2 groups in fp32; the grouped rows take the features' dtype, as
-        # the JAX form concatenates them (lion_tpu/ops/points.py:183-190)
-        feats = features.float().contiguous()
+        # K2 emits the features' dtype, as the JAX form concatenates the
+        # rows (lion_tpu/ops/points.py:183-190)
+        feats = features.contiguous()
         outs = []
         for i, (r, k) in enumerate(zip(self.radius, self.num_neighbors)):
-            grouped = ball_query_group(xyz, centers, feats, r, k).to(
-                features.dtype)
+            grouped = ball_query_group(xyz, centers, feats, r, k)
             h = getattr(self, f"mlp{i}")(grouped, style)   # (B, M, K, C)
             outs.append(h.amax(dim=2))
         return torch.cat(outs, dim=-1), centers

@@ -1,10 +1,13 @@
 """Point-Voxel Convolution (port of lion_tpu/nn/pvconv.py).
 
 In train mode (`self.training`) the modular flow of the JAX module
-(lion_tpu/nn/pvconv.py:141-150), differentiable and in float32:
+(lion_tpu/nn/pvconv.py:141-150), differentiable:
   voxelize -> conv0 + b -> norm -> swish -> dropout -> conv1 + b -> norm
   -> SE -> devoxelize,
-with the convs on K10 (`Conv3dSame.modular`).
+with the convs on K10 (`Conv3dSame.modular`) in the compute dtype (bf16
+under `tpu.bf16`, else the features' dtype). As in the eval flow, each
+norm runs in float32 and is rounded once to the compute dtype after its
+swish or the SE gate, where the JAX module rounds after the norm too.
 
 In eval mode the eval ("fused") flow of the JAX module, with its three
 voxel branches (lion_tpu/nn/pvconv.py:56-128) kept as fixed shape
@@ -73,14 +76,12 @@ class PVConv(nn.Module):
                 self.vconv1.kernel.detach().to(dt))
 
     def _voxel_branch_train(self, features, xyz, style):
-        if self.dtype is not None:
-            raise NotImplementedError(
-                "bf16 training is not ported (ROADMAP Queue 1 item 10)")
-        r = self.resolution
-        grid, norm_coords = voxelize(features.float(), xyz, r)
-        h = swish(self.vnorm0(self.vconv0.modular(grid), style))
-        h = self.vconv1.modular(self.drop(h))
-        h = self.se(self.vnorm1(h, style))
+        r, dt = self.resolution, self.dtype or features.dtype
+        grid, norm_coords = voxelize(features, xyz, r)
+        h = self.vconv0.modular(grid, dt)
+        h = swish(self.vnorm0(h, style)).to(dt)
+        h = self.vconv1.modular(self.drop(h), dt)
+        h = self.se(self.vnorm1(h, style)).to(dt)
         return trilinear_devoxelize(h, norm_coords.contiguous(), r)
 
     def forward(self, features, coords, style=None):

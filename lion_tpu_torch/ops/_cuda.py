@@ -11,9 +11,10 @@ machines without nvcc.
 Every kernel has a wrapper made by `kernel(...)`. The wrapper runs the
 kernel's plain PyTorch version for a tensor on the CPU, launches the kernel
 for a CUDA tensor, and raises for any other device; there is no fallback
-from the card to the plain version. Each wrapper carries two plain counters:
-`launches` (kernel launches) and `plain_calls` (plain-version calls made by
-the wrapper), which `reset_counts` zeroes.
+from the card to the plain version. Each wrapper carries three plain
+counters, which `reset_counts` zeroes: `launches` (kernel launches),
+`launches_bf16` (those given a bfloat16 tensor) and `plain_calls`
+(plain-version calls made by the wrapper).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lion_fps": (_P, _P, _P, _I, _I, _I, _P),
     "lion_ball_query_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                              _I, _I, _P),
+                              _I, _I, _I, _P),
     "lion_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "lion_ball_query_group_cf": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                  _I, _I, _I, _I, _P),
@@ -56,6 +57,7 @@ _SIGNATURES = {
                                   _I, _P),
     "lion_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P),
+    "lion_row_sum": (_P,) * 6 + (_I,) * 5 + (_P,),
 }
 
 # name -> wrapper, in registration order (one entry per kernel)
@@ -230,9 +232,13 @@ def kernel(name: str, plain: Callable, source: str, replaces: str):
             with torch.cuda.device(dev):
                 out = launch_fn(*args, **kwargs)
             wrapper.launches += 1
+            if any(getattr(a, "dtype", None) == torch.bfloat16
+                   for a in args):
+                wrapper.launches_bf16 += 1
             return out
 
         wrapper.launches = 0
+        wrapper.launches_bf16 = 0
         wrapper.plain_calls = 0
         wrapper.plain = plain
         wrapper.source = source
@@ -245,6 +251,7 @@ def kernel(name: str, plain: Callable, source: str, replaces: str):
 def reset_counts() -> None:
     for w in KERNELS.values():
         w.launches = 0
+        w.launches_bf16 = 0
         w.plain_calls = 0
 
 
@@ -262,3 +269,15 @@ def no_tf32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = conv
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool = True):
+    """cuDNN's deterministic algorithms inside the block (when `on`); the
+    previous setting comes back after it."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev

@@ -18,6 +18,7 @@ import torch
 
 from ._cuda import no_tf32
 from .interpolate import _sq_norm
+from .rows import gather_rows
 
 
 def sqdist_unclamped(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -62,7 +63,7 @@ def chamfer_l1(a: torch.Tensor, b: torch.Tensor):
     d2 = sqdist_mm(a[..., :3], b[..., :3])
     idx_a = d2.argmin(dim=-1)
     idx_b = d2.argmin(dim=-2)
-    b_nn = torch.gather(b, 1, idx_a[:, :, None].expand(-1, -1, b.shape[-1]))
-    a_nn = torch.gather(a, 1, idx_b[:, :, None].expand(-1, -1, a.shape[-1]))
+    # the gathers' gradients sum in fixed order (rows.gather_rows)
+    b_nn, a_nn = gather_rows(b, idx_a), gather_rows(a, idx_b)
     return ((a - b_nn).abs().sum(dim=(-1, -2)),
             (b - a_nn).abs().sum(dim=(-1, -2)))

@@ -8,11 +8,17 @@ Kernels here:
   K8 `conv3d_pair` (csrc/conv3d_pair.cu): conv0 -> GroupNorm fold ->
      swish -> conv1 of a PVConv whose input width equals its output width.
   K10 `conv3d_3x3_same` (csrc/conv3d.cu): the training conv, bias-free,
-     float32, with a gradient (`conv3d_3x3_same`): dL/dx is K10 again on
-     the output gradient with flipped, channel-transposed weights, as the
-     JAX VJP computes it (conv3d.py:589-593); dL/dw is cuDNN's weight
-     gradient in full float32, where the JAX package leaves it to XLA
-     (conv3d.py:594-600).
+     in float32 (exact FFMA) or bfloat16 (wgmma, products summed in
+     float32, y rounded once), with a gradient (`conv3d_3x3_same`): dL/dx
+     is K10 again on the output gradient with flipped, channel-transposed
+     weights in the gradient's dtype, as the JAX VJP computes it
+     (conv3d.py:589-593); dL/dw is cuDNN's weight gradient in full float32
+     from the float32 x and g, where the JAX package leaves it to XLA,
+     rounded to w's dtype as the JAX VJP rounds it (conv3d.py:594-600). The
+     weight gradient runs with cuDNN's deterministic algorithms
+     (`DETERMINISTIC_WGRAD`): its default at some stage-1 shapes adds with
+     atomics and a step would not repeat bit for bit; the deterministic
+     choice cost ~3% of its time on the H100.
 
 K4: y = conv3d_SAME(swish?(x * in_scale + in_bias), w), bias-free, plus the
 per-channel statistics stats[b] = (sum of y, sum of y^2) over the grid, which
@@ -38,10 +44,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._cuda import (check_cuda, check_float, kernel, launch, no_tf32, ptr,
-                    stream_of)
+from ._cuda import (check_cuda, check_float, cudnn_deterministic, kernel,
+                    launch, no_tf32, ptr, stream_of)
 
 GN_GROUPS, GN_EPS = 8, 1e-5
+# K10's weight gradient on cuDNN's deterministic algorithms (profile_step
+# --repeat turns it off to measure what it costs and what it fixes)
+DETERMINISTIC_WGRAD = True
 
 # The halo-brick kernels of K4 and K10 (csrc/conv_brick.cuh): shared memory
 # a block may use on the H100 and an SM holds (1 KB of it reserved per
@@ -254,24 +263,28 @@ def conv3d_3x3_fused(x: torch.Tensor, w: torch.Tensor,
 
 
 def _conv3d_3x3_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
-                 padding=1)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    """In float32, rounded once to x's dtype (the XLA form's
+    preferred_element_type, conv3d.py:575-579)."""
+    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3),
+                 w.float().permute(4, 3, 0, 1, 2), padding=1)
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
 @kernel("conv3d_3x3_same", _conv3d_3x3_same_plain,
         "lion_tpu_torch/csrc/conv3d.cu",
         "lion_tpu/ops/pallas/conv3d.py:557")
 def conv3d_3x3_same_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, R, R, R, Ci), w (3, 3, 3, Ci, Co) f32 -> (B, R, R, R, Co) f32,
-    bias-free."""
-    check_cuda(x, w)
+    """x (B, R, R, R, Ci), w (3, 3, 3, Ci, Co) of one dtype (f32 or bf16)
+    -> (B, R, R, R, Co) of that dtype, bias-free: the brick's fp32 tile,
+    or its bf16 wgmma tile without prologue or statistics."""
+    dt = check_float(x, "conv3d_3x3_same")
+    check_cuda(x, w, dtype=dt)
     b, r = x.shape[0], x.shape[1]
     ci, co = w.shape[3], w.shape[4]
     if x.shape[1:] != (r, r, r, ci) or w.shape[:3] != (3, 3, 3):
         raise ValueError(f"conv3d_3x3_same: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
-    y = torch.empty((b, r, r, r, co), device=x.device)
+    y = torch.empty((b, r, r, r, co), device=x.device, dtype=dt)
     _launch_brick(x, w, None, None, y, None, False)
     return y
 
@@ -282,7 +295,8 @@ class _Conv3dSame(torch.autograd.Function):
     create_graph (the Jacobian regularizer's J^T v) is itself
     differentiable: the kernel's raw launch is invisible to autograd, and
     a direct call would drop every second-order term through the conv.
-    dw is cuDNN's weight gradient, which autograd differentiates."""
+    dw is cuDNN's weight gradient in float32 on its deterministic
+    algorithms, which autograd differentiates, returned in w's dtype."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -298,18 +312,19 @@ class _Conv3dSame(torch.autograd.Function):
             w_flip = w.flip(0, 1, 2).transpose(3, 4).contiguous()
             dx = _Conv3dSame.apply(g, w_flip)
         if ctx.needs_input_grad[1]:
-            with no_tf32():
+            with no_tf32(), cudnn_deterministic(DETERMINISTIC_WGRAD):
                 dw = torch.nn.grad.conv3d_weight(
-                    x.permute(0, 4, 1, 2, 3), tuple(w.permute(4, 3, 0, 1, 2)
-                                                    .shape),
-                    g.permute(0, 4, 1, 2, 3), padding=1)
-            dw = dw.permute(2, 3, 4, 1, 0)
+                    x.float().permute(0, 4, 1, 2, 3),
+                    tuple(w.permute(4, 3, 0, 1, 2).shape),
+                    g.float().permute(0, 4, 1, 2, 3), padding=1)
+            dw = dw.permute(2, 3, 4, 1, 0).to(w.dtype)
         return dx, dw
 
 
 def conv3d_3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The training conv with its gradient: x (B, R, R, R, Ci),
-    w (3, 3, 3, Ci, Co) f32 -> (B, R, R, R, Co) f32, bias-free."""
+    w (3, 3, 3, Ci, Co) of one dtype (f32 or bf16) -> (B, R, R, R, Co) of
+    that dtype, bias-free."""
     return _Conv3dSame.apply(x.contiguous(), w.contiguous())
 
 

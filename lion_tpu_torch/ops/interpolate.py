@@ -7,9 +7,10 @@ Kernel here:
      blocks.
 
 `nearest_neighbor_interpolate` has a gradient to the centers' features
-only, as the JAX VJP (lion_tpu/ops/interpolate.py:51-81): a scatter-add of
-g * w through the (idx, w) that the forward returned, with no distance
-matrix.
+only, as the JAX VJP (lion_tpu/ops/interpolate.py:51-81): the sum of
+g * w into each center through the (idx, w) that the forward returned,
+with no distance matrix, in a fixed order (`rows.scatter_rows`: float32,
+rounded once to the features' dtype).
 
 The plain version evaluates the distances and the weighted sum op by op in
 the order the kernel uses with unfused arithmetic, so both pick the same
@@ -24,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
+from .rows import scatter_rows
 
 
 def _sq_norm(p: torch.Tensor) -> torch.Tensor:
@@ -157,9 +159,7 @@ class _NearestNeighborInterpolate(torch.autograd.Function):
         idx, w = ctx.saved_tensors
         b, n, c = g.shape
         rows = (g.float()[:, :, None, :] * w[..., None]).reshape(b, n * 3, c)
-        flat = idx.reshape(b, n * 3).long()
-        gf = torch.zeros((b, ctx.m, c), device=g.device).scatter_add_(
-            1, flat[:, :, None].expand(-1, -1, c), rows)
+        gf = scatter_rows(idx.reshape(b, n * 3), rows, ctx.m)
         return None, None, gf.to(ctx.dtype)
 
 

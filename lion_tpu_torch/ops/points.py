@@ -6,7 +6,8 @@ Kernels here:
   K1 `fps` (csrc/fps.cu): furthest point sampling, indices and the picked
      coords in one launch.
   K2 `ball_query_group` (csrc/ball_query_group.cu): ball query fused with
-     the grouping gather; `bqg_plan` sizes its blocks.
+     the grouping gather, fp32 or bf16 features; `bqg_plan` sizes its
+     blocks.
   K11 `ball_query` (csrc/ball_query.cu): the index-only ball query;
      `bq_plan` sizes its blocks.
   K13 `ball_query_group_cf` (csrc/ball_query_group_cf.cu): K2 with the
@@ -17,8 +18,10 @@ its own epilogue.
 
 `ball_query_group` has a gradient: its backward recomputes the indices
 with K11, as the JAX VJP replays `ball_query` (lion_tpu/ops/points.py:
-241-254), and scatter-adds the output gradient into the features, the
-point coordinates and (negated, summed over K) the centers.
+241-254), and sums the output gradient's rows into the point coordinates
+and the features in a fixed order (`rows.scatter_rows`, one row sum for
+both) and, negated and summed over K, into the centers; each gradient in
+its input's dtype.
 `ball_query_group_cf` permutes its gradient to the row layout and runs the
 same backward.
 
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
+from .rows import scatter_rows
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -306,11 +310,13 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
 # --------------------------------------------------------------------------
 def _ball_query_group_plain(points_coords, centers_coords, points_features,
                             radius: float, num_neighbors: int):
+    """The rows in the features' dtype: point - center in fp32 rounded
+    once, the features gathered exactly."""
     idx = _ball_query_plain(centers_coords, points_coords, radius,
                             num_neighbors)
     rel = grouping(points_coords.float(), idx) - centers_coords[:, :, None, :]
-    feats = grouping(points_features.float(), idx)
-    return torch.cat([rel, feats], dim=-1)
+    feats = grouping(points_features, idx)
+    return torch.cat([rel.to(feats.dtype), feats], dim=-1)
 
 
 @kernel("ball_query_group", _ball_query_group_plain,
@@ -320,28 +326,23 @@ def ball_query_group_kernel(points_coords: torch.Tensor,
                      centers_coords: torch.Tensor,
                      points_features: torch.Tensor, radius: float,
                      num_neighbors: int) -> torch.Tensor:
-    """points (B, N, 3), centers (B, M, 3), features (B, N, C) ->
-    (B, M, K, 3 + C): [center-relative xyz ++ features] per neighbour."""
-    check_cuda(points_coords, centers_coords, points_features)
+    """points (B, N, 3), centers (B, M, 3) f32, features (B, N, C) f32 or
+    bf16 -> (B, M, K, 3 + C) of the features' dtype: [center-relative xyz
+    (fp32, rounded once) ++ features (exact)] per neighbour."""
+    dt = check_float(points_features, "ball_query_group")
+    check_cuda(points_coords, centers_coords)
+    check_cuda(points_features, dtype=dt, device=points_coords.device)
     b, n, _ = points_coords.shape
     m = centers_coords.shape[1]
     c = points_features.shape[-1]
     k = num_neighbors
     cpb, threads, tile, _ = bqg_plan(b, n, m, c, k)
-    out = torch.empty((b, m, k, 3 + c), device=points_coords.device)
+    out = torch.empty((b, m, k, 3 + c), dtype=dt, device=points_coords.device)
     launch("lion_ball_query_group", ptr(points_coords), ptr(centers_coords),
-           ptr(points_features), ptr(out), b, n, m, c, k, _r2(radius), cpb,
-           threads, tile, stream_of(points_coords))
+           ptr(points_features), ptr(out), b, n, m, c, k, _r2(radius),
+           int(dt == torch.bfloat16), cpb, threads, tile,
+           stream_of(points_coords))
     return out
-
-
-def _scatter_rows(idx: torch.Tensor, rows: torch.Tensor, n: int):
-    """idx (B, R) long, rows (B, R, C) -> (B, n, C) float32 with
-    out[b, idx[b, r]] += rows[b, r] (the transpose of a row gather)."""
-    b, _, c = rows.shape
-    out = rows.new_zeros((b, n, c), dtype=torch.float32)
-    return out.scatter_add_(1, idx[:, :, None].expand(-1, -1, c),
-                            rows.float())
 
 
 class _BallQueryGroup(torch.autograd.Function):
@@ -362,18 +363,19 @@ class _BallQueryGroup(torch.autograd.Function):
         points_coords, centers_coords = ctx.saved_tensors
         b, n, _ = points_coords.shape
         m, k = centers_coords.shape[1], ctx.k
-        idx = ball_query(centers_coords, points_coords, ctx.radius,
-                         k).reshape(b, m * k).long()
         gp = gc = gf = None
-        g_xyz = g[..., :3]
-        if ctx.needs_input_grad[0]:
-            gp = _scatter_rows(idx, g_xyz.reshape(b, m * k, 3), n).to(
-                ctx.dtypes[0])
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[2]:
+            idx = ball_query(centers_coords, points_coords, ctx.radius,
+                             k).reshape(b, m * k)
+            # one fixed-order sum of the whole rows: the coordinates'
+            # columns and the features' are summed apart, in the same order
+            rows = scatter_rows(idx, g.reshape(b, m * k, 3 + ctx.n_feat), n)
+            if ctx.needs_input_grad[0]:
+                gp = rows[..., :3].to(ctx.dtypes[0])
+            if ctx.needs_input_grad[2]:
+                gf = rows[..., 3:].to(ctx.dtypes[2])
         if ctx.needs_input_grad[1]:
-            gc = (-g_xyz.float().sum(dim=2)).to(ctx.dtypes[1])
-        if ctx.needs_input_grad[2]:
-            gf = _scatter_rows(idx, g[..., 3:].reshape(b, m * k, ctx.n_feat),
-                               n).to(ctx.dtypes[2])
+            gc = (-g[..., :3].float().sum(dim=2)).to(ctx.dtypes[1])
         return gp, gc, gf, None, None
 
 

@@ -17,8 +17,11 @@ each corner weight to the grid's dtype, as the JAX form casts its weights
 `avg_voxelize` and `trilinear_devoxelize` have gradients to the features
 and the grid, and none to the coordinates, as the JAX VJPs replay their
 XLA forms (lion_tpu/ops/voxel.py:149-161,208-218): voxelize's is a gather
-of g / count per point, devoxelize's a scatter-add of the 8 weighted
-corners into the grid's gradient.
+of g / count per point, devoxelize's the sum of the 8 weighted corners
+into the grid's gradient, in a fixed order (`rows.scatter_rows`: float32,
+rounded once to the grid's dtype). Both stay in fixed order through a
+second derivative (`rows.gather_rows` and `scatter_rows` are each other's
+gradient).
 
 A cloud whose coordinates are not finite (a model whose latents
 overflowed) normalizes to NaN. Its points land in voxel (0, 0, 0): XLA and
@@ -34,6 +37,8 @@ import functools
 import torch
 
 from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
+from .rows import SMEM_MAX  # noqa: F401 (K3's order shares the row sum's)
+from .rows import gather_rows, order_smem, order_words, scatter_rows
 
 
 def normalize_coords(coords: torch.Tensor, resolution: int) -> torch.Tensor:
@@ -79,21 +84,11 @@ def _avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
     return grid.reshape(b, r, r, r, c).to(features.dtype)
 
 
-SMEM_MAX = 232448   # a block's shared memory on the H100
-
-
-def _order_words(n: int, r: int) -> int:
-    """The ordering launch's counts (one pad word after every 32 cells, and
-    one at the end) and the N cells, in int32 words."""
-    return r ** 3 + (r ** 3 >> 5) + 1 + n
-
-
 def vox_order_smem(n: int, r: int) -> int:
     """Shared memory of K3's ordering launch (csrc/voxelize.cu
-    vox_order_smem), or 0 when its words do not fit and live in a global
-    scratch."""
-    need = _order_words(n, r) * 4
-    return need if need + 4 * 32 <= SMEM_MAX else 0
+    vox_order_smem: the stable order of N points into r^3 cells), or 0
+    when its words do not fit and live in a global scratch."""
+    return order_smem(n, r ** 3)
 
 
 @kernel("avg_voxelize", _avg_voxelize_plain,
@@ -116,7 +111,7 @@ def avg_voxelize_kernel(features: torch.Tensor, vox_coords: torch.Tensor,
     # one int32 scratch: offsets (B, r^3 + 1), order (B, N) and, when the
     # ordering launch's words do not fit in shared memory, their room
     words = b * (r ** 3 + 1 + n)
-    extra = 0 if vox_order_smem(n, r) else b * _order_words(n, r)
+    extra = 0 if vox_order_smem(n, r) else b * order_words(n, r ** 3)
     scratch = torch.empty(words + extra, dtype=torch.int32, device=dev)
     base = scratch.data_ptr()
     out = torch.empty((b, r, r, r, c), dtype=dt, device=dev)
@@ -142,8 +137,7 @@ class _AvgVoxelize(torch.autograd.Function):
         flat = _flat_cells(vox_coords, r)
         count = torch.zeros((b, r ** 3), device=g.device).scatter_add_(
             1, flat, torch.ones_like(flat, dtype=torch.float32))
-        rows = torch.gather(g.reshape(b, r ** 3, c).float(), 1,
-                            flat[:, :, None].expand(-1, -1, c))
+        rows = gather_rows(g.reshape(b, r ** 3, c).float(), flat)
         gf = rows / torch.gather(count, 1, flat)[:, :, None]
         return gf.to(ctx.dtype), None, None
 
@@ -275,8 +269,7 @@ class _TrilinearDevoxelize(torch.autograd.Function):
         idx = torch.cat([i for i, _ in corners], dim=1)       # (B, 8N)
         w = torch.cat([w for _, w in corners], dim=1)
         rows = g.float().repeat(1, 8, 1) * w[:, :, None]
-        grad = torch.zeros((b, r ** 3, c), device=g.device).scatter_add_(
-            1, idx[:, :, None].expand(-1, -1, c), rows)
+        grad = scatter_rows(idx, rows, r ** 3)
         return grad.reshape(b, r, r, r, c).to(ctx.dtype), None, None
 
 

@@ -3,6 +3,8 @@ two training steps, on one GPU.
 
     python -m lion_tpu_torch.profile_step [--batch 4] [--steps 5] [--bf16]
     python -m lion_tpu_torch.profile_step --train [--batch 16] [--steps 3]
+        [--bf16]
+    python -m lion_tpu_torch.profile_step --repeat
     python -m lion_tpu_torch.profile_step --convs [--batch 16]
     python -m lion_tpu_torch.profile_step --split [--batch 16] [--only K5,K12]
     python -m lion_tpu_torch.profile_step --given-noise PATH
@@ -19,14 +21,27 @@ step, the device's busy share (device time over wall time; the step runs on
 one stream) and the device time by kernel name, largest first.
 
 With --train it profiles `--steps` calls of `make_prior_train_step` (fp32,
-dropout on) in three windows: the frozen encode alone, the loss forward
-alone, and the whole step. K10's forward time is its time in the forward
-window; K10-dx is the rest of its time in the step (the same kernel runs
-both); the encode's kernels are those of the encode window. Then the
-stage-1 step (`make_vae_train_step` on the flagship VAE, `l1_sum`, dropout
-on, the KL anneal) at its released batch of 32 in two windows, the loss
-forward and the whole step, with its peak device memory and the step's
-wall without the profiler.
+or bf16 under --bf16 (tpu.bf16); dropout on) in three windows: the frozen
+encode alone, the loss forward alone, and the whole step. K10's forward
+time is its time in the forward window; K10-dx is the rest of its time in
+the step (the same kernel runs both); the encode's kernels are those of
+the encode window. Then the stage-1 step (`make_vae_train_step` on the
+flagship VAE, `l1_sum`, dropout on, the KL anneal; bf16 under --bf16) at
+its released batch of 32 in two windows, the loss forward and the whole
+step, with its peak device memory and the step's wall without the
+profiler. Each step's wall without the profiler and its peak are also
+printed for the two-prior step.
+
+With --repeat it runs one step of each training step twice from the same
+state and draws (a fresh flagship model from one seed, one generator
+seed): the fp32 two-prior step at batch 16, the fp32 stage-1 step at 32,
+the fp32 weighted step (the continuous objective with SN, Jacobian and
+kinetic terms) at 16, and the bf16 two-prior and stage-1 steps; it prints
+whether the updated parameters and EMA are equal bit for bit (and which
+tensors differ), with K10's weight gradient on cuDNN's default algorithms
+and again on its deterministic ones (`ops.conv3d.DETERMINISTIC_WGRAD`, the
+port's setting); then the stage-1 step's device ms of cuDNN's weight
+gradient and of the whole step, in both settings.
 
 With --convs it prints the device ms per call of every K4 and K10 case of
 `chip_smoke.py` phase 3 and of cuDNN's conv on the same inputs (bf16 in
@@ -112,6 +127,7 @@ _OURS = {"fps_kernel": "fps", "bqg_kernel": "ball_query_group",
          "pair_conv0_brick": "conv3d_pair",
          "pair_conv1_brick": "conv3d_pair", "pair_fold_kernel": "conv3d_pair",
          "pvblock_brick": "pvconv_block_pair", "bq_kernel": "ball_query",
+         "row_order_kernel": "row_sum", "row_sum_kernel": "row_sum",
          "bqg_cf_kernel": "ball_query_group_cf"}
 # K4's cases (r, ci, co, dtype, affine + swish prologue): fp32, the encode's
 # and the fp32 path's widest convs; bf16, every (r, ci, co) of the bf16
@@ -137,12 +153,12 @@ STAGE1_K10_CASES = ((32, 3, 32), (32, 32, 32), (16, 32, 32), (16, 64, 64),
                     (8, 128, 128), (16, 128, 128))
 STAGE1_K10_DX = ((32, 32, 4),)
 VAE_BATCH = 32   # stage 1's released batch a GPU (script/train_vae.sh)
-# K4's fp32 kernel without statistics is K10 (the training conv)
-_K10 = ("conv3d_brick_f32<", ", false>")
+# K4's kernels without statistics are K10 (the training conv), fp32 and bf16
+_K10 = ("conv3d_brick_f32<", "conv3d_brick_bf16<")
 
 
 def _group(name: str) -> str:
-    if all(part in name for part in _K10):
+    if any(k in name for k in _K10) and ", false>" in name:
         return "K conv3d_3x3_same"
     for k, v in _OURS.items():
         if k in name:
@@ -190,19 +206,162 @@ def _device_groups(fn, steps: int):
     return start.elapsed_time(end) / steps, groups
 
 
-def profile_train(batch: int, steps: int) -> None:
+def weighted_cfg(cfg):
+    """The weighted objective on the continuous diffusion with every
+    regularizer at tests/test_regularization.py's values (_reg_cfg,
+    _jackin_cfg): ll_iw, mixed prediction, SN and norm scale at 1e-2, the
+    Jacobian term with 2 probes and the kinetic term at 1."""
+    cfg.sde.ode_sample = 1
+    cfg.sde.iw_sample_p = "ll_iw"
+    cfg.latent_pts.pvd_mse_loss = 0
+    cfg.sde.mixed_prediction = True
+    cfg.sde.weight_decay_norm_dae = 1e-2
+    cfg.sde.regularize_mlogit_margin = 1.0
+    cfg.sde.bound_mlogit_value = -5.42
+    cfg.sde.jac_reg_coeff = 1.0
+    cfg.sde.kin_reg_coeff = 1.0
+    cfg.sde.jac_reg_samples = 2
+    return cfg
+
+
+def stage1_batch(batch: int, num_points: int) -> torch.Tensor:
+    """Shapes as the stage-1 loader gives them: random ellipsoid shells,
+    each recentred on its bounding box and scaled into [-1, 1]
+    (data/shapenet.py, recenter_per_shape), from seed 41, on the card."""
+    rs = np.random.RandomState(41)
+    v = rs.randn(batch, num_points, 3)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    v = v * rs.uniform(0.2, 0.5, (batch, 1, 3)) \
+        + 0.01 * rs.randn(batch, num_points, 3)
+    lo, hi = v.min(axis=1, keepdims=True), v.max(axis=1, keepdims=True)
+    v = (v - (lo + hi) / 2) / ((hi - lo).max(axis=-1, keepdims=True) / 2)
+    return torch.from_numpy(v.astype(np.float32)).cuda()
+
+
+def damp_style_head(vae) -> None:
+    """The style posterior's head (the style encoder's last dense layer)
+    times 0.01."""
+    with torch.no_grad():
+        vae.style_encoder.mlp.kernel.mul_(0.01)
+        vae.style_encoder.mlp.bias.mul_(0.01)
+
+
+def train_step_of(kind: str, bf16: bool, batch: int):
+    """(step, parameter names, x, generator) of a flagship training step on
+    the card, built from seed 0: the two-prior step ("prior",
+    scripts/profile_train_step.py's schedule; a generator seeded 21), its
+    weighted form ("weighted", `weighted_cfg`) or the stage-1 VAE step
+    ("vae", `l1_sum`, the KL anneal, on `stage1_batch`; seeded 22);
+    tpu.bf16 = bf16. The VAE's style posterior head starts damped by 0.01,
+    as lion_tpu's bf16 trainer test damps it (tests/test_trainers.py:
+    482-491): at random weights its log sigma can overflow exp() for some
+    clouds, and the step's loss turns non-finite in either package."""
     from .config import flagship_cfg
     from .models import LION
-    from .trainers import (make_prior_train_step, prior_loss,
+    from .models.vae import VAE
+    from .nn import init_weights
+    from .trainers import (make_prior_train_step, make_vae_train_step,
                            warmup_cosine_schedule)
-    lion = LION(flagship_cfg()).init_params(torch.Generator().manual_seed(0))
+    cfg = flagship_cfg()
+    cfg.tpu.bf16 = bf16
+    if kind == "vae":
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        cfg.ddpm.loss_type = "l1_sum"
+        cfg.trainer.anneal_kl = 1
+        with torch.device("cuda"):
+            vae = VAE(cfg)
+        init_weights(vae, torch.Generator().manual_seed(0))
+        damp_style_head(vae)
+        step = make_vae_train_step(vae, num_total_iter=1000)
+        names = [n for n, _ in vae.named_parameters()]
+        return step, names, stage1_batch(batch, vae.num_points), gen
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    if kind == "weighted":
+        cfg = weighted_cfg(cfg)
+    lion = LION(cfg).init_params(torch.Generator().manual_seed(0))
     step = make_prior_train_step(
         lion, warmup_cosine_schedule(2e-4, 2e-4, 10, 10, 1, 10))
-    gen = torch.Generator(device="cuda").manual_seed(21)
+    names = [f"{p}.{k}" for p in ("global_prior", "local_prior")
+             for k, _ in getattr(lion, p).named_parameters()]
     x = torch.randn(batch, lion.num_points, 3, generator=gen,
                     device="cuda") * 0.3
+    return step, names, x, gen
+
+
+def step_twice(kind: str, bf16: bool, batch: int):
+    """One step of `train_step_of(kind, bf16, batch)` on two fresh copies
+    -> (the names of the parameters or EMA tensors that differ, the two
+    losses). Raises when a loss is not finite (NaN is never equal)."""
+    runs = []
+    for _ in range(2):
+        step, names, x, gen = train_step_of(kind, bf16, batch)
+        loss = float(step(x, gen)["loss"])
+        if not np.isfinite(loss):
+            raise SystemExit(f"profile_step: {kind} step's loss is {loss}")
+        runs.append(([p.detach().clone() for p in step.params],
+                     [e.clone() for e in step.ema.shadow], loss))
+        del step, x
+    torch.cuda.synchronize()
+    (p0, e0, l0), (p1, e1, l1) = runs
+    differ = [n for n, a, b in zip(names, p0, p1) if not torch.equal(a, b)]
+    differ += [f"ema {n}" for n, a, b in zip(names, e0, e1)
+               if not torch.equal(a, b)]
+    return differ, (l0, l1)
+
+
+REPEAT_CASES = (("prior", False, 16), ("vae", False, 32),
+                ("weighted", False, 16), ("prior", True, 16),
+                ("vae", True, 32))
+
+
+def repeat_steps(only=None) -> None:
+    """`only`: the kinds of REPEAT_CASES to run (all by default)."""
+    from .ops import conv3d
+    print(f"[setup] {torch.cuda.get_device_name(0)}, each training step "
+          f"twice from the same state and draws")
+    for deterministic in (False, True):
+        # K10's weight gradient on cuDNN's default algorithms, then on its
+        # deterministic ones (the port's setting)
+        conv3d.DETERMINISTIC_WGRAD = deterministic
+        for kind, bf16, batch in REPEAT_CASES:
+            if only and kind not in only:
+                continue
+            differ, losses = step_twice(kind, bf16, batch)
+            print(f"[repeat] deterministic wgrad {deterministic}: {kind} "
+                  f"{'bf16' if bf16 else 'fp32'} B{batch}: "
+                  f"{'bit-equal' if not differ else 'DIFFERS'}; losses "
+                  f"{losses}; {len(differ)} tensors differ"
+                  + (f" (first: {differ[:6]})" if differ else ""))
+        step, _, x, gen = train_step_of("vae", False, 32)
+        wall, groups = _device_groups(lambda: step(x, gen), 2)
+        wgrad = groups.get("cuDNN wgrad", [0.0, 0])
+        print(f"[repeat] deterministic wgrad {deterministic}: stage-1 fp32 "
+              f"B32 step: wall {wall:.3f} ms, device "
+              f"{sum(v[0] for v in groups.values()):.3f} ms, cuDNN wgrad "
+              f"{wgrad[0]:.3f} ms in {wgrad[1]} launches")
+        del step, x
+    conv3d.DETERMINISTIC_WGRAD = True
+
+
+def profile_train(batch: int, steps: int, bf16: bool = False) -> None:
+    from .trainers import prior_loss
+    step, _, x, gen = train_step_of("prior", bf16, batch)
+    lion = step.lion
     print(f"[setup] {torch.cuda.get_device_name(0)}, train step, batch "
-          f"{batch}, fp32, {steps} profiled steps per window")
+          f"{batch}, {'bf16' if bf16 else 'fp32'}, {steps} profiled steps "
+          f"per window")
+    for _ in range(2):
+        step(x, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(x, gen)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / steps * 1e3
+    print(f"[train] step without the profiler: {plain_wall:.3f} ms, "
+          f"{batch / plain_wall * 1e3:.3f} samples/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
     lion.vae.eval()   # frozen, as the step runs it
 
@@ -237,34 +396,14 @@ def profile_train(batch: int, steps: int) -> None:
         print(f"[train]   {ms:8.3f} ms  {n:5d} ops  {name} (whole step)")
 
 
-def profile_vae_train(batch: int, steps: int) -> None:
-    from .config import flagship_cfg
-    from .models.vae import VAE
-    from .nn import init_weights
-    from .trainers import make_vae_train_step
-    cfg = flagship_cfg()
-    cfg.ddpm.loss_type = "l1_sum"
-    cfg.trainer.anneal_kl = 1
-    with torch.device("cuda"):
-        vae = VAE(cfg)
-    init_weights(vae, torch.Generator().manual_seed(0))
-    step = make_vae_train_step(vae, num_total_iter=1000)
-    gen = torch.Generator(device="cuda").manual_seed(22)
-    # shapes as the stage-1 loader gives them: random ellipsoid shells, each
-    # recentred on its bounding box and scaled into [-1, 1]
-    # (data/shapenet.py, recenter_per_shape). At random weights some
-    # clouds overflow the VAE's latents (sigma = exp(log_sigma) > 3e38);
-    # such a step is non-finite in the JAX package too, and is refused here
-    rs = np.random.RandomState(41)
-    v = rs.randn(batch, vae.num_points, 3)
-    v /= np.linalg.norm(v, axis=-1, keepdims=True)
-    v = v * rs.uniform(0.2, 0.5, (batch, 1, 3)) \
-        + 0.01 * rs.randn(batch, vae.num_points, 3)
-    lo, hi = v.min(axis=1, keepdims=True), v.max(axis=1, keepdims=True)
-    v = (v - (lo + hi) / 2) / ((hi - lo).max(axis=-1, keepdims=True) / 2)
-    x = torch.from_numpy(v.astype(np.float32)).cuda()
+def profile_vae_train(batch: int, steps: int, bf16: bool = False) -> None:
+    # At random weights some clouds overflow the VAE's latents (sigma =
+    # exp(log_sigma) > 3e38); such a step is non-finite in the JAX package
+    # too, and is refused here
+    step, _, x, gen = train_step_of("vae", bf16, batch)
     print(f"[setup] {torch.cuda.get_device_name(0)}, stage-1 VAE step, "
-          f"batch {batch}, fp32, {steps} profiled steps per window")
+          f"batch {batch}, {'bf16' if bf16 else 'fp32'}, {steps} profiled "
+          f"steps per window")
 
     def forward():
         step.loss(x, gen)
@@ -669,7 +808,7 @@ def profile_plans(batch: int, steps: int, source=None, only=None) -> None:
         (b, n, _), m, ch = p.shape, c.shape[1], f.shape[2]
         out = torch.empty(b, m, k, 3 + ch, device="cuda")
         return out, entry("lion_ball_query_group", ptr(p), ptr(c), ptr(f),
-                          ptr(out), b, n, m, ch, k, _r2(r), *plan,
+                          ptr(out), b, n, m, ch, k, _r2(r), 0, *plan,
                           stream_of(p))
 
     print(f"[setup] {torch.cuda.get_device_name(0)}, batch {batch}, "
@@ -1034,7 +1173,12 @@ def main(argv=None):
                     help="the bf16 configuration (tpu.bf16 = True)")
     ap.add_argument("--train", action="store_true",
                     help="profile the two-prior and the stage-1 VAE "
-                    "training steps (fp32)")
+                    "training steps (fp32, or bf16 with --bf16)")
+    ap.add_argument("--repeat", action="store_true",
+                    help="each training step twice from the same state: "
+                    "bit-equal?, with K10's wgrad on cuDNN's default and "
+                    "deterministic algorithms, and "
+                    "the cost of cuDNN's weight gradient")
     ap.add_argument("--convs", action="store_true",
                     help="device ms of every K4 / K10 case and cuDNN's conv")
     ap.add_argument("--split", action="store_true",
@@ -1044,7 +1188,8 @@ def main(argv=None):
     ap.add_argument("--only", default=None,
                     help="with --split: the cases whose labels start with "
                     "one of these comma-separated prefixes (e.g. 'K5,K12'); "
-                    "with --plans: the kernels named (e.g. 'K11,K13')")
+                    "with --plans: the kernels named (e.g. 'K11,K13'); "
+                    "with --repeat: the steps named (prior, vae, weighted)")
     ap.add_argument("--given-noise", metavar="PATH", default=None,
                     help="write the 10-step given_noise samples of both "
                     "paths to PATH, or compare them with it bit for bit")
@@ -1066,8 +1211,11 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.train:
-        profile_train(args.batch, args.steps)
-        profile_vae_train(VAE_BATCH, args.steps)
+        profile_train(args.batch, args.steps, args.bf16)
+        profile_vae_train(VAE_BATCH, args.steps, args.bf16)
+        return
+    if args.repeat:
+        repeat_steps(args.only.split(",") if args.only else None)
         return
     if args.convs:
         profile_convs(args.batch, args.steps)

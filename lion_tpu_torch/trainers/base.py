@@ -58,13 +58,24 @@ def _validate_semantic_knobs(cfg):
             "never consumed); sampling proceeds unchanged", stacklevel=2)
 
 
+def map_autocast_train(cfg) -> None:
+    """sde.autocast_train, the reference's mixed precision, is the bf16
+    compute path: set tpu.bf16 before any model is built, as
+    lion_tpu/trainers/base.py:77-84 does (bf16 keeps float32's exponent
+    range, so no gradient scaler)."""
+    if cfg.sde.autocast_train and not cfg.tpu.bf16:
+        cfg.tpu.bf16 = True
+
+
 class BaseTrainer:
     """`cfg` is the config tree, `args` carries `save_dir` and `data_root`
     (either may be None); the trainer runs on `device`, the card unless
-    the caller asks for "cpu" (without CUDA the default raises)."""
+    the caller asks for "cpu" (without CUDA the default raises). Under
+    sde.autocast_train the trainer sets tpu.bf16 (`map_autocast_train`)."""
 
     def __init__(self, cfg, args, device="cuda"):
         _validate_semantic_knobs(cfg)
+        map_autocast_train(cfg)
         self.cfg = cfg
         self.args = args
         self.device = resolve_device(device)

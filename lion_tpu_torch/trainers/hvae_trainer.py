@@ -9,7 +9,9 @@ warmup-cosine schedule of trainer.opt (lr, lr_min, vae_lr_warmup_epochs)
 and the KL anneal over the run's steps; checkpoints go to
 `<save_dir>/checkpoints/*.npz` in the JAX package's layout (ckpt/io.py),
 so either package resumes the other's. The visualizations (`viz.viz_freq`
-other than 0) need matplotlib and are refused (ROADMAP Queue 1 item J).
+other than 0) need matplotlib and are refused (ROADMAP Queue 1 item J1).
+Under tpu.bf16 (or sde.autocast_train) the VAE's U-Nets compute in bf16;
+the parameters, Adam, the EMA and the checkpoints stay float32.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ class Trainer(BaseTrainer):
         if cfg.viz.viz_freq != 0:
             raise NotImplementedError(
                 "training-time visualization (viz.viz_freq != 0) needs "
-                "utils/vis.py, which is not ported (ROADMAP Queue 1 item J); "
+                "utils/vis.py, which is not ported (ROADMAP Queue 1 item J1); "
                 "set viz.viz_freq = 0")
         super().__init__(cfg, args, device)
         self.build_data()

@@ -44,9 +44,13 @@ given instead, so a test can feed both packages the same numbers. Float32
 matmuls and cuDNN convolutions run in full float32 inside the step
 (`no_tf32`), whatever the global flags say.
 
+Under `tpu.bf16` (which the trainers set for `sde.autocast_train`) the
+U-Nets compute in bf16 (K10, K2-K6 in bf16, the norms in float32), as the
+JAX package's bf16 steps do; the parameters, Adam's moments, the EMA, the
+losses and the diffusion targets stay float32.
+
 Not ported, each raising NotImplementedError: class and CLIP conditioning
-(ROADMAP Queue 1 item J) and bf16 training (item G; the stage-1 step's
-refusals keep the older numbers, items 10 and 12).
+(ROADMAP Queue 1 item J2).
 """
 from __future__ import annotations
 
@@ -73,10 +77,7 @@ def check_supported(cfg) -> None:
     cfg = as_view(cfg)
     if cfg.data.cond_on_cat or cfg.clipforge.enable:
         raise NotImplementedError("class and CLIP conditioning are not "
-                                  "ported (ROADMAP Queue 1 item J)")
-    if cfg.sde.autocast_train or ("tpu" in cfg and cfg.tpu.bf16):
-        raise NotImplementedError("bf16 training is not ported (ROADMAP "
-                                  "Queue 1 item G)")
+                                  "ported (ROADMAP Queue 1 item J2)")
 
 
 def check_vae_supported(cfg) -> None:
@@ -85,10 +86,7 @@ def check_vae_supported(cfg) -> None:
     cfg = as_view(cfg)
     if cfg.data.cond_on_cat:
         raise NotImplementedError("class conditioning is not ported "
-                                  "(ROADMAP Queue 1 item 12)")
-    if cfg.sde.autocast_train or ("tpu" in cfg and cfg.tpu.bf16):
-        raise NotImplementedError("bf16 training is not ported (ROADMAP "
-                                  "Queue 1 item 10)")
+                                  "(ROADMAP Queue 1 item J2)")
 
 
 def kl_weight_schedule(cfg, num_total_iter: int) -> Callable[[int], float]:

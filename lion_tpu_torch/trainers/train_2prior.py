@@ -21,10 +21,12 @@ to `<save_dir>/checkpoints/*.npz` in the JAX package's layout (trees
 dae_global, dae_local, vae, opt, ema_global, ema_local), so either package
 resumes the other's; `export_torch` writes the released `.pt` schema.
 
-Refused, each raising NotImplementedError with its ROADMAP item: class
-and CLIP conditioning and the visualizations (item J), bf16 training (item
-G). One process: the cross-process gather of the generated clouds is item
-I.
+Under tpu.bf16 (or sde.autocast_train) the U-Nets compute in bf16 while
+the parameters, Adam, the EMA and the checkpoints stay float32, so a bf16
+run and a float32 run read each other's checkpoints. Refused, each raising
+NotImplementedError with its ROADMAP item: class and CLIP conditioning
+(item J2) and the visualizations (item J1). One process: the
+cross-process gather of the generated clouds is item I.
 """
 from __future__ import annotations
 
@@ -74,7 +76,7 @@ def check_stage2_supported(cfg) -> None:
     if as_view(cfg).viz.viz_freq != 0:
         raise NotImplementedError(
             "training-time visualization (viz.viz_freq != 0) needs "
-            "utils/vis.py, which is not ported (ROADMAP Queue 1 item J); "
+            "utils/vis.py, which is not ported (ROADMAP Queue 1 item J1); "
             "set viz.viz_freq = 0")
 
 

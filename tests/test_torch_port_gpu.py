@@ -120,8 +120,8 @@ def test_ball_query_group_kernel_on_other_plans(gen, cpb, threads):
         for tile in (256, 900):
             out = torch.empty(2, 77, 32, 3 + c, device="cuda")
             _with_plan("lion_ball_query_group", ptr(pts), ptr(ctr), ptr(f),
-                       ptr(out), 2, 900, 77, c, 32, _r2(0.2), cpb, threads,
-                       tile, stream_of(pts))
+                       ptr(out), 2, 900, 77, c, 32, _r2(0.2), 0, cpb,
+                       threads, tile, stream_of(pts))
             assert torch.equal(out, ref)
 
 
@@ -683,7 +683,7 @@ def test_training_ops_backward_on_card_matches_cpu(gen):
         lambda p, c, f: ops.ball_query_group(p, c, f, 0.2, 32), pts, ctr,
         feats, grad_out=_randn(gen, 2, 64, 32, 19))
     assert torch.equal(o, orf) and len(gs) == 3
-    for a, b in zip(gs, gr):   # scatter-adds with atomics in any order
+    for a, b in zip(gs, gr):   # the centers' sums over K in another order
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     # K3 and K5 with their transposes
     nc = voxel.normalize_coords(pts.detach(), 16).contiguous()
@@ -921,9 +921,15 @@ def test_ball_query_group_cf_backward_is_k2s(gen):
     (_, g2), _ = _grads_on_card_and_cpu(
         lambda p, c, f: ops.ball_query_group(p, c, f, 0.2, 32), pts, ctr,
         feats, grad_out=g.permute(0, 3, 1, 2))
-    for a, b, c in zip(gs, gr, g2):   # scatter-adds with atomics
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+    # one code on one gradient, every row summed in a fixed order; the
+    # points' and features' sums equal the CPU's (ascending r) bit for bit,
+    # the centers' (a sum over K) to fp32 rounding
+    for i, (a, b, c) in enumerate(zip(gs, gr, g2)):
+        assert torch.equal(a, c), i
+        if i == 1:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(a, b), i
 
 
 # -------------------------------------------------------------- stage 1
@@ -1136,3 +1142,219 @@ def test_ode_sample_repeats_bit_for_bit(gen):
     for k in ("z_global", "z_local", "points"):
         assert torch.equal(outs[0][k], outs[1][k]), k
     assert torch.isfinite(outs[0]["points"]).all()
+
+
+# ------------------------------------------ the fixed-order backward
+@pytest.mark.parametrize("b,r,n,c,dt", [
+    (4, 32768, 2048, 35, torch.float32),    # K2's backward at SA0
+    (4, 32768, 2048, 35, BF16),              # ... on a bf16 gradient
+    (2, 16384, 32768, 64, torch.float32),   # K5's backward at r32
+    (2, 6144, 1024, 192, torch.float32),    # K6's backward
+    (3, 1000, 70000, 8, torch.float32),     # the order beyond shared memory
+    (2, 5000, 3, 1, torch.float32),         # crowded buckets, C = 1
+    (2, 700, 900, 5, BF16),                 # empty buckets, C % 8 != 0
+    (1, 0, 7, 4, torch.float32)])           # no rows: zeros
+def test_row_sum_kernel_equals_the_cpu_bit_for_bit(gen, b, r, n, c, dt):
+    """The ordered row sum against the plain version (a float32
+    scatter_add_) on a CPU copy, which adds in ascending r: bit for bit,
+    and twice the same."""
+    idx = torch.randint(0, n, (b, r), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    rows = (_randn(gen, b, r, c) * torch.exp(_randn(gen, b, r, 1) * 3)).to(dt)
+    w = ops.KERNELS["row_sum"]
+    got = w(idx, rows, n)
+    again = w(idx, rows, n)
+    ref = w.plain(idx.cpu(), rows.cpu(), n)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, n, c)
+    assert torch.equal(got.cpu(), ref) and torch.equal(got, again)
+
+
+def test_gather_and_scatter_rows_are_each_others_gradient(gen):
+    """gather_rows' gradient is the ordered row sum and the row sum's is the
+    gather, to any order: a second derivative through both on the card
+    equals the CPU's."""
+    x = _randn(gen, 2, 50, 6)
+    idx = torch.randint(0, 50, (2, 300), generator=gen, device="cuda")
+    v = _randn(gen, 2, 300, 6)
+
+    def run(dev):
+        xx = x.to(dev).requires_grad_(True)
+        y = ops.gather_rows(torch.tanh(xx), idx.to(dev))
+        (gx,) = torch.autograd.grad((y * v.to(dev)).sum(), xx,
+                                    create_graph=True)
+        s = ops.scatter_rows(idx.to(dev), y * y, 50)
+        loss = (gx * gx).sum() + (s * s).sum()
+        return torch.autograd.grad(loss, xx)[0]
+    got, ref = run("cuda"), run("cpu")
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, run("cuda"))
+
+
+def _backward_twice(fn, inputs, g):
+    """fn's input gradients for cotangent g, twice from the same inputs."""
+    outs = []
+    for _ in range(2):
+        xs = [t.detach().clone().requires_grad_(t.is_floating_point())
+              for t in inputs]
+        grads = torch.autograd.grad(fn(*xs), [t for t in xs
+                                              if t.requires_grad], g)
+        outs.append(grads)
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_point_op_backwards_repeat_bit_for_bit(gen, dt):
+    """K2's, K13's, K5's and K6's backwards at the training shapes (batch
+    16: SA0, r32 C64, the top FP level), twice on the same gradient: equal
+    bit for bit (no float atomics)."""
+    from lion_tpu_torch.profile_step import bqg_level_inputs
+    b = 16
+    _, (p, c, f, r, k) = bqg_level_inputs(b, _level_randn(gen))[0]
+    f = f.to(dt)
+    g = _randn(gen, b, c.shape[1], k, 3 + f.shape[-1]).to(dt)
+    cases = [
+        ("ball_query_group", lambda p_, c_, f_: ops.ball_query_group(
+            p_, c_, f_, r, k), (p, c, f), g),
+        ("ball_query_group_cf", lambda p_, c_, f_: ops.ball_query_group_cf(
+            p_, c_, f_, r, k), (p, c, f), g.permute(0, 2, 3, 1).contiguous())]
+    nc = voxel.normalize_coords(p, 32).contiguous()
+    grid = _randn(gen, b, 32, 32, 32, 64).to(dt)
+    cases.append(("trilinear_devoxelize",
+                  lambda gg: ops.trilinear_devoxelize(gg, nc, 32), (grid,),
+                  _randn(gen, b, p.shape[1], 64).to(dt)))
+    cf = _randn(gen, b, c.shape[1], 192).to(dt)
+    cases.append(("three_nn_interpolate",
+                  lambda f_: ops.nearest_neighbor_interpolate(p, c, f_),
+                  (cf,), _randn(gen, b, p.shape[1], 192).to(dt)))
+    rs = ops.KERNELS["row_sum"]
+    for name, fn, inputs, cot in cases:
+        before = rs.launches
+        first, second = _backward_twice(fn, inputs, cot)
+        assert rs.launches > before, name
+        for x, a, bb in zip(inputs, first, second):
+            assert a.dtype == x.dtype, name
+            assert torch.equal(a, bb), name
+
+
+@pytest.mark.parametrize("b,r,ci,co,dx", [
+    (16, 32, 64, 64, False), (16, 32, 4, 32, False), (16, 16, 128, 64, False),
+    (16, 8, 192, 128, False), (16, 32, 64, 64, True), (32, 32, 4, 32, True),
+    *((32, r, ci, co, False) for r, ci, co in STAGE1_K10_CASES)])
+def test_conv3d_same_bf16_kernel_at_the_training_shapes(gen, b, r, ci, co,
+                                                       dx):
+    """K10 in bf16 (the brick's wgmma tile without statistics) at the
+    training shapes, forward and as dx (the output gradient through the
+    flipped, transposed kernel: C32 -> 4 at the outer levels), against its
+    plain version (fp32 sums rounded once): within 2e-2 of the output's
+    size, a one-ulp rounding apart where the sums' order differs."""
+    if dx:
+        x = _randn(gen, b, r, r, r, co).to(BF16)
+        w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(BF16)
+        w = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+    else:
+        x = _randn(gen, b, r, r, r, ci).to(BF16)
+        w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(BF16)
+    got, ref = _both("conv3d_3x3_same", x, w)
+    assert got.dtype == BF16 and got.shape == ref.shape
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2 * scale)
+    assert torch.equal(got, ops.KERNELS["conv3d_3x3_same"](x, w))
+
+
+def test_conv3d_same_bf16_gradients_match_the_cpu(gen):
+    """K10's autograd Function in bf16: dx by K10 in bf16, dw by cuDNN in
+    float32 rounded to bf16, against the CPU's plain versions."""
+    x = _randn(gen, 2, 16, 16, 16, 32).to(BF16).requires_grad_(True)
+    w = _randn(gen, 3, 3, 3, 32, 4, scale=(27 * 32) ** -0.5).to(
+        BF16).requires_grad_(True)
+    (y, gs), (yr, gr) = _grads_on_card_and_cpu(
+        ops.conv3d_3x3_same, x, w,
+        grad_out=_randn(gen, 2, 16, 16, 16, 4).to(BF16))
+    assert y.dtype == BF16 and [g.dtype for g in gs] == [BF16, BF16]
+    for a, b in ((y, yr), *zip(gs, gr)):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+
+
+@pytest.mark.parametrize("b", [4, 16])
+def test_ball_query_group_bf16_kernel_at_the_sa_levels(gen, b):
+    """K2 on bf16 features at the SA levels: its plain version bit for bit,
+    the fp32 kernel's rows rounded once, and bf16 features gathered as they
+    are."""
+    from lion_tpu_torch.profile_step import bqg_level_inputs
+    for label, (p, c, f, r, k) in bqg_level_inputs(b, _level_randn(gen)):
+        x = f.to(BF16)
+        got, ref = _both("ball_query_group", p, c, x, r, k)
+        assert got.dtype == BF16 and torch.equal(got, ref), label
+        f32 = ops.ball_query_group(p, c, x.float(), r, k)
+        assert torch.equal(got, f32.to(BF16)), label
+
+
+def test_bf16_trainers_train_save_and_resume_into_fp32(gen, tmp_path):
+    """The flagship stage-1 Trainer under sde.autocast_train and the
+    two-prior Trainer under tpu.bf16, two steps each at batch 4: bf16
+    compute (K10 and K2 launched on bf16), fp32 parameters, a resume equal,
+    and each checkpoint resumed by an fp32 trainer equal."""
+    from lion_tpu_torch.config import flagship_cfg
+    from lion_tpu_torch.trainers import get_trainer
+    rs = np.random.RandomState(2)
+    for split, count in (("train", 8), ("val", 4), ("test", 4)):
+        d = tmp_path / "data" / "03001627" / split
+        d.mkdir(parents=True)
+        for i in range(count):
+            np.save(str(d / f"{i}.npy"),
+                    (rs.randn(2048, 3) * 0.2).astype(np.float32))
+
+    class Args:
+        save_dir = str(tmp_path / "exp1")
+        data_root = str(tmp_path / "data")
+
+    def cfg_of(kind, key):
+        cfg = flagship_cfg()
+        cfg.trainer.type = kind
+        cfg.data.batch_size = cfg.data.batch_size_test = 4
+        cfg.ddpm.loss_type = "l1_sum"
+        cfg.trainer.epochs = 1
+        cfg.viz.viz_freq = 0
+        cfg.viz.val_freq = 100
+        node, leaf = key.split(".")
+        setattr(getattr(cfg, node), leaf, True)
+        return cfg
+    stage1 = None
+    for kind, key in (("trainers.hvae_trainer", "sde.autocast_train"),
+                      ("trainers.train_2prior", "tpu.bf16")):
+        cfg = cfg_of(kind, key)
+        if stage1:
+            cfg.sde.vae_checkpoint = stage1
+        Args.save_dir = str(tmp_path / kind)
+        trainer = get_trainer(kind)(cfg, Args())
+        assert cfg.tpu.bf16
+        ops.reset_counts()
+        trainer.train_epochs()
+        torch.cuda.synchronize()
+        for name in ("conv3d_3x3_same", "ball_query_group",
+                     "trilinear_devoxelize", "three_nn_interpolate"):
+            assert ops.KERNELS[name].launches_bf16 > 0, (kind, name)
+        assert all(w.plain_calls == 0 for w in ops.KERNELS.values())
+        step = trainer.step_fn
+        assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in step.params + step.ema.shadow)
+        final = str(tmp_path / kind / "checkpoints" / "final.npz")
+        for bf16 in (True, False):
+            cfg2 = cfg_of(kind, key) if bf16 else flagship_cfg()
+            if not bf16:
+                cfg2.trainer.type = kind
+                cfg2.data.batch_size = cfg2.data.batch_size_test = 4
+                cfg2.viz.viz_freq = 0
+            if stage1:
+                cfg2.sde.vae_checkpoint = stage1
+            again = get_trainer(kind)(cfg2, Args())
+            again.resume(final)
+            for a, b in zip(again.step_fn.params + again.step_fn.ema.shadow,
+                            step.params + step.ema.shadow):
+                assert torch.equal(a, b)
+        stage1 = final

@@ -174,10 +174,12 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
         "fps", "ball_query_group", "avg_voxelize", "conv3d_3x3_fused",
         "trilinear_devoxelize", "three_nn_interpolate", "sa_fused",
         "conv3d_pair", "pvconv_block_pair", "conv3d_3x3_same", "ball_query",
-        "ball_query_group_cf", "emd_cost"}
-    for k in ops.KERNELS.values():
+        "ball_query_group_cf", "emd_cost", "row_sum"}
+    for name, k in ops.KERNELS.items():
         assert k.source.startswith("lion_tpu_torch/csrc/")
-        assert k.replaces.startswith("lion_tpu/ops/pallas/")
+        # the ordered row sum of the backwards replaces no TPU kernel
+        assert k.replaces.startswith(
+            "none" if name == "row_sum" else "lion_tpu/ops/pallas/")
     ops.reset_counts()
     assert ops.KERNELS["fps"].plain_calls == 0
 

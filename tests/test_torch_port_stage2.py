@@ -48,7 +48,7 @@ from lion_tpu_torch.trainers.train_prior import Trainer as SinglePrior
 
 from test_torch_port_sample import (one_torch_thread,  # noqa: F401
                                     ROOT, to_jax_tree)
-from test_torch_port_train import _flat, _grad_bounds, _rho
+from test_torch_port_train import _flat, _grad_bounds, _rho, unet_dtypes
 from test_torch_port_trainer import (_Args, _jax_state, _jax_trainer,
                                      data_root, trainer_cfg)  # noqa: F401
 
@@ -154,13 +154,31 @@ def test_stage2_trainers_default_to_the_card(tmp_path, data_root, name):
 @pytest.mark.parametrize("key,value,item", [
     ("data__cond_on_cat", True, "item J"),
     ("clipforge__enable", True, "item J"),
-    ("tpu__bf16", True, "item G"),
-    ("sde__autocast_train", True, "item G"),
     ("viz__viz_freq", 400, "item J")])
 def test_stage2_trainers_refuse_what_is_not_ported(tmp_path, data_root, cls,
                                                    key, value, item):
     with pytest.raises(NotImplementedError, match=item):
         _port(cls, tmp_path, data_root, **{key: value})
+
+
+@pytest.mark.parametrize("cls", [TwoPrior, SinglePrior,
+                                 InterpolateLatentTrainer,
+                                 EncodeInterpTrainer])
+@pytest.mark.parametrize("key", ["tpu__bf16", "sde__autocast_train"])
+def test_stage2_trainers_build_bf16_under_the_key(tmp_path, data_root, cls,
+                                                  key):
+    """bf16 training (once refused): under either key each stage-2 trainer
+    sets tpu.bf16 (autocast_train maps onto it, as lion_tpu's BaseTrainer
+    does), builds the VAE's U-Nets and the local prior in bf16, and keeps
+    its parameters, Adam and EMA in float32."""
+    pt = _port(cls, tmp_path, data_root, **{key: True})
+    assert pt.cfg.tpu.bf16
+    nets = [pt.vae.encoder, pt.vae.decoder] + (
+        [pt.lion.local_prior] if hasattr(pt, "lion") else [])
+    assert unet_dtypes(*nets) == {torch.bfloat16}
+    step = pt.step_fn
+    assert all(p.dtype == torch.float32
+               for p in step.params + step.ema.shadow)
 
 
 def test_ode_interpolation_and_vis_refuse(tmp_path, data_root):

@@ -34,6 +34,7 @@ from lion_tpu_torch.nn import PointNetSAModule, PVConv
 from lion_tpu_torch.nn.common import Dropout, dropout
 from lion_tpu_torch.trainers import (EMA, Optimizer, make_prior_train_step,
                                      prior_loss, warmup_cosine_schedule)
+from lion_tpu_torch.trainers.base import map_autocast_train
 
 from test_torch_port_sample import (one_torch_thread,  # noqa: F401
                                     ROOT, assert_same_params,
@@ -408,15 +409,61 @@ def test_entry_points_default_to_the_card():
         make_prior_train_step(LION(cfg, device="cpu"))
 
 
-@pytest.mark.parametrize("key,value", [("sde.autocast_train", True),
-                                       ("tpu.bf16", True)])
-def test_step_raises_on_what_is_not_ported(key, value):
-    cfg = train_cfg(get_default_cfg())
+def unet_dtypes(*modules):
+    """The compute dtypes of the PVConv and SA blocks under `modules`."""
+    return {m.dtype for mod in modules for m in mod.modules()
+            if isinstance(m, (PVConv, PointNetSAModule))}
+
+
+def run_in_bf16(modules, fn):
+    """Run fn() with a forward hook on every PVConv and SA block under
+    `modules`; return fn's result after asserting that every block ran and
+    returned bf16 (the SA blocks their features)."""
+    seen = []
+
+    def hook(mod, args, out):
+        seen.append((out[0] if isinstance(out, tuple) else out).dtype)
+    handles = [m.register_forward_hook(hook) for mod in modules
+               for m in mod.modules()
+               if isinstance(m, (PVConv, PointNetSAModule))]
+    try:
+        out = fn()
+    finally:
+        for h in handles:
+            h.remove()
+    assert seen and set(seen) == {torch.bfloat16}, set(seen)
+    return out
+
+
+def set_key(cfg, key):
+    """Set a bf16 key (tpu.bf16 or sde.autocast_train) and map
+    autocast_train onto tpu.bf16 as the trainers do."""
     node, leaf = key.split(".")
-    setattr(getattr(cfg, node), leaf, value)
-    lion = LION(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_prior_train_step(lion, device="cpu")
+    setattr(getattr(cfg, node), leaf, True)
+    map_autocast_train(cfg)
+    assert cfg.tpu.bf16
+    return cfg
+
+
+@pytest.mark.parametrize("key", ["sde.autocast_train", "tpu.bf16"])
+def test_step_builds_and_runs_in_bf16_under_the_key(key):
+    """bf16 training (once refused): under either key the two-prior step
+    computes the local prior's U-Net in bf16 (its train flow, with K10 and
+    K2 on bf16) and keeps float32 parameters, Adam and EMA."""
+    cfg = set_key(train_cfg(get_default_cfg()), key)
+    lion = LION(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(2))
+    step = make_prior_train_step(lion, lambda i: 1e-3, device="cpu")
+    assert unet_dtypes(lion.local_prior, lion.vae.encoder) == {
+        torch.bfloat16}
+    x = torch.from_numpy(noise(13, B, N, 3, scale=0.3))
+    metrics = run_in_bf16([lion.local_prior],
+                          lambda: step(x, torch.Generator().manual_seed(5)))
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+               for p in step.params + step.ema.shadow)
+    assert all(m.dtype == torch.float32 for ms in step.optimizer.moments()
+               for m in ms)
 
 
 def test_trainers_import_leaves_jax_out():

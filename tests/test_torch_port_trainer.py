@@ -31,6 +31,7 @@ from lion_tpu_torch.utils.writer import Writer
 
 from test_torch_port_sample import (  # noqa: F401
     one_torch_thread, ROOT, to_jax_tree)
+from test_torch_port_train import run_in_bf16
 
 SYNSET = "02691156"   # airplane
 
@@ -324,12 +325,32 @@ def test_trainer_trains_saves_resumes_and_scores_on_the_cpu(tmp_path,
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("viz__viz_freq", 400, "item J"), ("tpu__bf16", True, "item 10"),
-    ("data__cond_on_cat", True, "item 12")])
+    ("viz__viz_freq", 400, "item J1"), ("data__cond_on_cat", True, "item J2")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, data_root, key, value,
                                             match):
     with pytest.raises(NotImplementedError, match=match):
         _port_trainer(tmp_path, data_root, **{key: value})
+
+
+@pytest.mark.parametrize("key", ["tpu__bf16"])
+def test_trainer_trains_bf16_and_its_checkpoint_resumes_in_fp32(
+        tmp_path, data_root, key):
+    """bf16 training (once refused): the stage-1 Trainer under tpu.bf16
+    trains its epoch with the VAE's U-Nets in bf16 and float32 parameters;
+    its final checkpoint resumes equal into an fp32 Trainer and back."""
+    bf = _port_trainer(tmp_path, data_root, **{key: True})
+    assert bf.cfg.tpu.bf16
+    run_in_bf16([bf.vae.encoder, bf.vae.decoder], bf.train_epochs)
+    step = bf.step_fn
+    assert step.optimizer.count == bf.step > 0
+    assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+               for p in step.params + step.ema.shadow)
+    fp = _port_trainer(tmp_path, data_root)
+    fp.resume(os.path.join(bf.ckpt_dir, "final.npz"))
+    assert not fp.cfg.tpu.bf16
+    for a, b in zip(fp.step_fn.params + fp.step_fn.ema.shadow,
+                    step.params + step.ema.shadow):
+        assert torch.equal(a, b)
 
 
 def test_trainer_defaults_to_the_card(tmp_path, data_root):

@@ -33,7 +33,8 @@ from lion_tpu_torch.utils import losses
 from test_torch_port_sample import (  # noqa: F401
     one_torch_thread, to_jax_tree)
 from test_torch_port_train import (B, N, _flat, _grad_bounds, _port_grads,
-                                   _rho, noise, train_cfg)
+                                   _rho, noise, run_in_bf16, set_key,
+                                   train_cfg, unet_dtypes)
 
 LOSS_TYPES = ("l1_sum", "mse_sum", "mse", "cd1_sum", "cd1_sum_emd", "cd_sum",
               "chamfer", "l1_cd", "emd", "chamfer_emd")
@@ -258,9 +259,7 @@ def test_vae_step_defaults_to_the_card():
         make_vae_train_step(VAE(vae_cfg(get_default_cfg())))
 
 
-@pytest.mark.parametrize("key,value", [("tpu.bf16", True),
-                                       ("sde.autocast_train", True),
-                                       ("data.cond_on_cat", True)])
+@pytest.mark.parametrize("key,value", [("data.cond_on_cat", True)])
 def test_vae_step_raises_on_what_is_not_ported(key, value):
     cfg = vae_cfg(get_default_cfg())
     vae = VAE(cfg)
@@ -268,6 +267,26 @@ def test_vae_step_raises_on_what_is_not_ported(key, value):
     setattr(getattr(cfg, node), leaf, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_vae_train_step(vae, device="cpu")
+
+
+@pytest.mark.parametrize("key", ["tpu.bf16", "sde.autocast_train"])
+def test_vae_step_builds_and_runs_in_bf16_under_the_key(key):
+    """bf16 training (once refused): under either key the stage-1 step
+    computes the encoder's and the decoder's U-Nets in bf16 and keeps the
+    style encoder, the parameters, Adam and the EMA in float32."""
+    cfg = set_key(vae_cfg(get_default_cfg()), key)
+    vae = VAE(cfg)
+    init_weights(vae, torch.Generator().manual_seed(7))
+    step = make_vae_train_step(vae, warmup_cosine_schedule(*SCHED),
+                               TOTAL_ITER, device="cpu")
+    assert unet_dtypes(vae.encoder, vae.decoder) == {torch.bfloat16}
+    assert unet_dtypes(vae.style_encoder) == {None}
+    x = torch.from_numpy(noise(34, B, N, 3, scale=0.3))
+    metrics = run_in_bf16([vae.encoder, vae.decoder], lambda: step(
+        x, torch.Generator().manual_seed(3)))
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+               for p in step.params + step.ema.shadow)
 
 
 def test_non_finite_coordinates_go_through_the_voxel_ops_as_in_jax():
