@@ -147,6 +147,25 @@ non-zero:
      `run_eval` sampling through the ODE, then `interpolate_posterior_ode`
      from 2 test shapes to 4 rows; every kernel of the training path
      launched and no plain version run.
+ 22. the CLIs on the card (last): in a temporary working directory,
+     `lion_tpu_torch.train_dist.main` with the overrides of
+     lion_tpu_torch/scripts/train_vae.sh read from the file (2048 points,
+     tpu.bf16, batch 32) plus `trainer.epochs 1`, `snapshot_min 0` (a
+     snapshot after the epoch, which auto-resume reads) and
+     `viz.viz_freq 2` where matplotlib imports (else 0, said in a line)
+     over 64 synthetic clouds (the random init's style head damped by 0.01
+     as in phases 20 and 21: at random weights the style posterior can
+     overflow on these clouds); the same command again resumes from the
+     snapshot and takes one more epoch (the step goes on); then
+     train_prior.sh's overrides on its final checkpoint (batch 10, one
+     epoch over 20 clouds; `viz.vis_sample_ddim_step 25` when drawing);
+     `--eval_generation --num_samples 16` at 25 DDIM steps against a
+     seeded reference set under ./datasets/test_data/; and
+     `lion_tpu_torch.demo.main` on the stage-2 trainer's `.pt` export (4
+     shapes, 25 DDIM steps). Each run's exp dir (cfg.yml, the final
+     checkpoint, metrics.jsonl) and outputs are checked finite; each run
+     launched its path's kernels (K2 and the rest on bf16 in training)
+     and ran no plain version.
 Beside each kernel the JSON line gives its bound on the card (the larger of
 its bytes over 3.35 TB/s and its operations over 67 TFLOP/s fp32 or 989
 TFLOP/s bf16, H100 SXM peaks, with exps at the special-function units' 16
@@ -231,6 +250,13 @@ EVAL_SHAPES, EVAL_BATCH, EVAL_DDIM_STEPS = 64, 16, 50
 # prediction: 2849 local evaluations, 147 s, at 1e-3 on that card)
 ODE_BATCH, ODE_TOL = 4, 1e-2
 ODE_VAL_SAMPLES, INTERP_ODE_EPS = 8, 1e-3
+# phase 22, the CLIs: the clouds of each stage's one epoch (2 steps at the
+# scripts' batches of 32 and 10), the evaluation's shapes, the DDIM steps
+# of the evaluation, the sample grids and the demo, the demo's shapes, and
+# the visualizations' cadence where matplotlib imports
+CLI_STAGE1_CLOUDS, CLI_STAGE2_CLOUDS = 64, 20
+CLI_EVAL_SHAPES, CLI_DDIM_STEPS, CLI_DEMO_SHAPES = 16, 25, 4
+CLI_VIZ_FREQ = 2
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the tensor
 # cores, bf16 on them, device memory; the special-function units (exp)
 # give 16 results per SM per clock against the fp32 lanes' 256 operations
@@ -2428,6 +2454,175 @@ def phase_eval_scale(n, seed=0):
             f"{time.perf_counter() - t0:.3f} s")
 
 
+def _cli_run(label, path, fn, argv):
+    """Run one CLI's `main(argv)` with the launch counters zeroed just
+    before it; raise unless every kernel of `path` launched and no plain
+    version ran. Returns (its result, the counts, the seconds)."""
+    from lion_tpu_torch import ops
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _path_counts(path, label)
+    log(f"[{label}] {seconds:.1f} s")
+    return out, counts, seconds
+
+
+def _bf16_launched(label, kernels):
+    from lion_tpu_torch import ops
+    bf16 = {n: ops.KERNELS[n].launches_bf16 for n in kernels}
+    if not all(bf16.values()):
+        raise AssertionError(f"[{label}] kernels not run on bf16: {bf16}")
+    log(f"[{label}] launches on bf16 tensors: {bf16}")
+
+
+def _check_exp_dir(label, trainer, step):
+    """cfg.yml, the final checkpoint at `step` and a finite metrics.jsonl
+    in the trainer's experiment directory; finite parameters."""
+    from lion_tpu_torch.ckpt import load_checkpoint
+    d = trainer.save_dir
+    _, meta = load_checkpoint(os.path.join(d, "checkpoints", "final.npz"))
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    values = [r["value"] for r in records if "value" in r]
+    if not os.path.exists(os.path.join(d, "cfg.yml")) or \
+            meta["step"] != step or trainer.step != step or not values or \
+            not np.isfinite(values).all() or not all(
+                bool(torch.isfinite(p).all())
+                for p in trainer.step_fn.params):
+        raise AssertionError(f"[{label}] {d}: step {trainer.step}, "
+                             f"checkpoint {meta}, metrics {records}")
+    images = sorted(os.listdir(os.path.join(d, "images"))) \
+        if os.path.isdir(os.path.join(d, "images")) else []
+    losses = [round(r["value"], 4) for r in records
+              if r["tag"] == "train/loss"]
+    log(f"[{label}] {d}: cfg.yml, final.npz at step {meta['step']}, "
+        f"{len(records)} metrics.jsonl records (loss {losses}), finite "
+        f"parameters, images {images}")
+
+
+def phase_clis(tmp):
+    """22. The user entry points on the card, in a temporary working
+    directory (see the module's docstring). Returns the launch counts of
+    each run."""
+    import importlib.util
+    from lion_tpu_torch import demo, train_dist
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "lion_tpu_torch", "scripts")
+    t_start = time.perf_counter()
+    viz = []
+    if importlib.util.find_spec("matplotlib") is None:
+        log("[cli] matplotlib does not import here: viz.viz_freq 0 (the "
+            "trainers refuse the visualizations without it)")
+        viz_freq = 0
+    else:
+        viz_freq = CLI_VIZ_FREQ
+        viz = ["viz.vis_sample_ddim_step", str(CLI_DDIM_STEPS)]
+    data1, data2 = os.path.join(tmp, "data1"), os.path.join(tmp, "data2")
+    _write_pointflow(data1, {"train": CLI_STAGE1_CLOUDS, "val": 8}, seed=51)
+    _write_pointflow(data2, {"train": CLI_STAGE2_CLOUDS, "val": 8}, seed=52)
+    os.makedirs(os.path.join(tmp, "datasets", "test_data"))
+    torch.save(_reference_set(CLI_EVAL_SHAPES, 53),
+               os.path.join(tmp, "datasets", "test_data", "ref_val_chair.pt"))
+    exp = os.path.join(tmp, "exp")
+    common = ["trainer.epochs", "1", "viz.viz_freq", str(viz_freq)]
+    stage1 = ["--exp_root", exp, "--data_root", data1] + \
+        train_dist.script_overrides(os.path.join(scripts, "train_vae.sh"),
+                                    CATE="chair") + \
+        common + ["snapshot_min", "0"]
+    log(f"[cli] stage 1: python -m lion_tpu_torch.train_dist "
+        f"{' '.join(stage1)}")
+    out = {}
+    # at random weights the VAE's style posterior can overflow exp() on
+    # these globally normalized clouds (std 1), in either package
+    # (tests/test_torch_port_vae_train.py::test_flagship_vae_overflows_at_
+    # random_weights_as_lion_tpu): the stage-1 Trainer's random init has
+    # its style head damped by 0.01, as phases 20 and 21 and lion_tpu's
+    # bf16 trainer test damp it; a resume loads the trained weights
+    from lion_tpu_torch.profile_step import damp_style_head
+    from lion_tpu_torch.trainers import hvae_trainer
+    build_model = hvae_trainer.Trainer.build_model
+
+    def damped_build_model(self):
+        build_model(self)
+        damp_style_head(self.vae)
+    hvae_trainer.Trainer.build_model = damped_build_model
+    try:
+        tr, out["cli_stage1"], _ = _cli_run(
+            "cli stage1", STAGE1_STEP_PATH, train_dist.main, stage1)
+    finally:
+        hvae_trainer.Trainer.build_model = build_model
+    log("[cli stage1] the random init's style head damped by 0.01 "
+        "(profile_step.damp_style_head)")
+    _bf16_launched("cli stage1", BF16_TRAIN_KERNELS)
+    steps = CLI_STAGE1_CLOUDS // tr.cfg.data.batch_size
+    _check_exp_dir("cli stage1", tr, steps)
+    vae_ckpt = os.path.join(tr.ckpt_dir, "final.npz")
+    del tr
+    tr, out["cli_resume"], _ = _cli_run("cli stage1 rerun", STAGE1_STEP_PATH,
+                                        train_dist.main, stage1)
+    _check_exp_dir("cli stage1 rerun", tr, 2 * steps)
+    log(f"[cli stage1 rerun] resumed from the snapshot at step {steps}, "
+        f"went on to step {tr.step}")
+    del tr
+    torch.cuda.empty_cache()
+
+    stage2 = ["--exp_root", exp, "--data_root", data2] + \
+        train_dist.script_overrides(os.path.join(scripts, "train_prior.sh"),
+                                    CATE="chair", VAE_CKPT=vae_ckpt) + \
+        common + viz
+    log(f"[cli] stage 2: python -m lion_tpu_torch.train_dist "
+        f"{' '.join(stage2)}")
+    tr, out["cli_stage2"], _ = _cli_run("cli stage2", TRAIN_PATH,
+                                        train_dist.main, stage2)
+    _bf16_launched("cli stage2", BF16_TRAIN_KERNELS)
+    _check_exp_dir("cli stage2", tr,
+                   CLI_STAGE2_CLOUDS // tr.cfg.data.batch_size)
+    save_dir = tr.save_dir
+    lion_pt = os.path.join(tmp, "lion.pt")
+    tr.export_torch(lion_pt)
+    del tr
+    torch.cuda.empty_cache()
+
+    cfg_yml = os.path.join(save_dir, "cfg.yml")
+    evaluation = ["--config", cfg_yml, "--pretrained",
+                  os.path.join(save_dir, "checkpoints", "final.npz"),
+                  "--eval_generation", "--num_samples", str(CLI_EVAL_SHAPES),
+                  "eval_ddim_step", str(CLI_DDIM_STEPS)]
+    log(f"[cli] python -m lion_tpu_torch.train_dist {' '.join(evaluation)}")
+    tr, out["cli_eval"], _ = _cli_run("cli eval", EVAL_PATH, train_dist.main,
+                                      evaluation)
+    samples = torch.load(os.path.join(save_dir, "eval", "samples.pt"))
+    with open(os.path.join(save_dir, "results", "eval_out.csv")) as f:
+        tsv = f.read().splitlines()
+    if tuple(samples.shape) != (CLI_EVAL_SHAPES, 2048, 3) or not bool(
+            torch.isfinite(samples).all()) or len(tsv) != 2 or \
+            not tsv[1].startswith("chair"):
+        raise AssertionError(f"[cli eval] samples {tuple(samples.shape)}, "
+                             f"results {tsv}")
+    log(f"[cli eval] {CLI_EVAL_SHAPES} shapes, eval/samples.pt finite; "
+        f"results/eval_out.csv: {tsv[1]}")
+    del tr
+    torch.cuda.empty_cache()
+
+    npz = os.path.join(tmp, "demo.npz")
+    shown = ["--config", cfg_yml, "--ckpt", lion_pt, "--num_samples",
+             str(CLI_DEMO_SHAPES), "--ddim_step", str(CLI_DDIM_STEPS),
+             "--out", npz]
+    log(f"[cli] python -m lion_tpu_torch.demo {' '.join(shown)}")
+    _, out["cli_demo"], _ = _cli_run("cli demo", BF16_PATH, demo.main, shown)
+    with np.load(npz) as got:
+        shapes = {k: got[k].shape for k in got.files}
+        finite = all(np.isfinite(got[k]).all() for k in got.files)
+    if shapes.get("points") != (CLI_DEMO_SHAPES, 2048, 3) or not finite:
+        raise AssertionError(f"[cli demo] {shapes}, finite {finite}")
+    log(f"[cli demo] {npz}: {shapes}, finite")
+    log(f"[cli] phase 22: {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=100,
@@ -2478,6 +2673,13 @@ def main(argv=None):
                             EVAL_DDIM_STEPS)
     if args.eval_n:
         phase_eval_scale(args.eval_n)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            clis = phase_clis(tmp)
+        finally:
+            os.chdir(cwd)
 
     paths = {"fp32": fp32, "bf16": bf16, "train": train, "cf_op": cf,
              "eval": evaluation, "vae_train": vae_train,
@@ -2486,7 +2688,8 @@ def main(argv=None):
              "bf16_train": bf16_train["prior"],
              "bf16_vae_train": bf16_train["vae"],
              "bf16_vae_trainer": bf16_trainers["trainers.hvae_trainer"],
-             "bf16_stage2_trainer": bf16_trainers["trainers.train_2prior"]}
+             "bf16_stage2_trainer": bf16_trainers["trainers.train_2prior"],
+             **clis}
     report = []
     for name in REPORT_ORDER:
         w = KERNELS[name]

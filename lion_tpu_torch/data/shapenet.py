@@ -1,16 +1,15 @@
 """ShapeNet15k point clouds in the PointFlow layout and their batches (port
 of lion_tpu/data/shapenet.py).
 
-The dataset loads the 15k-point `.npy` clouds of
-`<root>/<synset>/<split>/*.npy` with numpy, shuffles them with the seed
-38383, normalizes them by one of the four modes and subsamples `tr_points`
-/ `input_pts` per item; `DataLoader` batches them per epoch, reshuffled by
-`set_epoch`, one shard of `num_shards` (data parallelism is ROADMAP Queue 1
-item I). For the same root and seed the batches equal the JAX package's
-bit for bit. The JAX package's native threaded reader (data/native.py)
-reads the same arrays; the port reads them with `np.load` (the reader is
-ROADMAP Queue 1 item E). CLIP render images (`clip_forge_enable`) are
-refused (item J).
+The dataset reads the 15k-point `.npy` clouds of
+`<root>/<synset>/<split>/*.npy` (in one bulk read by the native threaded
+reader, data/native.py, when every file has the same row count, else one
+`np.load` a file), shuffles them with the seed 38383, normalizes them by
+one of the four modes and subsamples `tr_points` / `input_pts` per item;
+`DataLoader` batches them per epoch, reshuffled by `set_epoch`, one shard
+of `num_shards` (data parallelism is ROADMAP Queue 1 item I). For the same
+root and seed the batches equal the JAX package's bit for bit. CLIP render
+images (`clip_forge_enable`) are refused (item J2).
 """
 from __future__ import annotations
 
@@ -19,6 +18,14 @@ import random
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from .native import load_npy_batch, npy_shape
+
+
+def _rows(path: str) -> int:
+    shape = npy_shape(path)
+    return shape[0] if shape else np.load(path, mmap_mode="r").shape[0]
+
 
 # standard ShapeNetCore.v2 synset map (pointflow_datasets.py:26-85)
 synsetid_to_cate = {
@@ -98,7 +105,15 @@ class ShapeNet15kPointClouds:
                 f"no .npy point clouds under {root_dir} for "
                 f"{self.synset_ids} split={split}")
 
-        all_points = [np.load(p)[np.newaxis, ...] for p in paths]
+        # one bulk read through the native reader when every file has the
+        # same row count (the ShapeNet15k layout), as lion_tpu reads them
+        rows = {_rows(p) for p in paths}
+        if len(rows) == 1:
+            stacked = load_npy_batch(paths, n_points=rows.pop(),
+                                     dims=input_dim)
+            all_points = [stacked[i][np.newaxis] for i in range(len(paths))]
+        else:
+            all_points = [np.load(p)[np.newaxis, ...] for p in paths]
 
         # deterministic shuffle, seed 38383 (pointflow_datasets.py:196)
         shuffle_idx = list(range(len(all_points)))
@@ -244,7 +259,7 @@ def get_datasets(cfg_data, root_dir: Optional[str] = None):
     """Build train/test datasets from cfg.data (pointflow_datasets.py:363-415)."""
     if getattr(cfg_data, "clip_forge_enable", 0):
         raise NotImplementedError("CLIP render images are not ported "
-                                  "(ROADMAP Queue 1 item J)")
+                                  "(ROADMAP Queue 1 item J2)")
     root = root_dir or cfg_data.data_dir
     cates = cfg_data.cates
     cates = cates.split(",") if isinstance(cates, str) else cates

@@ -102,7 +102,7 @@ class GlobalPrior(nn.Module):
         if block_type not in ("se_drop", "plain"):
             raise NotImplementedError(
                 f"GlobalPrior: the {block_type} blocks (CLIP conditioning) "
-                "are not ported (ROADMAP Queue 1 item J)")
+                "are not ported (ROADMAP Queue 1 item J2)")
         self.embedding_dim = embedding_dim
         self.embedding_scale = embedding_scale
         self.temb_fun = None if embedding_type == "positional" else \

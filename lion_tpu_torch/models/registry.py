@@ -18,7 +18,7 @@ def build_global_prior(cfg) -> GlobalPrior:
         raise KeyError(f"Unknown global prior: {name}")
     if cfg.clipforge.enable:
         raise NotImplementedError("the CLIP-conditioned global prior is not "
-                                  "ported (ROADMAP Queue 1 item J)")
+                                  "ported (ROADMAP Queue 1 item J2)")
     return GlobalPrior(
         num_input_channels=cfg.latent_pts.style_dim,
         nf=cfg.sde.num_channels_dae,

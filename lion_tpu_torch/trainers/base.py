@@ -18,7 +18,9 @@ from ..ckpt.io import (has_snapshot, load_checkpoint, load_snapshot,
                        save_checkpoint, save_snapshot)
 from ..config.view import as_view
 from ..data.shapenet import get_data_loaders
+from ..eval.eval_helper import normalize_point_clouds
 from ..models.lion import resolve_device
+from ..utils.vis import visualize_point_clouds_3d
 from ..utils.writer import Writer
 
 
@@ -58,6 +60,21 @@ def _validate_semantic_knobs(cfg):
             "never consumed); sampling proceeds unchanged", stacklevel=2)
 
 
+def check_vis_supported(cfg) -> None:
+    """The visualizations (`viz.viz_freq` other than 0) draw with
+    matplotlib: raise at build when it cannot be imported, rather than at
+    the first grid, hours into a run."""
+    if cfg.viz.viz_freq == 0:
+        return
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as err:
+        raise ImportError(
+            f"viz.viz_freq = {cfg.viz.viz_freq} draws training-time "
+            f"visualizations with matplotlib, which cannot be imported "
+            f"({err}); install matplotlib or set viz.viz_freq 0") from err
+
+
 def map_autocast_train(cfg) -> None:
     """sde.autocast_train, the reference's mixed precision, is the bf16
     compute path: set tpu.bf16 before any model is built, as
@@ -71,10 +88,12 @@ class BaseTrainer:
     """`cfg` is the config tree, `args` carries `save_dir` and `data_root`
     (either may be None); the trainer runs on `device`, the card unless
     the caller asks for "cpu" (without CUDA the default raises). Under
-    sde.autocast_train the trainer sets tpu.bf16 (`map_autocast_train`)."""
+    sde.autocast_train the trainer sets tpu.bf16 (`map_autocast_train`).
+    USE_TFB=1 adds the writer's TensorBoard sink."""
 
     def __init__(self, cfg, args, device="cuda"):
         _validate_semantic_knobs(cfg)
+        check_vis_supported(cfg)
         map_autocast_train(cfg)
         self.cfg = cfg
         self.args = args
@@ -83,7 +102,9 @@ class BaseTrainer:
             or "./exp/default"
         self.ckpt_dir = os.path.join(self.save_dir, "checkpoints")
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        self.writer = Writer(log_dir=self.save_dir)
+        self.writer = Writer(
+            log_dir=self.save_dir,
+            use_tensorboard=os.environ.get("USE_TFB") == "1")
         self.epoch = 0
         self.step = 0
         # best-checkpoint tracking, lower is better; -1: no eval yet
@@ -129,7 +150,8 @@ class BaseTrainer:
                 metrics = self.train_iter(batch, step=self.step)
                 self.step += 1
                 if self.step % log_freq == 0:
-                    for k, v in metrics.items():
+                    # in sorted order, as lion_tpu's jitted steps return them
+                    for k, v in sorted(metrics.items()):
                         self.writer.avg_meter(f"train/{k}", float(v))
                 if viz_freq > 0 and self.step % viz_freq == 0:
                     self.vis_recont(batch, self.step)
@@ -173,6 +195,14 @@ class BaseTrainer:
 
     def vis_sample(self, step: int):
         pass
+
+    def add_sample_grid(self, pts: torch.Tensor, step: int):
+        """Sampled clouds (B, N, >= 3), each box-normalized, as the
+        `vis/sample` grid titled gen-i."""
+        clouds = normalize_point_clouds(pts[:, :, :3].float().cpu().numpy())
+        img = visualize_point_clouds_3d(
+            list(clouds), [f"gen-{i}" for i in range(len(clouds))])
+        self.writer.add_image("vis/sample", img, step)
 
     def state_trees(self) -> Dict[str, Any]:
         raise NotImplementedError

@@ -8,8 +8,10 @@ trainer.seed, and trains it with `make_vae_train_step` on the
 warmup-cosine schedule of trainer.opt (lr, lr_min, vae_lr_warmup_epochs)
 and the KL anneal over the run's steps; checkpoints go to
 `<save_dir>/checkpoints/*.npz` in the JAX package's layout (ckpt/io.py),
-so either package resumes the other's. The visualizations (`viz.viz_freq`
-other than 0) need matplotlib and are refused (ROADMAP Queue 1 item J1).
+so either package resumes the other's. Every `viz.viz_freq` steps the
+trainer draws the reconstruction and sample grids (`vis_recont`,
+`vis_sample`) into `<save_dir>/images/`; they need matplotlib, which the
+trainer checks when it is built.
 Under tpu.bf16 (or sde.autocast_train) the VAE's U-Nets compute in bf16;
 the parameters, Adam, the EMA and the checkpoints stay float32.
 """
@@ -23,9 +25,10 @@ import torch
 
 from ..ckpt.io import (adam_state_from_tree, adam_state_tree,
                        load_tensors_tree, tensors_tree)
-from ..eval.eval_helper import compute_nll_metric
+from ..eval.eval_helper import compute_nll_metric, normalize_point_clouds
 from ..models.vae import VAE
 from ..nn.common import init_weights
+from ..utils.vis import visualize_point_clouds_3d
 from .base import BaseTrainer
 from .steps import (check_vae_supported, default_vae_lr_schedule,
                     make_vae_train_step)
@@ -34,11 +37,6 @@ from .steps import (check_vae_supported, default_vae_lr_schedule,
 class Trainer(BaseTrainer):
     def __init__(self, cfg, args, device="cuda"):
         check_vae_supported(cfg)
-        if cfg.viz.viz_freq != 0:
-            raise NotImplementedError(
-                "training-time visualization (viz.viz_freq != 0) needs "
-                "utils/vis.py, which is not ported (ROADMAP Queue 1 item J1); "
-                "set viz.viz_freq = 0")
         super().__init__(cfg, args, device)
         self.build_data()
         self.build_model()
@@ -97,13 +95,31 @@ class Trainer(BaseTrainer):
                 return float(v)
         return None
 
+    @torch.no_grad()
     def vis_recont(self, batch, step: int):
-        raise NotImplementedError("utils/vis.py is not ported (ROADMAP "
-                                  "Queue 1 item J)")
+        """The reconstruction grid: the batch's first 4 clouds and their
+        reconstructions in eval mode from the trained parameters (a
+        generator seeded `step`), normalized, as `vis/recont`
+        (lion_tpu/trainers/hvae_trainer.py:121-136)."""
+        x = self.put_batch(np.asarray(batch["tr_points"], np.float32)[:4])
+        self.vae.eval()
+        gen = torch.Generator(device=self.device).manual_seed(step)
+        rec = self.vae.recont(x, generator=gen)["final_pred"]
+        inp = x[:, :, :3].cpu().numpy()
+        rec = rec[:, :, :3].float().cpu().numpy()
+        clouds = normalize_point_clouds(np.concatenate([inp, rec], axis=0))
+        titles = [f"inp-{i}" for i in range(len(inp))] + \
+                 [f"rec-{i}" for i in range(len(rec))]
+        img = visualize_point_clouds_3d(list(clouds), titles)
+        self.writer.add_image("vis/recont", img, step)
 
     def vis_sample(self, step: int):
-        raise NotImplementedError("utils/vis.py is not ported (ROADMAP "
-                                  "Queue 1 item J)")
+        """The sample grid: min(num_val_samples, 8) clouds decoded from
+        fresh latents (a generator seeded `step`), normalized, as
+        `vis/sample` (lion_tpu/trainers/hvae_trainer.py:138-148)."""
+        n = min(self.cfg.num_val_samples, 8)
+        gen = torch.Generator(device=self.device).manual_seed(step)
+        self.add_sample_grid(self.sample(n, generator=gen), step)
 
     @torch.no_grad()
     def sample(self, num_samples: int = 16, generator=None) -> torch.Tensor:

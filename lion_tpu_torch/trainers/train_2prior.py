@@ -23,10 +23,12 @@ resumes the other's; `export_torch` writes the released `.pt` schema.
 
 Under tpu.bf16 (or sde.autocast_train) the U-Nets compute in bf16 while
 the parameters, Adam, the EMA and the checkpoints stay float32, so a bf16
-run and a float32 run read each other's checkpoints. Refused, each raising
-NotImplementedError with its ROADMAP item: class and CLIP conditioning
-(item J2) and the visualizations (item J1). One process: the
-cross-process gather of the generated clouds is item I.
+run and a float32 run read each other's checkpoints. Every `viz.viz_freq`
+steps `vis_sample` draws a grid of samples (`viz.vis_sample_ddim_step`
+DDIM steps) into `<save_dir>/images/`; it needs matplotlib, which the
+trainer checks when it is built. Class and CLIP conditioning are refused,
+raising NotImplementedError with their ROADMAP item (J2). One process:
+the cross-process gather of the generated clouds is item I.
 """
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ from ..ckpt.io import (adam_state_from_tree, adam_state_tree,
                        export_torch_checkpoint, load_checkpoint,
                        load_tensors_tree, module_arrays, tensors_tree)
 from ..ckpt.torch_import import import_state_dict, module_tree
-from ..config.view import as_view
 from ..eval.eval_helper import (NUM_TEST, _load_pt, get_cats, get_ref_num,
                                 get_ref_pt, normalize_point_clouds,
                                 print_results, write_results)
@@ -71,13 +72,8 @@ TEST_TAGS = {"lgan_cov-CD": "test/Coverage_CD",
 def check_stage2_supported(cfg) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for what the
     port's stage-2 trainers do not run: the steps' refusals
-    (`steps.check_supported`) and the visualizations."""
+    (`steps.check_supported`)."""
     check_supported(cfg)
-    if as_view(cfg).viz.viz_freq != 0:
-        raise NotImplementedError(
-            "training-time visualization (viz.viz_freq != 0) needs "
-            "utils/vis.py, which is not ported (ROADMAP Queue 1 item J1); "
-            "set viz.viz_freq = 0")
 
 
 def _ensure_csv(save_dir: str) -> str:
@@ -301,8 +297,16 @@ class Trainer(BaseTrainer):
         return results
 
     def vis_sample(self, step: int):
-        raise NotImplementedError("utils/vis.py is not ported (ROADMAP "
-                                  "Queue 1 item J)")
+        """The sample grid: min(num_val_samples, 8) shapes from the EMA
+        priors at viz.vis_sample_ddim_step DDIM steps (0: the chain; a
+        generator seeded `step`), normalized, as `vis/sample`
+        (lion_tpu/trainers/train_2prior.py:436-450). The single-prior and
+        the interpolation trainers draw it through their own `sample`."""
+        n = min(self.cfg.num_val_samples, 8)
+        gen = torch.Generator(device=self.device).manual_seed(step)
+        self.add_sample_grid(self.sample(
+            n, generator=gen, ddim_step=self.cfg.viz.vis_sample_ddim_step),
+            step)
 
     # -------------------------------------------------------------- ckpt
     def state_trees(self):

@@ -8,6 +8,8 @@ This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_gpu.py
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1358,3 +1360,152 @@ def test_bf16_trainers_train_save_and_resume_into_fp32(gen, tmp_path):
                             step.params + step.ema.shadow):
                 assert torch.equal(a, b)
         stage1 = final
+
+
+# ------------------------------------------------------------------ CLIs
+# tests/test_torch_port_cli.py's tiny widths (that file imports JAX): the
+# U-Nets of tests/test_trainers.py with the style encoder shrunk, one epoch
+# of 2 steps, a snapshot after it, tiny priors and a 5-step chain, 2 DDIM
+# steps in the evaluation; no visualizations (the card's machine has no
+# matplotlib)
+CLI_TINY = [
+    "data.tr_max_sample_points", "32", "data.te_max_sample_points", "32",
+    "shapelatent.decoder_num_points", "32",
+    "data.batch_size", "4", "data.batch_size_test", "4",
+    "ddpm.dropout", "0.0", "trainer.epochs", "1", "viz.viz_freq", "0",
+    "viz.save_freq", "-1", "viz.val_freq", "-1", "snapshot_min", "0",
+    "tpu.sa_blocks",
+    "[[[8,1,16],[256,0.2,4,[8,16]]],[null,[128,0.4,4,[16,16]]]]",
+    "tpu.fp_blocks", "[[[16,16],[16,1,16]],[[16,8],[8,1,16]]]",
+    "tpu.ncenter_mult", "0.03125", "tpu.vres_mult", "0.25",
+    "ddpm.num_steps", "5", "sde.num_channels_dae", "16",
+    "sde.num_cell_per_scale_dae", "1", "sde.embedding_dim", "8",
+    "sde.warmup_epochs", "0", "sde.dropout", "0.0", "eval_ddim_step", "2"]
+
+
+def _cli_counts():
+    torch.cuda.synchronize()
+    counts = {n: (w.launches, w.plain_calls) for n, w in ops.KERNELS.items()}
+    assert all(p == 0 for _, p in counts.values()), counts
+    return {n: k for n, (k, _) in counts.items()}
+
+
+@pytest.fixture(scope="module")
+def cli_stage1(gen, tmp_path_factory):
+    """`python -m lion_tpu_torch.train_dist` on the card with the overrides
+    of lion_tpu_torch/scripts/train_vae.sh (tpu.bf16) and the tiny widths,
+    on a synthetic PointFlow tree."""
+    from lion_tpu_torch import train_dist
+    root = tmp_path_factory.mktemp("cli")
+    rs = np.random.RandomState(3)
+    for split, count in (("train", 8), ("val", 4)):
+        d = root / "data" / "03001627" / split
+        d.mkdir(parents=True)
+        for i in range(count):
+            np.save(str(d / f"{i}.npy"),
+                    (rs.randn(2048, 3) * 0.2).astype(np.float32))
+    scripts = Path(__file__).resolve().parents[1] / "lion_tpu_torch" / \
+        "scripts"
+    argv = ["--exp_root", str(root / "exp"), "--data_root",
+            str(root / "data")] + train_dist.script_overrides(
+        str(scripts / "train_vae.sh"), CATE="chair") + CLI_TINY
+    ops.reset_counts()
+    trainer = train_dist.main(argv)
+    return {"root": root, "argv": argv, "trainer": trainer,
+            "counts": _cli_counts(), "scripts": scripts}
+
+
+def test_train_dist_stage1_on_the_card(cli_stage1):
+    """Stage 1 trains on the card (K10 and K2 on bf16), writes its
+    experiment, and the same command again resumes from the snapshot."""
+    from lion_tpu_torch import train_dist
+    tr, counts = cli_stage1["trainer"], cli_stage1["counts"]
+    assert tr.device.type == "cuda" and tr.cfg.tpu.bf16 and tr.step == 2
+    for name in ("fps", "ball_query_group", "ball_query", "avg_voxelize",
+                 "trilinear_devoxelize", "three_nn_interpolate",
+                 "conv3d_3x3_same", "row_sum"):
+        assert counts[name] > 0, (name, counts)
+    for name in ("conv3d_3x3_same", "ball_query_group"):
+        assert ops.KERNELS[name].launches_bf16 > 0, name
+    assert all(torch.isfinite(p).all() for p in tr.step_fn.params)
+    d = Path(tr.save_dir)
+    assert (d / "cfg.yml").exists() and (d / "metrics.jsonl").exists()
+    assert (d / "checkpoints" / "final.npz").exists()
+    ops.reset_counts()
+    again = train_dist.main(cli_stage1["argv"])
+    _cli_counts()
+    assert again.save_dir == tr.save_dir and again.step == 4
+
+
+@pytest.fixture(scope="module")
+def cli_stage2(cli_stage1):
+    """Stage 2 through the CLI on stage 1's checkpoint (the overrides of
+    lion_tpu_torch/scripts/train_prior.sh and the tiny widths), and its
+    `.pt` export."""
+    import os
+    from lion_tpu_torch import train_dist
+    root, scripts = cli_stage1["root"], cli_stage1["scripts"]
+    vae = os.path.join(cli_stage1["trainer"].ckpt_dir, "final.npz")
+    argv = ["--exp_root", str(root / "exp2"), "--data_root",
+            str(root / "data")] + train_dist.script_overrides(
+        str(scripts / "train_prior.sh"), CATE="chair", VAE_CKPT=vae) + \
+        CLI_TINY
+    ops.reset_counts()
+    trainer = train_dist.main(argv)
+    counts = _cli_counts()
+    trainer.export_torch(str(root / "lion.pt"))
+    return {"root": root, "trainer": trainer, "counts": counts,
+            "pt": str(root / "lion.pt")}
+
+
+def test_train_dist_stage2_and_eval_generation_on_the_card(cli_stage2):
+    """Stage 2 on stage 1's checkpoint, then --eval_generation: 4 shapes
+    at 2 DDIM steps scored on K12 against ./datasets/test_data/."""
+    import os
+    from lion_tpu_torch import train_dist
+    tr, counts, root = (cli_stage2["trainer"], cli_stage2["counts"],
+                        cli_stage2["root"])
+    assert tr.step == 2 and tr.cfg.tpu.bf16
+    for name in ("fps", "conv3d_3x3_same", "ball_query", "row_sum"):
+        assert counts[name] > 0, (name, counts)
+    assert all(torch.isfinite(p).all() for p in tr.step_fn.params)
+    ref = root / "run" / "datasets" / "test_data"
+    ref.mkdir(parents=True)
+    rs = np.random.RandomState(4)
+    torch.save({"ref": torch.from_numpy(
+                    rs.randn(4, 32, 3).astype(np.float32) * 0.2),
+                "mean": torch.zeros(4, 1, 3), "std": torch.ones(4, 1, 1)},
+               str(ref / "ref_val_chair.pt"))
+    cwd = os.getcwd()
+    os.chdir(root / "run")
+    try:
+        ops.reset_counts()
+        train_dist.main(["--config", os.path.join(tr.save_dir, "cfg.yml"),
+                         "--pretrained", os.path.join(tr.ckpt_dir,
+                                                      "final.npz"),
+                         "--eval_generation", "--num_samples", "4"])
+    finally:
+        os.chdir(cwd)
+    counts = _cli_counts()
+    assert counts["emd_cost"] > 0 and counts["fps"] > 0
+    pts = torch.load(os.path.join(tr.save_dir, "eval", "samples.pt"))
+    assert pts.shape == (4, 32, 3) and torch.isfinite(pts).all()
+    with open(os.path.join(tr.save_dir, "results", "eval_out.csv")) as f:
+        assert f.read().splitlines()[1].startswith("chair")
+
+
+def test_demo_on_the_card(cli_stage2, tmp_path):
+    """The demo on the card from the stage-2 trainer's .pt export."""
+    import os
+    from lion_tpu_torch import demo
+    out = str(tmp_path / "s.npz")
+    ops.reset_counts()
+    demo.main(["--config", os.path.join(cli_stage2["trainer"].save_dir,
+                                        "cfg.yml"),
+               "--ckpt", cli_stage2["pt"], "--num_samples", "3",
+               "--ddim_step", "2", "--out", out])
+    counts = _cli_counts()
+    assert counts["fps"] > 0 and counts["trilinear_devoxelize"] > 0
+    with np.load(out) as got:
+        assert got["points"].shape == (3, 32, 3)
+        assert all(np.isfinite(got[k]).all() for k in got.files)

@@ -153,8 +153,7 @@ def test_stage2_trainers_default_to_the_card(tmp_path, data_root, name):
                                  EncodeInterpTrainer])
 @pytest.mark.parametrize("key,value,item", [
     ("data__cond_on_cat", True, "item J"),
-    ("clipforge__enable", True, "item J"),
-    ("viz__viz_freq", 400, "item J")])
+    ("clipforge__enable", True, "item J")])
 def test_stage2_trainers_refuse_what_is_not_ported(tmp_path, data_root, cls,
                                                    key, value, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -181,17 +180,37 @@ def test_stage2_trainers_build_bf16_under_the_key(tmp_path, data_root, cls,
                for p in step.params + step.ema.shadow)
 
 
-def test_ode_interpolation_and_vis_refuse(tmp_path, data_root):
-    """The visualizations refuse (item J); the PF-ODE interpolation, which
-    refused before continuous diffusion was ported, samples (its parity is
-    test_torch_port_weighted.py's)."""
+def test_ode_interpolation_and_vis_refuse(tmp_path, data_root, monkeypatch):
+    """The visualizations refuse at build when matplotlib cannot be
+    imported (once refused outright, item J1); the PF-ODE interpolation,
+    which refused before continuous diffusion was ported, samples (its
+    parity is test_torch_port_weighted.py's)."""
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            _port(TwoPrior, tmp_path, data_root, viz__viz_freq=400)
     pt = _port(TwoPrior, tmp_path, data_root)
-    with pytest.raises(NotImplementedError, match="item J"):
-        pt.vis_sample(0)
     out = interpolate.generate_interpolation(
         pt.lion, 2, torch.Generator().manual_seed(0), use_ode=True,
         ode_eps=1e-2, ode_solver_tol=1e-1)
     assert out["nfe"] > 0 and torch.isfinite(out["points"]).all()
+
+
+@pytest.mark.parametrize("cls", [TwoPrior, SinglePrior,
+                                 InterpolateLatentTrainer,
+                                 EncodeInterpTrainer])
+def test_stage2_trainers_draw_the_sample_grid(tmp_path, data_root, cls):
+    """viz.viz_freq != 0 (once refused): each stage-2 trainer builds and
+    draws its sample grid through its own `sample` (min(num_val_samples,
+    8) shapes) into images/ and metrics.jsonl."""
+    pt = _port(cls, tmp_path, data_root, viz__viz_freq=400,
+               viz__vis_sample_ddim_step=2 if cls is TwoPrior else 0)
+    pt.vis_sample(5)
+    pt.writer.close()
+    assert os.listdir(tmp_path / "images") == ["vis_sample_5.png"]
+    with open(tmp_path / "metrics.jsonl") as f:
+        assert [(r["tag"], r["step"]) for r in map(json.loads, f)] == [
+            ("vis/sample", 5)]
 
 
 # ------------------------------------------------------- VAE hand-over

@@ -261,13 +261,26 @@ def test_writer_writes_what_lion_tpu_writes(tmp_path):
 
 
 @pytest.mark.parametrize("var", ["USE_TFB", "USE_WB", "USE_COMET"])
-def test_writer_refuses_the_optional_sinks(tmp_path, monkeypatch, var):
+def test_writer_refuses_the_optional_sinks(tmp_path, monkeypatch, capsys,
+                                           var):
+    """A sink asked for by its variable whose package cannot be imported
+    is refused with one printed line (once refused outright); the JSONL
+    sink goes on, and add_image (once refused) writes its PNG."""
+    module = {"USE_TFB": "torch.utils.tensorboard", "USE_WB": "wandb",
+              "USE_COMET": "comet_ml"}[var]
+    monkeypatch.setitem(sys.modules, module, None)
     monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match="item J"):
-        Writer(log_dir=str(tmp_path))
-    monkeypatch.delenv(var)
-    with pytest.raises(NotImplementedError, match="item J"):
-        Writer(log_dir=str(tmp_path)).add_image("vis", None, 0)
+    w = Writer(log_dir=str(tmp_path), use_tensorboard=var == "USE_TFB")
+    assert "cannot start" in capsys.readouterr().out
+    w.add_scalar("eval/x", 0.5, 8)
+    path = w.add_image("vis/sample", np.zeros((4, 6, 3), np.uint8), 9)
+    w.close()
+    assert path == str(tmp_path / "images" / "vis_sample_9.png")
+    with open(path, "rb") as f:
+        assert f.read(4) == b"\x89PNG"
+    with open(tmp_path / "metrics.jsonl") as f:
+        assert [json.loads(line)["tag"] for line in f] == ["eval/x",
+                                                           "vis/sample"]
 
 
 # -------------------------------------------------------------- trainer
@@ -325,11 +338,30 @@ def test_trainer_trains_saves_resumes_and_scores_on_the_cpu(tmp_path,
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("viz__viz_freq", 400, "item J1"), ("data__cond_on_cat", True, "item J2")])
+    ("data__cond_on_cat", True, "item J2")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, data_root, key, value,
                                             match):
     with pytest.raises(NotImplementedError, match=match):
         _port_trainer(tmp_path, data_root, **{key: value})
+
+
+@pytest.mark.parametrize("viz_freq", [400, -2])
+def test_trainer_draws_the_visualizations(tmp_path, data_root, viz_freq):
+    """viz.viz_freq != 0 (once refused): the Trainer builds, and its
+    reconstruction and sample grids go to images/ and metrics.jsonl; the
+    reconstruction leaves the parameters as they were."""
+    pt = _port_trainer(tmp_path, data_root, viz__viz_freq=viz_freq)
+    params = [p.detach().clone() for p in pt.step_fn.params]
+    batch = next(iter(pt.train_loader))
+    pt.vis_recont(batch, 3)
+    pt.vis_sample(3)
+    pt.writer.close()
+    assert sorted(os.listdir(tmp_path / "images")) == ["vis_recont_3.png",
+                                                       "vis_sample_3.png"]
+    with open(tmp_path / "metrics.jsonl") as f:
+        assert [json.loads(line)["tag"] for line in f] == ["vis/recont",
+                                                           "vis/sample"]
+    assert all(torch.equal(p, q) for p, q in zip(pt.step_fn.params, params))
 
 
 @pytest.mark.parametrize("key", ["tpu__bf16"])
