@@ -166,6 +166,30 @@ non-zero:
      checkpoint, metrics.jsonl) and outputs are checked finite; each run
      launched its path's kernels (K2 and the rest on bf16 in training)
      and ran no plain version.
+ 23. data parallel (after phase 22, on its stage-1 checkpoint and stage-2
+     split): (a) `python -m lion_tpu_torch.train_dist` with
+     train_prior.sh's overrides (B10, bf16, one epoch of 2 steps) twice,
+     each in a child process: with `--distributed_init` in a one-rank NCCL
+     group (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT set here) and
+     without; the final checkpoints and the logged losses equal bit for
+     bit; (b) two child processes on the one card in a gloo group, full
+     width fp32 (dropout 0): DP_STEPS two-prior steps at B8 a rank on
+     seeded rows and draws, parameters `torch.equal` across the ranks and
+     within rtol 1e-4 / atol 1e-5 of this process's one-process B16 step on
+     the same rows and draws (2 lr a step where the gradient is rounding
+     noise, as Adam's sign may differ there), then a 2-rank
+     `eval_sample` gathering 16 clouds on rank 0. Children have a time
+     limit, and a child's failure fails the run.
+ 24. class and CLIP conditioning at full width: the flagship with
+     data.cond_on_cat (55 classes, a 64-wide embedding) and with
+     clipforge.enable (PriorSEClip, HashClip features): the
+     class-conditioned local prior and decoder and the se_clip global
+     prior and CLIP-mapped local prior, B2, on the card against the CPU
+     (1e-4 of the output's size); a labelled and a CLIP-conditioned
+     sample on each path (fp32 B4, bf16 B16, `--steps` steps); one
+     class- and one CLIP-conditioned two-prior step at B10; `demo --text`
+     on 4 shapes. Each run launched its path's kernels and no plain
+     version.
 Beside each kernel the JSON line gives its bound on the card (the larger of
 its bytes over 3.35 TB/s and its operations over 67 TFLOP/s fp32 or 989
 TFLOP/s bf16, H100 SXM peaks, with exps at the special-function units' 16
@@ -257,6 +281,13 @@ ODE_VAL_SAMPLES, INTERP_ODE_EPS = 8, 1e-3
 CLI_STAGE1_CLOUDS, CLI_STAGE2_CLOUDS = 64, 20
 CLI_EVAL_SHAPES, CLI_DDIM_STEPS, CLI_DEMO_SHAPES = 16, 25, 4
 CLI_VIZ_FREQ = 2
+# phase 23, data parallel: each rank's batch, the ranks of the gloo group
+# on the one card, its steps, eval_sample's shapes, a child's time limit
+DP_BATCH, DP_WORLD, DP_STEPS, DP_EVAL_SHAPES = 8, 2, 2, 16
+DP_TIMEOUT = 300
+# phase 24, conditioning: the class config's categories (all of ShapeNet)
+# and embedding width
+COND_NCLASS, COND_EMB = 55, 64
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the tensor
 # cores, bf16 on them, device memory; the special-function units (exp)
 # give 16 results per SM per clock against the fp32 lanes' 256 operations
@@ -2620,6 +2651,436 @@ def phase_clis(tmp):
         raise AssertionError(f"[cli demo] {shapes}, finite {finite}")
     log(f"[cli demo] {npz}: {shapes}, finite")
     log(f"[cli] phase 22: {time.perf_counter() - t_start:.1f} s")
+    return out, {"data_root": data2, "vae_ckpt": vae_ckpt}
+
+
+# ------------------------------------------------------------- phase 23
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_children(name, out_dir, envs, timeout=DP_TIMEOUT):
+    """Start `python chip_smoke.py --child name` once per environment in
+    `envs` (all together), wait for them, kill any still running after
+    `timeout` seconds; raise when one failed or timed out. Returns what
+    each saved."""
+    script = os.path.abspath(__file__)
+    procs = []
+    for r, env in enumerate(envs):
+        log_f = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, script, "--child", name, "--child-dir", out_dir,
+             "--child-rank", str(r)], env={**os.environ, **env},
+            stdout=log_f, stderr=subprocess.STDOUT), log_f))
+    deadline = time.time() + timeout
+    failed = []
+    for r, (proc, log_f) in enumerate(procs):
+        try:
+            proc.wait(max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            failed.append(f"rank {r} still running after {timeout} s")
+        log_f.close()
+    for proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    failed += [f"rank {r} exit code {p.returncode}"
+               for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = "".join(
+            f"\n--- rank {r} ---\n" + open(os.path.join(
+                out_dir, f"rank{r}.log")).read()[-3000:]
+            for r in range(len(procs)))
+        raise AssertionError(f"[{name}] children failed: {failed}{tails}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(len(procs))]
+
+
+def _counts():
+    from lion_tpu_torch import ops
+    return {n: (w.launches, w.plain_calls) for n, w in ops.KERNELS.items()}
+
+
+def _child_cli(rank, payload):
+    """23(a): the CLI on train_prior.sh's overrides, in or out of a group
+    of one (the child's command line and environment are the parent's
+    choice: argv[rank])."""
+    from lion_tpu_torch import ops, train_dist
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    tr = train_dist.main(payload["argv"][rank])
+    torch.cuda.synchronize()
+    return {"counts": _counts(), "seconds": time.perf_counter() - t0,
+            "step": tr.step, "save_dir": tr.save_dir}
+
+
+def _dp_trainer(payload, device):
+    from lion_tpu_torch.trainers import get_trainer
+    cfg = payload["cfg"]
+    args = types.SimpleNamespace(save_dir=cfg.save_dir,
+                                 data_root=payload["data_root"])
+    return get_trainer(cfg.trainer.type)(cfg, args, device=device)
+
+
+def _dp_steps(tr, payload, rows, device):
+    """DP_STEPS steps of the trainer's step on `rows` of the payload's x
+    and draws -> (ms a step, the last metrics)."""
+    d = payload["draws"]
+    draws = {"rho": tuple(t[rows].to(device) for t in d["rho"]),
+             "timestep": d["timestep"][rows].to(device),
+             "noise": tuple(t[rows].to(device) for t in d["noise"])}
+    x = payload["x"][rows].to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS):
+        metrics = tr.step_fn(x, None, **draws)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / DP_STEPS * 1e3
+    return ms, {k: float(v) for k, v in metrics.items()}
+
+
+def _child_dp(rank, payload):
+    """23(b): one of two ranks on the one card over gloo: the two-prior
+    trainer's step on its rows, then a gathered eval_sample."""
+    import torch.distributed as dist
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.parallel.dist import init_from_env
+    dev = init_from_env("cuda", payload["store"], backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        tr = _dp_trainer(payload, dev)
+        built = time.perf_counter() - t0
+        n = payload["x"].shape[0] // DP_WORLD
+        ops.reset_counts()
+        ms, metrics = _dp_steps(tr, payload, slice(rank * n, (rank + 1) * n),
+                                dev)
+        counts = _counts()
+        t0 = time.perf_counter()
+        results = tr.eval_sample(step=0, num_gen=DP_EVAL_SHAPES,
+                                 metric2=None)
+        torch.cuda.synchronize()
+        return {"ms": ms, "metrics": metrics, "counts": counts,
+                "built": built, "eval_s": time.perf_counter() - t0,
+                "results": None if results is None else
+                {k: float(v) for k, v in results.items()
+                 if np.ndim(v) == 0},
+                "params": [p.detach().cpu() for p in tr.step_fn.params]}
+    finally:
+        dist.destroy_process_group()
+
+
+CHILDREN = {"cli": _child_cli, "dp": _child_dp}
+
+
+def child_main(name, out_dir, rank):
+    """A child process of phase 23 (`--child`): runs CHILDREN[name] and
+    saves what it returns, or its traceback, under out_dir."""
+    import traceback
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    payload = torch.load(os.path.join(out_dir, "payload.pt"),
+                         weights_only=False)
+    try:
+        out = CHILDREN[name](rank, payload)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _flat_npz(path):
+    from lion_tpu_torch.ckpt import load_checkpoint
+    from lion_tpu_torch.ckpt.io import flatten_tree
+    trees, meta = load_checkpoint(path)
+    return {k: np.asarray(v) for k, v in flatten_tree(trees).items()}, meta
+
+
+def phase_data_parallel(tmp, data_root, vae_ckpt):
+    """23. Data parallel (see the module's docstring): (a) train_prior.sh's
+    CLI under a one-rank NCCL group and without one, equal bit for bit;
+    (b) two processes on the card over gloo against the one-process step,
+    and a gathered eval_sample. Returns the launch counts of each run."""
+    from lion_tpu_torch import train_dist
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "lion_tpu_torch", "scripts")
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()    # the children share the card
+    overrides = train_dist.script_overrides(
+        os.path.join(scripts, "train_prior.sh"), CATE="chair",
+        VAE_CKPT=vae_ckpt) + ["trainer.epochs", "1", "viz.viz_freq", "0",
+                              "viz.log_freq", "1"]
+    out = {}
+    one_rank = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+                "NCCL_SOCKET_IFNAME": "lo"}
+    # the two runs side by side on the card, each in its own experiment
+    d = os.path.join(tmp, "dp_cli")
+    os.makedirs(d)
+    labels = ("nccl1", "nogroup")
+    argvs = [["--exp_root", os.path.join(d, label), "--data_root",
+              data_root] + flags + overrides
+             for label, flags in zip(labels, (["--distributed_init"], []))]
+    torch.save({"argv": argvs}, os.path.join(d, "payload.pt"))
+    runs = dict(zip(labels, _spawn_children("cli", d, [one_rank, {}])))
+    for label, argv in zip(labels, argvs):
+        log(f"[dp {label}] python -m lion_tpu_torch.train_dist "
+            f"{' '.join(argv)}: step {runs[label]['step']}, "
+            f"{runs[label]['seconds']:.1f} s in the child")
+    got, meta = _flat_npz(os.path.join(runs["nccl1"]["save_dir"],
+                                       "checkpoints", "final.npz"))
+    want, meta0 = _flat_npz(os.path.join(runs["nogroup"]["save_dir"],
+                                         "checkpoints", "final.npz"))
+    losses = []
+    for label in ("nccl1", "nogroup"):
+        with open(os.path.join(runs[label]["save_dir"],
+                               "metrics.jsonl")) as f:
+            losses.append([json.loads(line)["value"] for line in f
+                           if json.loads(line)["tag"] == "train/loss"])
+    if set(got) != set(want) or meta != meta0 or losses[0] != losses[1] or \
+            not losses[0] or not all(np.array_equal(got[k], want[k])
+                                     for k in want):
+        raise AssertionError(f"[dp nccl1] differs from one process: losses "
+                             f"{losses}, metadata {meta} vs {meta0}")
+    log(f"[dp nccl1] a one-rank NCCL group equals no group bit for bit: "
+        f"losses {losses[0]}, {len(want)} checkpoint arrays at step "
+        f"{meta['step']}")
+    for label in ("nccl1", "nogroup"):
+        counts = runs[label]["counts"]
+        if [n for n in TRAIN_PATH if counts[n][0] == 0] or \
+                any(p for _, p in counts.values()):
+            raise AssertionError(f"[dp {label}] launches {counts}")
+        out[f"dp_{label}"] = {n: k for n, (k, _) in counts.items()}
+    log(f"[dp nccl1] launches (kernel, plain): {runs['nccl1']['counts']}")
+
+    # (b) two ranks over gloo on the one card, full width fp32
+    d = os.path.join(tmp, "dp_gloo")
+    os.makedirs(d)
+    args = train_dist.get_args(
+        ["--exp_root", os.path.join(d, "exp"), "--data_root", data_root]
+        + overrides + ["tpu.bf16", "False", "sde.dropout", "0.0",
+                       "ddpm.dropout", "0.0", "eval_ddim_step",
+                       str(CLI_DDIM_STEPS)])
+    cfg = train_dist.build_cfg(args)
+    b = DP_WORLD * DP_BATCH
+    g = torch.Generator().manual_seed(61)
+    local = 2048 * 4
+    payload = {
+        "cfg": cfg, "data_root": data_root,
+        "store": "file://" + os.path.join(d, "store"),
+        "x": torch.randn(b, 2048, 3, generator=g) * 0.3,
+        "draws": {"rho": (torch.randn(b, 128, generator=g),
+                          torch.randn(b, local, generator=g)),
+                  "timestep": torch.randint(1, 1001, (b,), generator=g),
+                  "noise": (torch.randn(b, 128, generator=g),
+                            torch.randn(b, local, generator=g))}}
+    torch.save(payload, os.path.join(d, "payload.pt"))
+    envs = [{"RANK": str(r), "WORLD_SIZE": str(DP_WORLD), "LOCAL_RANK": "0"}
+            for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    ranks = _spawn_children("dp", d, envs)
+    gloo_s = time.perf_counter() - t0
+    # the one-process step on all the rows, here, counted apart
+    from lion_tpu_torch import ops
+    one = _dp_trainer(payload, torch.device("cuda"))
+    ops.reset_counts()
+    ms_one, metrics_one = _dp_steps(one, payload, slice(0, b), "cuda")
+    out["dp_one"] = {n: k for n, (k, _) in _counts().items()}
+    want = [p.detach().cpu() for p in one.step_fn.params]
+    grads = [p.grad.detach().cpu() for p in one.step_fn.params]
+    lr = float(cfg.sde.learning_rate_dae)
+    g_norm = float(torch.cat([x.reshape(-1) for x in grads]).norm())
+    worst = 0.0
+    for a, c, w, gr in zip(ranks[0]["params"], ranks[1]["params"], want,
+                           grads):
+        if not torch.equal(a, c):
+            raise AssertionError("[dp gloo] the ranks' parameters differ")
+        # where the gradient is rounding noise Adam's sign may differ: up
+        # to 2 lr a step
+        tol = torch.where(gr.abs() <= 1e-6 * g_norm,
+                          torch.full_like(w, 2 * lr * DP_STEPS + 1e-5),
+                          1e-5 + 1e-4 * w.abs())
+        excess = float(((a - w).abs() - tol).max())
+        worst = max(worst, float((a - w).abs().max()))
+        if excess > 0:
+            raise AssertionError(f"[dp gloo] parameters off the one-process "
+                                 f"step by {excess:.3e} past the bound")
+    m0 = ranks[0]["metrics"]
+    if m0 != ranks[1]["metrics"] or not np.isclose(
+            m0["loss"], metrics_one["loss"], rtol=1e-4, atol=1e-6):
+        raise AssertionError(f"[dp gloo] metrics {m0} / "
+                             f"{ranks[1]['metrics']} vs one process "
+                             f"{metrics_one}")
+    samples = torch.load(os.path.join(cfg.save_dir, "samples_0.pt"))
+    res = ranks[0]["results"]
+    if ranks[1]["results"] is not None or res is None or \
+            tuple(samples.shape) != (DP_EVAL_SHAPES, 2048, 3) or \
+            not bool(torch.isfinite(samples).all()):
+        raise AssertionError(f"[dp gloo] eval_sample: {res}, "
+                             f"{tuple(samples.shape)}")
+    rank_counts = {n: sum(r["counts"][n][0] for r in ranks)
+                   for n in ranks[0]["counts"]}
+    if [n for n in TRAIN_PATH if rank_counts[n] == 0] or any(
+            p for r in ranks for _, p in r["counts"].values()):
+        raise AssertionError(f"[dp gloo] launches {ranks[0]['counts']} / "
+                             f"{ranks[1]['counts']}")
+    out["dp_gloo"] = rank_counts
+    log(f"[dp gloo] {DP_WORLD} ranks on one card, {DP_STEPS} two-prior "
+        f"steps at B{DP_BATCH} a rank: {ranks[0]['ms']:.3f} / "
+        f"{ranks[1]['ms']:.3f} ms/step (one process at B{b}: "
+        f"{ms_one:.3f} ms/step); parameters equal across the ranks, "
+        f"max |rank - one process| {worst:.3e}; loss {m0['loss']:.6f} vs "
+        f"{metrics_one['loss']:.6f}; eval_sample gathered "
+        f"{DP_EVAL_SHAPES} clouds on rank 0 ({ranks[0]['eval_s']:.1f} s), "
+        f"1-NN-CD {res['1-NN-CD-acc']:.4f}; children {gloo_s:.1f} s")
+    log(f"[dp gloo] launches a rank (kernel, plain): {ranks[0]['counts']}")
+    del one
+    torch.cuda.empty_cache()
+    log(f"[dp] phase 23: {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------- phase 24
+def _cond_cfgs():
+    """The flagship with class conditioning (55 classes, a 64-wide
+    embedding) and with CLIP conditioning (PriorSEClip)."""
+    from lion_tpu_torch.config import flagship_cfg
+    cls = flagship_cfg()
+    cls.data.cond_on_cat, cls.data.nclass = 1, COND_NCLASS
+    cls.tpu.cls_emb_dim = COND_EMB
+    clip = flagship_cfg()
+    clip.clipforge.enable = 1
+    clip.latent_pts.style_prior = "models.score_sde.resnet.PriorSEClip"
+    return cls, clip
+
+
+def _card_vs_cpu(label, cpu_fn, gpu_fn):
+    with torch.no_grad():
+        ref = cpu_fn()
+        got = gpu_fn().cpu()
+    err, scale = max_abs(got, ref), float(ref.abs().max())
+    log(f"[cond] {label}: card vs CPU max_abs_err {err:.3e} (max |ref| "
+        f"{scale:.3e})")
+    torch.testing.assert_close(got, ref, rtol=0.0, atol=1e-4 * scale)
+
+
+def phase_conditioning(steps, tmp):
+    """24. Class and CLIP conditioning at full width (see the module's
+    docstring). Returns the launch counts of each run."""
+    from lion_tpu_torch import demo, ops
+    from lion_tpu_torch.models import LION
+    from lion_tpu_torch.trainers import make_prior_train_step
+    from lion_tpu_torch.utils.clip_helper import HashClip
+    t_start = time.perf_counter()
+    cls_cfg, clip_cfg = _cond_cfgs()
+    g = torch.Generator().manual_seed(71)
+    labels = torch.tensor([3, 54])
+    feat = torch.from_numpy(HashClip().encode_text(["a chair", "a car"]))
+    x, t, _ = _forward_inputs()
+    out = {}
+
+    # the forwards, card vs CPU
+    cpu = LION(cls_cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(72)).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    cond = torch.cat([torch.randn(2, 128, generator=g),
+                      cpu.class_condition(labels).detach()], dim=1)
+    _card_vs_cpu("class-conditioned local prior B2", lambda: cpu.local_prior(
+        x, t, condition_input=cond), lambda: gpu.local_prior(
+        x.cuda(), t.cuda(), condition_input=cond.cuda()))
+    z = [torch.randn(2, 128, generator=g),
+         torch.randn(2, 2048 * 4, generator=g)]
+    _card_vs_cpu("class-conditioned decoder B2", lambda: cpu.vae.sample(
+        2, z, class_label=labels), lambda: gpu.vae.sample(
+        2, [v.cuda() for v in z], class_label=labels.cuda()))
+    del cpu, gpu
+    cpu = LION(clip_cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(73)).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    _card_vs_cpu("se_clip global prior B2", lambda: cpu.global_prior(
+        z[0], t, clip_feat=feat), lambda: gpu.global_prior(
+        z[0].cuda(), t.cuda(), clip_feat=feat.cuda()))
+    _card_vs_cpu("CLIP-conditioned local prior B2", lambda: cpu.local_prior(
+        x, t, condition_input=z[0], clip_feat=feat), lambda: gpu.local_prior(
+        x.cuda(), t.cuda(), condition_input=z[0].cuda(),
+        clip_feat=feat.cuda()))
+    del cpu, gpu
+
+    # samples on both paths, and a two-prior step of each
+    for kind, cfg in (("class", cls_cfg), ("clip", clip_cfg)):
+        for path, batch, bf16, kernels in (("fp32", BATCH, False, FP32_PATH),
+                                           ("bf16", BATCH_BF16, True,
+                                            BF16_PATH)):
+            c = copy.deepcopy(cfg)
+            c.ddpm.num_steps = steps
+            c.tpu.bf16 = bf16
+            lion = LION(c).init_params(torch.Generator(
+                device="cuda").manual_seed(74))
+            if kind == "class":
+                cond = {"class_label": torch.arange(batch) % COND_NCLASS}
+            else:
+                cond = {"clip_feat": HashClip().encode_text(
+                    [f"shape {i}" for i in range(batch)])}
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            pts = lion.sample(batch, torch.Generator(
+                device="cuda").manual_seed(75), **cond)["points"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            label = f"cond {kind} {path}"
+            out[label.replace(" ", "_")] = _path_counts(kernels, label)
+            if tuple(pts.shape) != (batch, 2048, 3) or not bool(
+                    torch.isfinite(pts).all()):
+                raise AssertionError(f"[{label}] points {tuple(pts.shape)}")
+            log(f"[{label}] sample B{batch}, {steps} steps: {wall:.2f} s, "
+                f"{batch / wall:.4f} shapes/s, points std "
+                f"{float(pts.std()):.4f}")
+            del lion
+        lion = LION(cfg).init_params(torch.Generator(
+            device="cuda").manual_seed(76))
+        step = make_prior_train_step(lion, lambda i: 2e-4)
+        gen = torch.Generator(device="cuda").manual_seed(77)
+        xb = torch.randn(BATCH_STAGE2, 2048, 3, generator=gen,
+                         device="cuda") * 0.3
+        cond = {"class_label": torch.arange(BATCH_STAGE2,
+                                            device="cuda") % COND_NCLASS} \
+            if kind == "class" else {"clip_feat": torch.from_numpy(
+                HashClip().encode_text([f"s{i}" for i in range(
+                    BATCH_STAGE2)])).cuda()}
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        metrics = step(xb, gen, **cond)
+        torch.cuda.synchronize()
+        label = f"cond {kind} step"
+        out[label.replace(" ", "_")] = _path_counts(TRAIN_PATH, label)
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss) or not all(
+                bool(torch.isfinite(p).all()) for p in step.params):
+            raise AssertionError(f"[{label}] loss {loss}")
+        log(f"[{label}] two-prior step B{BATCH_STAGE2}: loss {loss:.4f}, "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first step)")
+        del lion, step
+        torch.cuda.empty_cache()
+
+    # the demo's text prompt
+    cfg_yml, npz = os.path.join(tmp, "clip_cfg.yml"), \
+        os.path.join(tmp, "clip_demo.npz")
+    clip_cfg.save(cfg_yml)
+    argv = ["--config", cfg_yml, "--text", "a tall chair", "--num_samples",
+            str(CLI_DEMO_SHAPES), "--ddim_step", str(CLI_DDIM_STEPS),
+            "--out", npz]
+    log(f"[cond] python -m lion_tpu_torch.demo {' '.join(argv)}")
+    _, out["cond_demo"], _ = _cli_run("cond demo", FP32_PATH, demo.main,
+                                      argv)
+    with np.load(npz) as got:
+        if got["points"].shape != (CLI_DEMO_SHAPES, 2048, 3) or \
+                not np.isfinite(got["points"]).all():
+            raise AssertionError(f"[cond demo] {got['points'].shape}")
+    log(f"[cond] phase 24: {time.perf_counter() - t_start:.1f} s")
     return out
 
 
@@ -2630,7 +3091,14 @@ def main(argv=None):
     ap.add_argument("--eval-n", type=int, default=0,
                     help="also score N against N clouds without sampling "
                     "(662: the chair test set)")
+    # a child process of phase 23 (the script starts its own)
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--child-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--child-rank", type=int, default=0,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.child:
+        return child_main(args.child, args.child_dir, args.child_rank)
     t_start = time.perf_counter()
 
     phase_device()
@@ -2677,7 +3145,9 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            clis = phase_clis(tmp)
+            clis, stage2_files = phase_clis(tmp)
+            dp = phase_data_parallel(tmp, **stage2_files)
+            cond = phase_conditioning(args.steps, tmp)
         finally:
             os.chdir(cwd)
 
@@ -2689,7 +3159,7 @@ def main(argv=None):
              "bf16_vae_train": bf16_train["vae"],
              "bf16_vae_trainer": bf16_trainers["trainers.hvae_trainer"],
              "bf16_stage2_trainer": bf16_trainers["trainers.train_2prior"],
-             **clis}
+             **clis, **dp, **cond}
     report = []
     for name in REPORT_ORDER:
         w = KERNELS[name]

@@ -11,8 +11,12 @@ on the frozen VAE, and the single-prior and interpolation trainers) in
 fp32 and bf16; scoring against a reference set; and the user entry
 points: `python -m lion_tpu_torch.train_dist` (the training and
 evaluation CLI, which `scripts/train_vae.sh` and `train_prior.sh` run) and
-`python -m lion_tpu_torch.demo`. Its entry points run on the card unless
-the caller passes `device="cpu"` (`--device cpu` on the command line).
+`python -m lion_tpu_torch.demo`; data-parallel training over
+torch.distributed (one process a GPU, `torchrun ... --distributed_init`);
+class conditioning (data.cond_on_cat) and CLIP conditioning
+(clipforge.enable, `demo --text`); and the Mitsuba scene export. Its
+entry points run on the card unless the caller passes `device="cpu"`
+(`--device cpu` on the command line).
 
 Layout:
   config/     yacs-compatible config tree (copy of lion_tpu/config)
@@ -32,8 +36,11 @@ Layout:
               (csrc/npy_loader.cpp, built with g++)
   ckpt/       `.npz` checkpoints in lion_tpu's layout both ways, the
               released `.pt` schema both ways, JAX param tree -> state_dict
+  parallel/   data parallel over torch.distributed: the process group from
+              torchrun's environment, the gradient mean, row gathers
   utils/      losses, spectral norm, the metrics writer, visualization,
-              experiment naming
+              experiment naming, shape checks, CLIP features, Mitsuba
+              scene export
   scripts/    the released training recipes over train_dist
 """
 

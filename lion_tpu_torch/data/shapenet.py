@@ -7,9 +7,15 @@ reader, data/native.py, when every file has the same row count, else one
 `np.load` a file), shuffles them with the seed 38383, normalizes them by
 one of the four modes and subsamples `tr_points` / `input_pts` per item;
 `DataLoader` batches them per epoch, reshuffled by `set_epoch`, one shard
-of `num_shards` (data parallelism is ROADMAP Queue 1 item I). For the same
-root and seed the batches equal the JAX package's bit for bit. CLIP render
-images (`clip_forge_enable`) are refused (item J2).
+of `num_shards` (a trainer's rank of the world, trainers/base.py). For the
+same root and seed the batches equal the JAX package's bit for bit.
+
+With `clip_forge_enable` each item also carries `num_imgs_per_item` random
+render views of its shape, `<clip_img_root>/<synset>/<id>/img_choy2016/
+*.{jpg,png}`, resized to `clip_img_size` and stacked as (K, S, S, 3) uint8
+under `tr_img` (lion_tpu/data/shapenet.py:59-73, 104-111, 218-236); the
+trainer's CLIP encoder reads them. They are decoded with PIL, which the
+dataset checks for when it is built.
 """
 from __future__ import annotations
 
@@ -20,6 +26,18 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .native import load_npy_batch, npy_shape
+
+
+def check_pil() -> None:
+    """The render images decode with PIL: raise at build, with a clear
+    message, when it cannot be imported."""
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError as err:
+        raise ImportError(
+            f"data.clip_forge_enable reads the render images with PIL, which"
+            f" cannot be imported ({err}); install Pillow or set "
+            "data.clip_forge_enable 0") from err
 
 
 def _rows(path: str) -> int:
@@ -67,11 +85,23 @@ class ShapeNet15kPointClouds:
                  all_points_std: Optional[np.ndarray] = None,
                  random_subsample: bool = True,
                  sample_with_replacement: bool = True,
-                 input_dim: int = 3):
+                 input_dim: int = 3,
+                 clip_forge_enable: bool = False,
+                 clip_img_root: Optional[str] = None,
+                 clip_img_size: int = 224,
+                 num_imgs_per_item: int = 5):
         if split not in ("train", "test", "val"):
             raise ValueError(f"split {split!r}")
         self.split = split
         self.input_dim = input_dim
+        self.clip_forge_enable = bool(clip_forge_enable)
+        if self.clip_forge_enable:
+            check_pil()
+            if not clip_img_root:
+                raise ValueError("clip_forge_enable needs clip_img_root")
+        self.clip_img_root = clip_img_root
+        self.clip_img_size = int(clip_img_size)
+        self.num_imgs_per_item = int(num_imgs_per_item)
         self.random_subsample = random_subsample
         self.sample_with_replacement = sample_with_replacement
         self.recenter_per_shape = recenter_per_shape
@@ -89,6 +119,7 @@ class ShapeNet15kPointClouds:
         paths: List[str] = []
         self.cate_idx_lst: List[int] = []
         self.all_cate_mids: List = []
+        self.img_path: List[str] = []
         for cate_idx, subd in enumerate(self.synset_ids):
             sub_path = os.path.join(root_dir, subd, split)
             if not os.path.isdir(sub_path):
@@ -100,6 +131,16 @@ class ShapeNet15kPointClouds:
                 paths.append(os.path.join(sub_path, fname))
                 self.cate_idx_lst.append(cate_idx)
                 self.all_cate_mids.append((subd, mid))
+                if self.clip_forge_enable:
+                    # <img_root>/<synset>/<id>/img_choy2016
+                    # (pointflow_datasets.py:176-182)
+                    render = os.path.join(self.clip_img_root, subd,
+                                          fname[:-len(".npy")],
+                                          "img_choy2016")
+                    if not os.path.exists(render):
+                        raise FileNotFoundError(
+                            f"render img path not found: {render}")
+                    self.img_path.append(render)
         if not paths:
             raise FileNotFoundError(
                 f"no .npy point clouds under {root_dir} for "
@@ -121,6 +162,8 @@ class ShapeNet15kPointClouds:
         self.cate_idx_lst = [self.cate_idx_lst[i] for i in shuffle_idx]
         all_points = [all_points[i] for i in shuffle_idx]
         self.all_cate_mids = [self.all_cate_mids[i] for i in shuffle_idx]
+        if self.clip_forge_enable:
+            self.img_path = [self.img_path[i] for i in shuffle_idx]
 
         self.all_points = np.concatenate(all_points)  # (B, 15000, 3)
         b, n = self.all_points.shape[:2]
@@ -196,7 +239,29 @@ class ShapeNet15kPointClouds:
             "sid": sid, "mid": mid,
             "display_axis_order": self.display_axis_order,
         }
+        if self.clip_forge_enable:
+            out["tr_img"] = self._load_render_imgs(idx, rng)
         return out
+
+    def _load_render_imgs(self, idx, rng=None) -> np.ndarray:
+        """`num_imgs_per_item` random render views (K, S, S, 3) uint8
+        (pointflow_datasets.py:340-353; the CLIP preprocessing is the
+        trainer's encoder's)."""
+        rng = rng or np.random
+        from PIL import Image
+        d = self.img_path[idx]
+        files = sorted(f for f in os.listdir(d)
+                       if f.endswith(("jpg", "png")))
+        if not files:
+            raise FileNotFoundError(f"empty render dir {d}")
+        pick = rng.choice(len(files), self.num_imgs_per_item)
+        imgs = []
+        for o in pick:
+            img = Image.open(os.path.join(d, files[int(o)])).convert("RGB")
+            img = img.resize((self.clip_img_size, self.clip_img_size),
+                             Image.BICUBIC)
+            imgs.append(np.asarray(img, np.uint8))
+        return np.stack(imgs)
 
 
 class DataLoader:
@@ -252,14 +317,13 @@ class DataLoader:
                 "cate_idx": np.asarray([it["cate_idx"] for it in items]),
                 "idx": np.asarray([it["idx"] for it in items]),
             }
+            if "tr_img" in items[0]:
+                batch["tr_img"] = np.stack([it["tr_img"] for it in items])
             yield batch
 
 
 def get_datasets(cfg_data, root_dir: Optional[str] = None):
     """Build train/test datasets from cfg.data (pointflow_datasets.py:363-415)."""
-    if getattr(cfg_data, "clip_forge_enable", 0):
-        raise NotImplementedError("CLIP render images are not ported "
-                                  "(ROADMAP Queue 1 item J2)")
     root = root_dir or cfg_data.data_dir
     cates = cfg_data.cates
     cates = cates.split(",") if isinstance(cates, str) else cates
@@ -274,6 +338,8 @@ def get_datasets(cfg_data, root_dir: Optional[str] = None):
         recenter_per_shape=bool(cfg_data.recenter_per_shape),
         random_subsample=bool(cfg_data.random_subsample),
         sample_with_replacement=bool(cfg_data.sample_with_replacement),
+        clip_forge_enable=bool(getattr(cfg_data, "clip_forge_enable", 0)),
+        clip_img_root=getattr(cfg_data, "clip_img_root", None) or None,
     )
     train = ShapeNet15kPointClouds(root, split="train", **kwargs)
     eval_split = "test" if cfg_data.eval_test_split else "val"

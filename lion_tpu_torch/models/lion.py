@@ -22,8 +22,16 @@ t = 1 to `cfg.sde.ode_eps`) and the output gains the number of function
 evaluations (`nfe`). With `cfg.tpu.bf16 = True` the local prior's and the
 decoder's U-Nets compute in bf16; the global prior, the parameters and
 the chains stay fp32. A released .pt loads through
-`ckpt.load_lion_checkpoint` and `load_jax_params`. Class and CLIP
-conditioning are not ported yet.
+`ckpt.load_lion_checkpoint` and `load_jax_params`.
+
+Conditioning (lion_tpu/models/lion.py:101-106, 178-190, 234-283): under
+`data.cond_on_cat` the samplers take `class_label` ((B,) ints or one-hot
+rows): the local prior is conditioned on concat([z_global, cls_emb]) with
+the frozen VAE's class embedding, and the decoder takes the label; the
+PF-ODE refuses labels, as the JAX package does. Under `clipforge.enable`
+they take `clip_feat` (B, clipforge.feat_dim), which both priors read.
+`sample_chunked(group=)` splits the rows over the ranks of a process group
+and gathers them back on every rank (lion_tpu's `mesh`).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from ..config.view import as_view
 from ..diffusion.continuous import make_diffusion
 from ..diffusion.discrete import DiffusionDiscretized, randn
 from ..nn.common import init_weights
+from ..parallel.dist import gather_rows
 from .registry import build_global_prior, build_local_prior
 from .vae import VAE
 
@@ -75,6 +84,7 @@ class LION(nn.Module):
         self.style_dim = view.latent_pts.style_dim
         self.point_channels = view.shapelatent.latent_dim + view.ddpm.input_dim
         self.local_dim = self.num_points * self.point_channels
+        self.cond_on_cat = bool(view.data.cond_on_cat)
 
     @property
     def device(self) -> torch.device:
@@ -91,10 +101,16 @@ class LION(nn.Module):
         self.load_state_dict(state_dict_from_jax(tree), strict=True)
         return self
 
+    def class_condition(self, class_label) -> torch.Tensor:
+        """(B,) int labels or (B, nclass) one-hot rows -> the frozen VAE's
+        class embedding (B, tpu.cls_emb_dim) (cond_on_cat runs)."""
+        return self.vae.embed_class(class_label)
+
     @torch.no_grad()
     def sample(self, num_samples: int = 10,
                generator: Optional[torch.Generator] = None,
-               given_noise=None, ddim_step: int = 0) -> dict:
+               given_noise=None, ddim_step: int = 0, class_label=None,
+               clip_feat=None) -> dict:
         """Hierarchical sampling: the PF-ODE under cfg.sde.ode_sample,
         else ancestral DDPM, or DDIM with `ddim_step` steps when it is
         above 0 (which the PF-ODE refuses, as the JAX package does).
@@ -108,7 +124,8 @@ class LION(nn.Module):
         z_local (B, N*C), points (B, N, 3), the wall seconds of each stage
         (`stage_seconds`, after a device sync) and under the PF-ODE the
         function evaluations of both priors (`nfe`) and of each
-        (`nfe_global`, `nfe_local`)."""
+        (`nfe_global`, `nfe_local`). `class_label` (cond_on_cat) and
+        `clip_feat` (clipforge.enable) condition the sample."""
         use_ode = bool(self.cfg.sde.ode_sample)
         if use_ode and ddim_step > 0:
             raise ValueError("ode_sample and ddim_step are exclusive")
@@ -122,21 +139,60 @@ class LION(nn.Module):
                 raise ValueError("the PF-ODE draws no step noise: give "
                                  "((init_g, None), (init_l, None))")
         return self._sample(num_samples, generator, given_noise, chunks=1,
-                            ddim_step=ddim_step, ode=use_ode)
+                            ddim_step=ddim_step, ode=use_ode,
+                            class_label=class_label, clip_feat=clip_feat)
 
     @torch.no_grad()
     def sample_chunked(self, num_samples: int,
                        generator: Optional[torch.Generator] = None,
-                       chunks: int = 4, given_noise=None) -> dict:
+                       chunks: int = 4, given_noise=None, class_label=None,
+                       clip_feat=None, group=None) -> dict:
         """`sample` with each chain run as `chunks` equal segments (the JAX
         package splits its device programs so; here the segments run back
         to back and give the same samples as `sample`, `given_noise`
         included). It runs the ancestral chain under cfg.sde.ode_sample
-        too, as the JAX package's does."""
+        too, as the JAX package's does.
+
+        `group`: a torch.distributed process group (the default one:
+        `torch.distributed.group.WORLD`) whose size divides num_samples.
+        Rank r samples rows [r n, (r + 1) n) of n = num_samples / size:
+        its rows of every `given_noise` draw, label and CLIP feature;
+        without given noise, a generator seeded by a draw from `generator`
+        plus the rank. Every rank returns all rows in rank order."""
         if self.diffusion.num_steps % chunks:
             raise ValueError(f"chunks ({chunks}) must divide ddpm.num_steps "
                              f"({self.diffusion.num_steps})")
-        return self._sample(num_samples, generator, given_noise, chunks)
+        if group is None:
+            return self._sample(num_samples, generator, given_noise, chunks,
+                                class_label=class_label, clip_feat=clip_feat)
+        import torch.distributed as dist
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        if num_samples % size:
+            raise ValueError(f"num_samples ({num_samples}) must divide over "
+                             f"the group's {size} ranks")
+        n = num_samples // size
+        rows = slice(rank * n, (rank + 1) * n)
+        if given_noise is not None:
+            given_noise = tuple(
+                (None if init is None else init[rows],
+                 None if steps is None else steps[:, rows])
+                for init, steps in given_noise)
+        else:
+            dev = self.device
+            gen = generator if generator is not None else \
+                torch.Generator(device=dev).manual_seed(0)
+            base = int(torch.randint(2 ** 62, (1,), generator=gen,
+                                     device=gen.device))
+            generator = torch.Generator(device=dev).manual_seed(base + rank)
+        if class_label is not None:
+            class_label = torch.as_tensor(class_label)[rows]
+        if clip_feat is not None:
+            clip_feat = torch.as_tensor(clip_feat)[rows]
+        out = self._sample(n, generator, given_noise, chunks,
+                           class_label=class_label, clip_feat=clip_feat)
+        for k in ("z_global", "z_local", "points"):
+            out[k] = gather_rows(out[k], group)
+        return out
 
     def _chain(self, model_fn, x, generator, mixing_logit, given_noise,
                chunks: int, ddim_step: int = 0):
@@ -163,10 +219,44 @@ class LION(nn.Module):
             ode_solver_tol=float(sde.ode_solver_tol), noise=x,
             mixing_logit=mixing_logit)
 
+    def condition_inputs(self, num_samples, class_label=None,
+                         clip_feat=None, ode: bool = False):
+        """The class embedding (or None) and the CLIP features on the
+        model's device (or None), checked against the config: labels
+        under data.cond_on_cat and not for the PF-ODE (`ode`), features
+        under clipforge.enable."""
+        dev = self.device
+        cls_emb = None
+        if self.cond_on_cat:
+            if class_label is None:
+                raise ValueError("data.cond_on_cat: the priors need "
+                                 "class_label")
+            if ode:
+                raise ValueError(
+                    "the PF-ODE takes no class labels (lion_tpu/models/"
+                    "lion.py:248; the reference's assert, "
+                    "train_2prior.py:67)")
+            cls_emb = self.class_condition(class_label)
+        elif class_label is not None:
+            raise ValueError("class_label needs data.cond_on_cat")
+        if clip_feat is not None:
+            if not self.cfg.clipforge.enable:
+                raise ValueError("clip_feat needs clipforge.enable")
+            clip_feat = torch.as_tensor(clip_feat, dtype=torch.float32,
+                                        device=dev)
+            if clip_feat.shape[0] != num_samples:
+                raise ValueError(f"clip_feat {tuple(clip_feat.shape)} for "
+                                 f"{num_samples} samples")
+        return cls_emb, clip_feat
+
     def _sample(self, num_samples, generator, given_noise, chunks,
-                ddim_step=0, ode=False):
+                ddim_step=0, ode=False, class_label=None, clip_feat=None):
         self.eval()
         dev = self.device
+        cls_emb, clip_feat = self.condition_inputs(num_samples, class_label,
+                                                   clip_feat, ode)
+        global_fn = lambda xx, t: self.global_prior(  # noqa: E731
+            xx, t, clip_feat=clip_feat)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         (x_g, noise_g), (x_l, noise_l) = given_noise or ((None, None),
@@ -183,10 +273,9 @@ class LION(nn.Module):
             else x_g.reshape(shape_g).to(dev)
         nfe = {}
         if ode:
-            z_global, nfe["nfe_global"] = self._ode(self.global_prior, x,
-                                                    mix_g)
+            z_global, nfe["nfe_global"] = self._ode(global_fn, x, mix_g)
         else:
-            z_global = self._chain(self.global_prior, x, generator, mix_g,
+            z_global = self._chain(global_fn, x, generator, mix_g,
                                    noise_g, chunks, ddim_step)
         _sync(dev)
         t1 = time.perf_counter()
@@ -195,8 +284,10 @@ class LION(nn.Module):
         shape_l = (num_samples, self.num_points, self.point_channels)
         x = randn(shape_l, generator, dev) if x_l is None \
             else x_l.reshape(shape_l).to(dev)
+        condition = z_global if cls_emb is None else \
+            torch.cat([z_global, cls_emb], dim=1)
         local_fn = lambda xx, t: self.local_prior(  # noqa: E731
-            xx, t, condition_input=z_global)
+            xx, t, condition_input=condition, clip_feat=clip_feat)
         if ode:
             z_local, nfe["nfe_local"] = self._ode(local_fn, x, mix_l)
             nfe["nfe"] = nfe["nfe_global"] + nfe["nfe_local"]
@@ -208,7 +299,8 @@ class LION(nn.Module):
         t2 = time.perf_counter()
         seconds["local"] = t2 - t1
 
-        points = self.vae.sample(num_samples, [z_global, z_local])
+        points = self.vae.sample(num_samples, [z_global, z_local],
+                                 class_label=class_label)
         _sync(dev)
         seconds["decode"] = time.perf_counter() - t2
         return {"z_global": z_global, "z_local": z_local, "points": points,

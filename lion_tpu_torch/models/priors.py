@@ -2,10 +2,13 @@
 
   - GlobalPrior: the ResNet of 1x1 blocks (models/score_sde/resnet.py),
     dense layers over the flat style latent: the 'se_drop' blocks of
-    PriorSEDrop (the released models) or the 'plain' ELU + GroupNorm blocks
-    of Prior; the positional or the random-Fourier time embedding.
+    PriorSEDrop (the released models), the 'se_clip' blocks of PriorSEClip
+    (CLIP-conditioned, clipforge.enable) or the 'plain' ELU + GroupNorm
+    blocks of Prior; the positional or the random-Fourier time embedding.
   - LocalPrior: the AdaGN PVCNN2 U-Net over the latent points, conditioned
-    on the global sample through AdaGN style input.
+    on the global sample through AdaGN style input, widened by the class
+    embedding under data.cond_on_cat and mapped with CLIP features under
+    clipforge.enable.
 
 Mixed prediction's `mixing_logit` is a parameter of each prior; the sampler
 applies it (diffusion.discrete.get_mixed_prediction). Both priors train in
@@ -22,6 +25,7 @@ from ..config.view import as_view
 from ..nn.common import (Dropout, GNAffine, RandomFourierEmbedding, TDense,
                          compute_dtype, group_norm, timestep_embedding)
 from ..nn.unet import PVCNN2Unet
+from ..utils.checker import CHECKEQ
 
 # local prior U-Net specs (latent_points_ada_localprior.py:17-28); the third
 # SA stage ends at 128 channels (the VAE's ends at 256)
@@ -62,6 +66,27 @@ class ResBlockSEDrop(nn.Module):
         return x + h * torch.sigmoid(g)
 
 
+class ResBlockSEClip(nn.Module):
+    """The CLIP-conditioned block (resnet.py:29-56): t carries [temb, clip]
+    on its channels; concat([x + temb, clip]) -> dense -> relu -> dense ->
+    relu -> SE -> + x."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.conv1 = TDense(dim, dim * 2)
+        self.conv2 = TDense(dim, dim)
+        self.se_fc1 = TDense(dim // 8, dim, use_bias=False)
+        self.se_fc2 = TDense(dim, dim // 8, use_bias=False)
+
+    def forward(self, x, t):
+        temb, clip_feat = t[:, :self.dim], t[:, self.dim:]
+        h = torch.relu(self.conv1(torch.cat([x + temb, clip_feat], dim=-1)))
+        h = torch.relu(self.conv2(h))
+        g = self.se_fc2(torch.relu(self.se_fc1(h)))
+        return x + h * torch.sigmoid(g)
+
+
 class ResBlockPlain(nn.Module):
     """h = x + t; h + elu(GN(dense(elu(GN(dense(h)))))) with GroupNorm of
     min(dim // 4, 32) groups and eps 1e-6 (resnet.py Prior's block)."""
@@ -87,9 +112,15 @@ class ResBlockPlain(nn.Module):
 
 class GlobalPrior(nn.Module):
     """resnet.py's Prior family over the flat style latent: 'se_drop'
-    (PriorSEDrop) or 'plain' (Prior) blocks; the positional time embedding,
-    or the random-Fourier one for any other `embedding_type`, as the JAX
-    package picks it. 'se_clip' (PriorSEClip) is not ported."""
+    (PriorSEDrop), 'se_clip' (PriorSEClip) or 'plain' (Prior) blocks; the
+    positional time embedding, or the random-Fourier one for any other
+    `embedding_type`, as the JAX package picks it. With
+    `clip_forge_enable` the CLIP features, mapped to nf wide by
+    `clip_feat_mapping`, join the time embedding on its channels
+    (lion_tpu/models/priors.py:148-151): the 'se_clip' blocks read them,
+    the 'plain' blocks only the time embedding; the 'se_drop' blocks take
+    none, and a CLIP prior of them, or 'se_clip' blocks without CLIP, is
+    refused."""
 
     def __init__(self, num_input_channels: int, nf: int = 2048,
                  num_blocks: int = 8, embedding_dim: int = 128,
@@ -97,12 +128,19 @@ class GlobalPrior(nn.Module):
                  embedding_scale: float = 1.0, dropout: float = 0.2,
                  block_type: str = "se_drop",
                  mixed_prediction: bool = False,
-                 mixing_logit_init: float = -6.0):
+                 mixing_logit_init: float = -6.0,
+                 clip_forge_enable: bool = False, clip_feat_dim: int = 512):
         super().__init__()
-        if block_type not in ("se_drop", "plain"):
-            raise NotImplementedError(
-                f"GlobalPrior: the {block_type} blocks (CLIP conditioning) "
-                "are not ported (ROADMAP Queue 1 item J2)")
+        if block_type not in ("se_drop", "se_clip", "plain"):
+            raise ValueError(f"GlobalPrior: unknown block type {block_type}")
+        if (block_type == "se_clip") != bool(clip_forge_enable) and \
+                block_type != "plain":
+            raise ValueError(
+                f"GlobalPrior: the {block_type} blocks with clip_forge_enable"
+                f" = {bool(clip_forge_enable)}; CLIP conditioning "
+                "(clipforge.enable) needs the se_clip blocks "
+                "(latent_pts.style_prior models.score_sde.resnet."
+                "PriorSEClip), which need it")
         self.embedding_dim = embedding_dim
         self.embedding_scale = embedding_scale
         self.temb_fun = None if embedding_type == "positional" else \
@@ -110,18 +148,25 @@ class GlobalPrior(nn.Module):
         # two stacked dense layers, no nonlinearity between
         self.temb0 = TDense(embedding_dim * 4, embedding_dim)
         self.temb1 = TDense(nf, embedding_dim * 4)
+        self.nf = nf
+        self.clip_feat_mapping = TDense(nf, clip_feat_dim) \
+            if clip_forge_enable else None
         self.mixing_logit = _mixing_logit(num_input_channels,
                                           mixing_logit_init) \
             if mixed_prediction else None
         self.input_layer = TDense(nf, num_input_channels)
         self.num_blocks = num_blocks
         for i in range(num_blocks):
-            self.add_module(f"block{i}", ResBlockSEDrop(nf, dropout)
-                            if block_type == "se_drop" else ResBlockPlain(nf))
+            block = {"se_drop": lambda: ResBlockSEDrop(nf, dropout),
+                     "se_clip": lambda: ResBlockSEClip(nf),
+                     "plain": lambda: ResBlockPlain(nf)}[block_type]()
+            self.add_module(f"block{i}", block)
+        self.plain = block_type == "plain"
         self.output_layer = TDense(num_input_channels, nf)
 
-    def forward(self, x, t):
-        """x (B, C) or (B, C, 1, 1); t (B,) in [1, T] -> eps, x's shape."""
+    def forward(self, x, t, clip_feat=None):
+        """x (B, C) or (B, C, 1, 1); t (B,) in [1, T]; `clip_feat` (B,
+        clip_feat_dim) under clip_forge_enable -> eps, x's shape."""
         in_shape = x.shape
         b = x.shape[0]
         x = x.reshape(b, -1)
@@ -133,6 +178,14 @@ class GlobalPrior(nn.Module):
         else:
             temb = self.temb_fun(t)
         temb = self.temb1(self.temb0(temb))
+        if self.clip_feat_mapping is not None:
+            if clip_feat is None:
+                raise ValueError("clip_forge_enable: the global prior needs "
+                                 "clip_feat")
+            temb = torch.cat([temb, self.clip_feat_mapping(
+                clip_feat.to(x.device))], dim=-1)
+            if self.plain:
+                temb = temb[:, :self.nf]
         h = self.input_layer(x)
         for i in range(self.num_blocks):
             h = getattr(self, f"block{i}")(h, temb)
@@ -141,13 +194,14 @@ class GlobalPrior(nn.Module):
 
 class LocalPrior(nn.Module):
     """latent_points_ada_localprior.py PVCNN2Prior: the U-Net over the
-    latent points, conditioned on the global style sample."""
+    latent points, conditioned on the global style sample; its condition is
+    concat([z_global, cls_emb]), style + tpu.cls_emb_dim wide, under
+    data.cond_on_cat (lion_tpu/models/priors.py:220-232), and the U-Net
+    maps CLIP features into it under clipforge.enable."""
 
     def __init__(self, cfg):
         super().__init__()
         cfg = as_view(cfg)
-        if cfg.data.cond_on_cat or cfg.clipforge.enable:
-            raise NotImplementedError("class / CLIP conditioning not ported")
         self.latent_dim = cfg.shapelatent.latent_dim
         self.input_dim = cfg.ddpm.input_dim
         self.num_points = cfg.data.tr_max_sample_points
@@ -166,19 +220,23 @@ class LocalPrior(nn.Module):
             fp_blocks=fp_blocks, embed_dim=cfg.ddpm.time_dim,
             extra_feature_channels=self.latent_dim, input_dim=self.input_dim,
             time_emb_scales=cfg.sde.embedding_scale,
-            style_dim=cfg.latent_pts.style_dim,
+            style_dim=cfg.latent_pts.style_dim + (
+                int(cfg.tpu.cls_emb_dim) if cfg.data.cond_on_cat else 0),
             init_scale=cfg.latent_pts.ada_mlp_init_scale,
+            clip_forge_enable=bool(cfg.clipforge.enable),
+            clip_forge_dim=cfg.clipforge.feat_dim,
             vres_mult=cfg.tpu.vres_mult if "tpu" in cfg else 1.0,
             ncenter_mult=cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0,
             dtype=compute_dtype(cfg), dropout=cfg.ddpm.dropout)
 
-    def forward(self, x, t, condition_input):
-        """x (B, N*C) or (B, N, C), t (B,), condition_input (B, style) ->
-        eps prediction of x's shape."""
+    def forward(self, x, t, condition_input, clip_feat=None):
+        """x (B, N*C) or (B, N, C), t (B,), condition_input (B, style [+
+        cls_emb_dim]), `clip_feat` (B, clipforge.feat_dim) under
+        clipforge.enable -> eps prediction of x's shape."""
         in_shape = x.shape
         b = x.shape[0]
-        if x[0].numel() != self.num_points * self.num_classes:
-            raise ValueError(f"LocalPrior: input {tuple(in_shape)}")
+        CHECKEQ(x[0].numel(), self.num_points * self.num_classes)
         x = x.reshape(b, self.num_points, self.num_classes)
-        out = self.unet(x, t=t, style=condition_input.reshape(b, -1))
+        out = self.unet(x, t=t, style=condition_input.reshape(b, -1),
+                        clip_feat=clip_feat)
         return out.reshape(in_shape)

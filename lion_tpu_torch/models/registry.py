@@ -12,13 +12,11 @@ _BLOCK_TYPE = {
 
 
 def build_global_prior(cfg) -> GlobalPrior:
-    """The global (style) prior from cfg.latent_pts.style_prior + cfg.sde."""
+    """The global (style) prior from cfg.latent_pts.style_prior + cfg.sde,
+    with the CLIP mapping under cfg.clipforge.enable."""
     name = cfg.latent_pts.style_prior
     if name not in _BLOCK_TYPE:
         raise KeyError(f"Unknown global prior: {name}")
-    if cfg.clipforge.enable:
-        raise NotImplementedError("the CLIP-conditioned global prior is not "
-                                  "ported (ROADMAP Queue 1 item J2)")
     return GlobalPrior(
         num_input_channels=cfg.latent_pts.style_dim,
         nf=cfg.sde.num_channels_dae,
@@ -29,7 +27,9 @@ def build_global_prior(cfg) -> GlobalPrior:
         dropout=cfg.sde.dropout,
         block_type=_BLOCK_TYPE[name],
         mixed_prediction=bool(cfg.sde.mixed_prediction),
-        mixing_logit_init=cfg.sde.mixing_logit_init)
+        mixing_logit_init=cfg.sde.mixing_logit_init,
+        clip_forge_enable=bool(cfg.clipforge.enable),
+        clip_feat_dim=cfg.clipforge.feat_dim)
 
 
 def build_local_prior(cfg) -> LocalPrior:

@@ -9,10 +9,15 @@ tree, so the whole JAX VAE loads with a flatten (ckpt/from_jax.py).
 `get_loss` is the stage-1 objective that `trainers.make_vae_train_step`
 trains, in train mode (dropout, the PVConv modular flow on K10). The
 module's mode decides the flow, where the JAX methods take `train=`.
-The class-conditional decoder (`data.cond_on_cat`) is refused (ROADMAP
-Queue 1 item J2). Under `tpu.bf16` the encoder's and the decoder's U-Nets
-compute in bf16 (`compute_dtype`), in training too; the style encoder
-stays float32, as the JAX VAE builds it.
+Under `data.cond_on_cat` the decoder is class-conditional
+(lion_tpu/models/vae.py:63-79, 130-146): `class_embedding`, a bias-free
+dense layer of width `tpu.cls_emb_dim` over the one-hot label, and the
+decoder's style concat([z_global, cls_emb]); the encoders take no class
+input (that input is dead in the reference, vae_adain.py:66). The shapes
+of x are checked where it is encoded (utils/checker.py). Under `tpu.bf16`
+the encoder's and the decoder's U-Nets compute in bf16 (`compute_dtype`),
+in training too; the style encoder stays float32, as the JAX VAE builds
+it.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import torch
 from torch import nn
 
 from ..config.view import as_view
-from ..nn.common import compute_dtype
+from ..nn.common import TDense, compute_dtype
+from ..utils.checker import CHECK3D, CHECKDIM
 from ..utils.losses import loss_fn
 from .distributions import Normal
 from .encoders import (LATENT_PTS_FP_BLOCKS, LATENT_PTS_SA_BLOCKS,
@@ -53,9 +59,6 @@ class VAE(nn.Module):
         super().__init__()
         self.cfg = cfg
         cfg = as_view(cfg)
-        if cfg.data.cond_on_cat:
-            raise NotImplementedError("class-conditional decoding is not "
-                                      "ported (ROADMAP Queue 1 item J2)")
         for name, want in (
                 (cfg.latent_pts.style_encoder, "PointNetPlusEncoder"),
                 (cfg.shapelatent.encoder_type, "PointTransPVC"),
@@ -80,6 +83,15 @@ class VAE(nn.Module):
         vres_mult = cfg.tpu.vres_mult if "tpu" in cfg else 1.0
         ncenter_mult = cfg.tpu.ncenter_mult if "tpu" in cfg else 1.0
         sa_blocks, fp_blocks = spec_overrides(cfg)
+        self.cond_on_cat = bool(cfg.data.cond_on_cat)
+        dec_style_dim = self.style_dim
+        if self.cond_on_cat:
+            self.nclass = int(cfg.data.nclass)
+            self.cls_emb_dim = int(cfg.tpu.cls_emb_dim) \
+                if "cls_emb_dim" in cfg.tpu else 64
+            self.class_embedding = TDense(self.cls_emb_dim, self.nclass,
+                                          use_bias=False)
+            dec_style_dim += self.cls_emb_dim
         self.style_encoder = PointNetPlusEncoder(
             zdim=self.style_dim, input_dim=self.input_dim,
             dropout=cfg.ddpm.dropout, vres_mult=vres_mult,
@@ -95,7 +107,7 @@ class VAE(nn.Module):
             dtype=compute_dtype(cfg))
         self.decoder = LatentPointDecPVC(
             point_dim=self.input_dim, context_dim=self.latent_dim,
-            num_points=self.num_points, style_dim=self.style_dim,
+            num_points=self.num_points, style_dim=dec_style_dim,
             skip_weight=cfg.latent_pts.skip_weight,
             dropout=cfg.ddpm.dropout,
             ada_mlp_init_scale=cfg.latent_pts.ada_mlp_init_scale,
@@ -103,14 +115,37 @@ class VAE(nn.Module):
             sa_blocks=sa_blocks, fp_blocks=fp_blocks,
             dtype=compute_dtype(cfg))
 
+    def embed_class(self, class_label) -> torch.Tensor:
+        """(B,) int labels or (B, nclass) one-hot rows -> (B, cls_emb_dim):
+        one-hot @ W, the same for both forms
+        (lion_tpu/models/vae.py:130-139)."""
+        if not self.cond_on_cat:
+            raise ValueError("embed_class needs data.cond_on_cat")
+        w = self.class_embedding.kernel
+        label = torch.as_tensor(class_label, device=w.device)
+        if label.ndim == 1:
+            label = torch.nn.functional.one_hot(label.long(), self.nclass)
+        return self.class_embedding(label.float())
+
+    def dec_style(self, z_global, class_label=None) -> torch.Tensor:
+        """The decoder's style: concat([z_global, cls_emb]) under
+        cond_on_cat (vae_adain.py:167), else the raw z_global
+        (vae_adain.py:328-331)."""
+        if not self.cond_on_cat:
+            return z_global
+        if class_label is None:
+            raise ValueError("data.cond_on_cat: the decoder needs "
+                             "class_label")
+        return torch.cat([z_global, self.embed_class(class_label)], dim=1)
+
     def encode(self, x, generator=None, rho=None):
         """x (B, N, input_dim) -> (all_eps (B, style + N*(latent + input)),
         all_log_q, latent_list), as the JAX `encode`: the style posterior is
         sampled first and conditions the latent-points encoder. The two
         standard normals come from `generator` unless given as
         `rho = (rho_global, rho_local)`."""
-        if x.ndim != 3 or x.shape[2] != self.input_dim:
-            raise ValueError(f"VAE.encode: x {tuple(x.shape)}")
+        CHECK3D(x)
+        CHECKDIM(x, 2, self.input_dim)
         rho_g, rho_l = rho if rho is not None else (None, None)
         dist_global = Normal(*self.style_encoder(x))
         z_global, _ = dist_global.sample(generator, rho_g)
@@ -124,30 +159,39 @@ class VAE(nn.Module):
                        (z_local, dist_local.mu, dist_local.log_sigma)]
         return all_eps, all_log_q, latent_list
 
-    def recont(self, x, target=None, generator=None, rho=None) -> dict:
+    def recont(self, x, target=None, generator=None, rho=None,
+               class_label=None) -> dict:
         """The reconstruction pass: encode x, decode z_local under the raw
-        z_global (lion_tpu/models/vae.py:173-201). Returns all_eps,
-        all_log_q, latent_list, x_0_pred, x_0_target and final_pred."""
+        z_global, or with the class embedding of `class_label` under
+        cond_on_cat (lion_tpu/models/vae.py:173-201). Returns all_eps,
+        all_log_q, latent_list, x_0_pred, x_0_target and final_pred, and
+        cls_emb under cond_on_cat."""
         all_eps, all_log_q, latent_list = self.encode(x, generator, rho)
-        x_0_pred = self.decoder(latent_list[1][0], latent_list[0][0])
-        return {"all_eps": all_eps, "all_log_q": all_log_q,
-                "latent_list": latent_list, "x_0_pred": x_0_pred,
-                "x_0_target": x if target is None else target,
-                "final_pred": x_0_pred}
+        style = self.dec_style(latent_list[0][0], class_label)
+        x_0_pred = self.decoder(latent_list[1][0], style)
+        out = {"all_eps": all_eps, "all_log_q": all_log_q,
+               "latent_list": latent_list, "x_0_pred": x_0_pred,
+               "x_0_target": x if target is None else target,
+               "final_pred": x_0_pred}
+        if self.cond_on_cat:
+            out["cls_emb"] = style[:, self.style_dim:]
+        return out
 
     def get_loss(self, x, kl_weight=None, noisy_input=None, generator=None,
-                 rho=None) -> dict:
+                 rho=None, class_label=None) -> dict:
         """The ELBO with per-group weighted KL (lion_tpu/models/vae.py:
         203-253): `recont`'s outputs and loss, rec_loss, and the metrics
         print/loss_0, print/kl_glb, print/kl_pt, print/kl_feat,
         print/kl_weight, msg/kl and msg/rec. `kl_weight` is the annealed
         weight (shapelatent.kl_weight when None); `noisy_input`, when
-        given, is encoded in place of x, which stays the target."""
+        given, is encoded in place of x, which stays the target;
+        `class_label` conditions the decoder under cond_on_cat."""
         if kl_weight is None:
             kl_weight = self.kl_weight
         b = x.shape[0]
         inputs = x if noisy_input is None else noisy_input
-        output = self.recont(inputs, target=x, generator=generator, rho=rho)
+        output = self.recont(inputs, target=x, generator=generator, rho=rho,
+                             class_label=class_label)
         loss_0 = torch.mean(loss_fn(
             output["x_0_pred"], output["x_0_target"], self.loss_type,
             self.input_dim, b, loss_weight_emd=self.loss_weight_emd))
@@ -171,11 +215,13 @@ class VAE(nn.Module):
         output["loss"] = loss
         return output
 
-    def sample(self, num_samples: int, decomposed_eps) -> torch.Tensor:
+    def sample(self, num_samples: int, decomposed_eps,
+               class_label=None) -> torch.Tensor:
         """Decode the latents [z_global (B, style), z_local (B, N*(latent +
         point))] -> points (B, N, point_dim). The decoder is conditioned on
-        the raw z_global (vae_adain.py:328-331)."""
+        the raw z_global (vae_adain.py:328-331), with the class embedding of
+        `class_label` under cond_on_cat."""
         z_global = decomposed_eps[0].reshape(num_samples, self.style_dim)
         z_local = decomposed_eps[1].reshape(
             num_samples, self.num_points * (self.latent_dim + self.input_dim))
-        return self.decoder(z_local, z_global)
+        return self.decoder(z_local, self.dec_style(z_global, class_label))

@@ -116,14 +116,18 @@ class PVCNN2Unet(nn.Module):
     `dtype` is the compute dtype of every block (None: fp32); the time
     embedding and the classifier's last dense layer stay fp32 and the
     output is fp32 (lion_tpu/nn/unet.py:157-159,282). `dropout` is the rate
-    of every PVConv's dropout and of the classifier head's (train mode)."""
+    of every PVConv's dropout and of the classifier head's (train mode).
+    With `clip_forge_enable` the style takes CLIP features
+    (lion_tpu/nn/unet.py:179-185): style_clip(concat([style,
+    clip_forge_mapping(clip_feat)])), back to `style_dim` wide."""
 
     def __init__(self, num_classes: int, sa_blocks, fp_blocks,
                  embed_dim: int = 0, extra_feature_channels: int = 3,
                  input_dim: int = 3, time_emb_scales: float = 1.0,
                  style_dim: int = 128, init_scale: float = 1.0,
                  vres_mult: float = 1.0, ncenter_mult: float = 1.0,
-                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1,
+                 clip_forge_enable: bool = False, clip_forge_dim: int = 512):
         super().__init__()
         self.input_dim = input_dim
         self.dropout = dropout
@@ -134,6 +138,10 @@ class PVCNN2Unet(nn.Module):
         if embed_dim > 0:
             self.embedf0 = TDense(embed_dim, embed_dim)
             self.embedf1 = TDense(embed_dim, embed_dim)
+        self.clip_forge_mapping = self.style_clip = None
+        if clip_forge_enable:
+            self.clip_forge_mapping = TDense(embed_dim, clip_forge_dim)
+            self.style_clip = TDense(style_dim, style_dim + embed_dim)
 
         self.sa_stages, channels_sa = build_sa_stages(
             sa_blocks, extra_feature_channels, input_dim,
@@ -190,8 +198,9 @@ class PVCNN2Unet(nn.Module):
             return mod(features, coords, style)
         return mod(features, style)
 
-    def forward(self, inputs, t=None, style=None):
-        """inputs (B, N, input_dim + extra) -> (B, N, num_classes)."""
+    def forward(self, inputs, t=None, style=None, clip_feat=None):
+        """inputs (B, N, input_dim + extra) -> (B, N, num_classes);
+        `clip_feat` (B, clip_forge_dim) under clip_forge_enable."""
         b = inputs.shape[0]
         coords = inputs[..., :self.input_dim]
         features = inputs
@@ -203,6 +212,13 @@ class PVCNN2Unet(nn.Module):
             emb = timestep_embedding(t, self.embed_dim, self.time_emb_scales)
             emb = nn.functional.leaky_relu(self.embedf0(emb), 0.1)
             temb = self.embedf1(emb)                           # (B, D)
+
+        if self.style_clip is not None:
+            if clip_feat is None:
+                raise ValueError("clip_forge_enable: the U-Net needs "
+                                 "clip_feat")
+            cf = self.clip_forge_mapping(clip_feat.to(inputs.device))
+            style = self.style_clip(torch.cat([style, cf], dim=-1))
 
         def with_temb(feat):
             if temb is None:

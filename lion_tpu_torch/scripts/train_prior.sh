@@ -2,11 +2,18 @@
 # Stage-2 two-prior training on a frozen VAE on the port: the JAX
 # package's scripts/train_prior.sh (the reference's script/train_prior.sh
 # settings), run from the repo root.
-# Usage: bash lion_tpu_torch/scripts/train_prior.sh VAE_CKPT DATA_ROOT [CATE]
+# Usage: [NGPU=N] bash lion_tpu_torch/scripts/train_prior.sh VAE_CKPT DATA_ROOT [CATE]
 VAE_CKPT=${1:?usage: train_prior.sh VAE_CKPT DATA_ROOT [CATE]}
 DATA_ROOT=${2:?need DATA_ROOT}
 CATE=${3:-car}
-python -m lion_tpu_torch.train_dist --data_root "$DATA_ROOT" \
+# NGPU above 1: data parallel, one process a GPU, through torchrun
+LAUNCH=(python -m)
+DIST=()
+if [ "${NGPU:-1}" -gt 1 ]; then
+    LAUNCH=(torchrun --standalone --nproc_per_node="$NGPU" -m)
+    DIST=(--distributed_init)
+fi
+"${LAUNCH[@]}" lion_tpu_torch.train_dist "${DIST[@]}" --data_root "$DATA_ROOT" \
     trainer.type trainers.train_2prior \
     data.cates "$CATE" \
     sde.vae_checkpoint "$VAE_CKPT" \

@@ -1,10 +1,17 @@
 #!/bin/bash
 # Stage-1 VAE training on the port: the JAX package's scripts/train_vae.sh
 # (the reference's script/train_vae.sh settings), run from the repo root.
-# Usage: bash lion_tpu_torch/scripts/train_vae.sh /path/to/ShapeNetCore.v2.PC15k [cate]
+# Usage: [NGPU=N] bash lion_tpu_torch/scripts/train_vae.sh /path/to/ShapeNetCore.v2.PC15k [cate]
 DATA_ROOT=${1:?usage: train_vae.sh DATA_ROOT [CATE]}
 CATE=${2:-car}
-python -m lion_tpu_torch.train_dist --data_root "$DATA_ROOT" \
+# NGPU above 1: data parallel, one process a GPU, through torchrun
+LAUNCH=(python -m)
+DIST=()
+if [ "${NGPU:-1}" -gt 1 ]; then
+    LAUNCH=(torchrun --standalone --nproc_per_node="$NGPU" -m)
+    DIST=(--distributed_init)
+fi
+"${LAUNCH[@]}" lion_tpu_torch.train_dist "${DIST[@]}" --data_root "$DATA_ROOT" \
     trainer.type trainers.hvae_trainer \
     data.cates "$CATE" \
     ddpm.input_dim 3 ddpm.num_steps 1 ddpm.ema 0 \

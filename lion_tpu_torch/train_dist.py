@@ -1,8 +1,9 @@
-"""The training and evaluation CLI (port of train_dist.py), on one device:
+"""The training and evaluation CLI (port of train_dist.py):
 
     python -m lion_tpu_torch.train_dist [--config cfg.yml] [--exp_root ./exp]
         [--data_root DIR] [--pretrained ckpt.npz] [--eval_generation]
         [--num_samples N] [--skip_sample] [--resume] [--device cuda]
+        [--distributed_init [--dist_url env://]]
         key value key value ...
 
 The config is the defaults, then `--config`, then the yacs-style `key
@@ -16,8 +17,16 @@ samples the category's reference count of shapes (or `--num_samples`)
 into `<save_dir>/eval/samples.pt` and scores them against
 `./datasets/test_data/ref_val_<cate>.pt` when that file exists.
 `lion_tpu_torch/scripts/train_vae.sh` and `train_prior.sh` run the
-released recipes through it. Several processes (`--distributed_init`) are
-ROADMAP Queue 1 item I.
+released recipes through it.
+
+Data parallel, one process a GPU: `torchrun --nproc_per_node=N -m
+lion_tpu_torch.train_dist --distributed_init ...` (the scripts do so when
+NGPU is above 1). `--distributed_init` joins the process group that
+torchrun's environment describes (`parallel.dist.init_from_env`: NCCL on
+cuda:LOCAL_RANK, gloo under `--device cpu`; `--dist_url` names another
+rendezvous, e.g. file:///path). Every rank builds the same config and
+trainer on its shard of the data; rank 0 alone writes the experiment
+(cfg.yml, checkpoints, metrics.jsonl, the evaluation's files).
 """
 from __future__ import annotations
 
@@ -43,7 +52,9 @@ def get_args(argv=None):
     p.add_argument("--num_samples", type=int, default=0,
                    help="override number of generated samples for eval")
     p.add_argument("--distributed_init", action="store_true",
-                   help="several processes (not ported: ROADMAP item I)")
+                   help="join torchrun's process group (data parallel)")
+    p.add_argument("--dist_url", type=str, default="env://",
+                   help="the process group's rendezvous (--distributed_init)")
     p.add_argument("--device", type=str, default="cuda",
                    help="the device the trainer runs on")
     p.add_argument("opts", nargs=argparse.REMAINDER,
@@ -53,7 +64,8 @@ def get_args(argv=None):
 
 def build_cfg(args):
     """The run's config; creates its experiment directory and writes
-    `cfg.yml` there."""
+    `cfg.yml` there (rank 0 of a process group alone)."""
+    from .parallel.dist import rank
     from .config import get_default_cfg
     cfg = get_default_cfg()
     if args.config:
@@ -70,8 +82,9 @@ def build_cfg(args):
     if not cfg.save_dir:
         cfg.save_dir = os.path.join(args.exp_root,
                                     f"{cfg.data.cates}_{cfg_hash}")
-    os.makedirs(cfg.save_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.save_dir, "cfg.yml"))
+    if rank() == 0:
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        cfg.save(os.path.join(cfg.save_dir, "cfg.yml"))
     return cfg
 
 
@@ -89,7 +102,8 @@ def script_overrides(path: str, **values) -> list:
     """The `key value` overrides of a training script that runs this CLI
     (`lion_tpu_torch/scripts/*.sh`, or the JAX package's `scripts/*.sh`
     through `train_dist.py`), with each "$NAME" given in `values`; the
-    script's own flags (`--data_root`) are left out."""
+    script's own flags (`--data_root`) and the shell words left unexpanded
+    (the launcher's, as "${DIST[@]}") are left out."""
     with open(path) as f:
         text = f.read().replace("\\\n", " ")
     line = next(ln for ln in text.splitlines()
@@ -104,18 +118,27 @@ def script_overrides(path: str, **values) -> list:
         word = words.pop(0)
         if word.startswith("--"):
             words.pop(0)
-        else:
+        elif not word.startswith("$"):
             out.append(word)
     return out
 
 
 def main(argv=None):
-    """Run the CLI; returns the trainer."""
+    """Run the CLI; returns the trainer. Under `--distributed_init` the
+    process group it joins is left when the run ends."""
     args = get_args(argv)
-    if args.distributed_init:
-        raise NotImplementedError(
-            "--distributed_init: the port trains in one process on one "
-            "device; data parallelism is ROADMAP Queue 1 item I")
+    if not args.distributed_init:
+        return _run(args)
+    from .parallel.dist import init_from_env
+    import torch.distributed as dist
+    args.device = str(init_from_env(args.device, args.dist_url))
+    try:
+        return _run(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args):
     cfg = build_cfg(args)
 
     apply_debug_flags(cfg)
@@ -146,17 +169,18 @@ def main(argv=None):
 
 def run_eval_generation(trainer, cfg, args):
     """Sample num_ref shapes and score them (base_trainer.py eval_sample +
-    eval_helper.compute_score)."""
+    eval_helper.compute_score); in a process group every rank samples
+    and rank 0 writes and scores."""
     import numpy as np
     import torch
 
     from .eval import compute_score, get_cats, get_ref_num, get_ref_pt
+    from .parallel.dist import rank
 
     cats = get_cats(cfg.data.cates)
     num_ref = args.num_samples or cfg.num_ref or get_ref_num(cats)
     batch = cfg.data.batch_size_test
     out_dir = os.path.join(cfg.save_dir, "eval")
-    os.makedirs(out_dir, exist_ok=True)
     sample_path = os.path.join(out_dir, "samples.pt")
 
     if not args.skip_sample or not os.path.exists(sample_path):
@@ -171,7 +195,11 @@ def run_eval_generation(trainer, cfg, args):
             all_pcs.append(pts.float().cpu().numpy())
             print(f"sampled {i + n}/{num_ref}")
         samples = np.concatenate(all_pcs)[:num_ref]
-        torch.save(torch.from_numpy(samples), sample_path)
+        if rank() == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            torch.save(torch.from_numpy(samples), sample_path)
+    if rank() != 0:
+        return
 
     ref_path = get_ref_pt(cats, cfg.data.type)   # under ./datasets/test_data/
     if ref_path and os.path.exists(ref_path):

@@ -1,8 +1,16 @@
-"""The base trainer (port of lion_tpu/trainers/base.py) on one device: the
-epoch loop with its log, viz, save and val cadences, best-checkpoint
-tracking, time-based snapshots and resume. The step itself is a
-`trainers.steps` object; this class owns the host-side loop (batches,
-cadences, checkpoint files). Data parallelism is ROADMAP Queue 1 item I.
+"""The base trainer (port of lion_tpu/trainers/base.py): the epoch loop
+with its log, viz, save and val cadences, best-checkpoint tracking,
+time-based snapshots and resume. The step itself is a `trainers.steps`
+object; this class owns the host-side loop (batches, cadences, checkpoint
+files).
+
+Data parallel (one process a device inside a torch.distributed group,
+parallel/dist.py): each rank reads its shard of the training split
+(`num_shards` = the world size, as lion_tpu/trainers/base.py:131-135
+does), `data.batch_size` rows a rank, and seeds its generators by
+`fold_seed`; only rank 0 creates the experiment's directories and writes
+checkpoints, snapshots, metrics.jsonl and images; every rank resumes from
+the same files.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from ..config.view import as_view
 from ..data.shapenet import get_data_loaders
 from ..eval.eval_helper import normalize_point_clouds
 from ..models.lion import resolve_device
+from ..parallel.dist import rank, world
 from ..utils.vis import visualize_point_clouds_3d
 from ..utils.writer import Writer
 
@@ -101,9 +110,10 @@ class BaseTrainer:
         self.save_dir = getattr(args, "save_dir", None) or cfg.save_dir \
             or "./exp/default"
         self.ckpt_dir = os.path.join(self.save_dir, "checkpoints")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if rank() == 0:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         self.writer = Writer(
-            log_dir=self.save_dir,
+            log_dir=self.save_dir, rank=rank(),
             use_tensorboard=os.environ.get("USE_TFB") == "1")
         self.epoch = 0
         self.step = 0
@@ -124,9 +134,15 @@ class BaseTrainer:
         loaders = get_data_loaders(
             as_view(self.cfg.data),
             root_dir=getattr(self.args, "data_root", None),
-            seed=self.cfg.trainer.seed)
+            seed=self.cfg.trainer.seed, num_shards=world(), shard_id=rank())
         self.train_loader = loaders["train_loader"]
         self.test_loader = loaders["test_loader"]
+        ncat = len(self.train_loader.dataset.synset_ids)
+        if self.cfg.data.cond_on_cat and ncat > self.cfg.data.nclass:
+            # one_hot would fail on the labels past nclass (lion_tpu's
+            # gives them zero rows)
+            raise ValueError(f"data.cond_on_cat: data.cates names {ncat} "
+                             f"categories, data.nclass {self.cfg.data.nclass}")
 
     # ------------------------------------------------------------- loop
     def train_epochs(self):
@@ -217,11 +233,15 @@ class BaseTrainer:
                 "best_eval_epoch": self.best_eval_epoch}
 
     def save(self, tag: str = "checkpoint"):
+        if rank() != 0:
+            return
         path = os.path.join(self.ckpt_dir, f"{tag}.npz")
         save_checkpoint(path, self.state_trees(), self._metadata())
         self.writer.log(f"saved {path}")
 
     def save_snapshot(self):
+        if rank() != 0:
+            return
         save_snapshot(self.ckpt_dir, self.state_trees(), self._metadata())
         self.writer.log("saved snapshot")
 

@@ -13,7 +13,11 @@ trainer draws the reconstruction and sample grids (`vis_recont`,
 `vis_sample`) into `<save_dir>/images/`; they need matplotlib, which the
 trainer checks when it is built.
 Under tpu.bf16 (or sde.autocast_train) the VAE's U-Nets compute in bf16;
-the parameters, Adam, the EMA and the checkpoints stay float32.
+the parameters, Adam, the EMA and the checkpoints stay float32. Under
+data.cond_on_cat the decoder is class-conditional: the step, `eval_nll`
+and `vis_recont` read each batch's `cate_idx`, and `sample` decodes the
+labels arange(n) % data.nclass (lion_tpu/trainers/hvae_trainer.py:47-68;
+its eval and sampling take no label).
 """
 from __future__ import annotations
 
@@ -28,15 +32,14 @@ from ..ckpt.io import (adam_state_from_tree, adam_state_tree,
 from ..eval.eval_helper import compute_nll_metric, normalize_point_clouds
 from ..models.vae import VAE
 from ..nn.common import init_weights
+from ..parallel.dist import fold_seed
 from ..utils.vis import visualize_point_clouds_3d
 from .base import BaseTrainer
-from .steps import (check_vae_supported, default_vae_lr_schedule,
-                    make_vae_train_step)
+from .steps import default_vae_lr_schedule, make_vae_train_step
 
 
 class Trainer(BaseTrainer):
     def __init__(self, cfg, args, device="cuda"):
-        check_vae_supported(cfg)
         super().__init__(cfg, args, device)
         self.build_data()
         self.build_model()
@@ -54,11 +57,20 @@ class Trainer(BaseTrainer):
             self.num_total_iter, self.device)
         self.param_names = [n for n, _ in self.vae.named_parameters()]
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.trainer.seed + 7)
+            fold_seed(cfg.trainer.seed, 7))
+
+    def labels(self, batch, n: int = None):
+        """The batch's class labels (its first `n`) on the device under
+        data.cond_on_cat, else None."""
+        if not self.cfg.data.cond_on_cat:
+            return None
+        return torch.as_tensor(np.asarray(batch["cate_idx"])[:n],
+                               dtype=torch.long, device=self.device)
 
     def train_iter(self, batch, step: int) -> Dict[str, float]:
         x = self.put_batch(batch["tr_points"])
-        metrics = self.step_fn(x, self.generator)
+        metrics = self.step_fn(x, self.generator,
+                               class_label=self.labels(batch))
         return {k: float(v) for k, v in metrics.items()}
 
     @torch.no_grad()
@@ -74,7 +86,9 @@ class Trainer(BaseTrainer):
             if num_batches and bi >= num_batches:
                 break
             x = self.put_batch(batch["tr_points"])
-            gens.append(self.vae.recont(x, generator=gen)["x_0_pred"].cpu())
+            gens.append(self.vae.recont(
+                x, generator=gen, class_label=self.labels(batch))[
+                    "x_0_pred"].cpu())
             refs.append(x.cpu())
         if not gens:
             return {}
@@ -104,7 +118,9 @@ class Trainer(BaseTrainer):
         x = self.put_batch(np.asarray(batch["tr_points"], np.float32)[:4])
         self.vae.eval()
         gen = torch.Generator(device=self.device).manual_seed(step)
-        rec = self.vae.recont(x, generator=gen)["final_pred"]
+        rec = self.vae.recont(x, generator=gen,
+                              class_label=self.labels(batch, 4))
+        rec = rec["final_pred"]
         inp = x[:, :, :3].cpu().numpy()
         rec = rec[:, :, :3].float().cpu().numpy()
         clouds = normalize_point_clouds(np.concatenate([inp, rec], axis=0))
@@ -124,7 +140,8 @@ class Trainer(BaseTrainer):
     @torch.no_grad()
     def sample(self, num_samples: int = 16, generator=None) -> torch.Tensor:
         """Decode fresh latents in eval mode, from the EMA parameters when
-        there are some -> (num_samples, N, input_dim)."""
+        there are some -> (num_samples, N, input_dim); under cond_on_cat
+        with the labels arange(num_samples) % data.nclass."""
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
         vae, ema = self.vae, self.step_fn.ema
@@ -134,8 +151,11 @@ class Trainer(BaseTrainer):
         z_local = torch.randn(
             (num_samples, vae.num_points * (vae.latent_dim + vae.input_dim)),
             generator=gen, device=self.device)
+        labels = torch.arange(num_samples, device=self.device) \
+            % self.cfg.data.nclass if self.cfg.data.cond_on_cat else None
         with ema.swapped() if ema is not None else contextlib.nullcontext():
-            return vae.sample(num_samples, [z_global, z_local])
+            return vae.sample(num_samples, [z_global, z_local],
+                              class_label=labels)
 
     def state_trees(self):
         names, step = self.param_names, self.step_fn

@@ -220,15 +220,28 @@ def interpolate_posterior_ode(lion, x_a: torch.Tensor, x_b: torch.Tensor,
 
 # Eval-only trainers under the reference's trainer.type strings
 # (trainers.interpolate_latent / trainers.encode_interp_interp)
+def _check_unconditioned(cls, cfg) -> None:
+    """The interpolations sample without class labels or CLIP features: in
+    lion_tpu they give the local prior z_global alone and the global prior
+    no features, so a class- or CLIP-conditioned config fails there."""
+    if cfg.data.cond_on_cat or cfg.clipforge.enable:
+        raise NotImplementedError(
+            f"{cls.__name__}: the interpolations take no class label or "
+            "CLIP feature (data.cond_on_cat, clipforge.enable)")
+
+
 class InterpolateLatentTrainer(TwoPriorTrainer):
     """reference trainers/interpolate_latent.py: shapes whose prior noises
     interpolate between the first and the last row, from the EMA
     priors."""
 
+    check_config = classmethod(_check_unconditioned)
+
     def sample(self, num_samples: int = 16, generator=None,
                use_ema: bool = True, ddim_step: int = 0,
-               given_noise=None) -> torch.Tensor:
-        """`ddim_step` is accepted for the trainers' interface; the chains
+               given_noise=None, local: bool = False) -> torch.Tensor:
+        """`ddim_step` and `local` are accepted for the trainers'
+        interface (each rank interpolates its own rows); the chains
         are ancestral, or under sde.ode_sample the PF-ODE to sde.ode_eps at
         `generate_interpolation`'s fixed tolerance, as in lion_tpu. The
         draws come from `generator`, by default one seeded 0."""
@@ -249,6 +262,8 @@ class EncodeInterpTrainer(TwoPriorTrainer):
     """reference trainers/encode_interp_interp.py: encode two real shapes,
     interpolate in the diffused latent space, reverse, decode."""
 
+    check_config = classmethod(_check_unconditioned)
+
     def endpoints(self) -> torch.Tensor:
         """The two endpoint clouds (2, N, 3): the first two of the test
         split; seeded random clouds only when there is no test split."""
@@ -265,13 +280,13 @@ class EncodeInterpTrainer(TwoPriorTrainer):
 
     def sample(self, num_samples: int = 16, generator=None,
                use_ema: bool = True, ddim_step: int = 0,
-               diffuse_t: int = 200) -> torch.Tensor:
+               diffuse_t: int = 200, local: bool = False) -> torch.Tensor:
         """`num_samples` rows between the two endpoints, diffused to step
         `diffuse_t`, or under sde.ode_sample encoded and decoded by the
         PF-ODE at `interpolate_posterior_ode`'s fixed ode_eps and
-        tolerance, as in lion_tpu; `ddim_step` is accepted for the
-        trainers' interface. The draws come from `generator`, by default
-        one seeded 0."""
+        tolerance, as in lion_tpu; `ddim_step` and `local` are accepted
+        for the trainers' interface. The draws come from `generator`, by
+        default one seeded 0."""
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
         x = self.endpoints().to(self.device)

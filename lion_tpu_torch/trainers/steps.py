@@ -49,8 +49,21 @@ U-Nets compute in bf16 (K10, K2-K6 in bf16, the norms in float32), as the
 JAX package's bf16 steps do; the parameters, Adam's moments, the EMA, the
 losses and the diffusion targets stay float32.
 
-Not ported, each raising NotImplementedError: class and CLIP conditioning
-(ROADMAP Queue 1 item J2).
+Conditioning: under data.cond_on_cat the steps take `class_label` (B,):
+the VAE step's decoder reads it, and the two-prior step conditions the
+local prior on concat([eps_global, cls_emb]) with the frozen VAE's class
+embedding, computed without gradient (lion_tpu/trainers/steps.py:47-53,
+154-206). Under clipforge.enable the two-prior step takes `clip_feat`
+(B, clipforge.feat_dim), which both priors read.
+
+Data parallel (one process a device, parallel/dist.py): inside a process
+group the step broadcasts rank 0's parameters and EMA once when it is
+built, averages the gradients over the ranks after the backward (one flat
+all_reduce, before the clip and Adam, which then see the global batch's
+gradient) and returns the metrics averaged over the ranks; each rank's
+step is otherwise the one-process step on its own rows. Losses that sum
+over the batch (`*_sum`) are averaged like the rest, as the reference's
+per-GPU scripts average them. Without a group nothing of this runs.
 """
 from __future__ import annotations
 
@@ -66,27 +79,11 @@ from ..models.lion import LION, resolve_device
 from ..models.vae import VAE
 from ..nn.common import set_dropout_generator
 from ..ops._cuda import no_tf32
+from ..parallel.dist import (average_gradients, average_values,
+                             broadcast_params, initialized)
 from ..utils.spectral_norm import (init_sn_state, norm_scale_loss,
                                    spectral_norm_loss)
 from .optim import EMA, Optimizer, warmup_cosine_schedule
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for what the
-    port's stage-2 steps do not run."""
-    cfg = as_view(cfg)
-    if cfg.data.cond_on_cat or cfg.clipforge.enable:
-        raise NotImplementedError("class and CLIP conditioning are not "
-                                  "ported (ROADMAP Queue 1 item J2)")
-
-
-def check_vae_supported(cfg) -> None:
-    """Raise NotImplementedError for what the port's VAE step does not
-    run."""
-    cfg = as_view(cfg)
-    if cfg.data.cond_on_cat:
-        raise NotImplementedError("class conditioning is not ported "
-                                  "(ROADMAP Queue 1 item J2)")
 
 
 def kl_weight_schedule(cfg, num_total_iter: int) -> Callable[[int], float]:
@@ -121,10 +118,15 @@ class TrainStep:
     def __init__(self, params, lr_schedule: Callable[[int], float], opt,
                  clip_norm: float, ema_decay: float):
         self.params = list(params)
+        self.distributed = initialized()
+        if self.distributed:
+            broadcast_params(self.params)
         self.optimizer = Optimizer(
             self.params, lr_schedule, opt.beta1, opt.beta2, opt.weight_decay,
             clip_norm)
         self.ema = EMA(self.params, ema_decay) if ema_decay > 0 else None
+        if self.distributed and self.ema is not None:
+            broadcast_params(self.ema.shadow)
 
     def objective(self, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None, **draws):
@@ -137,7 +139,8 @@ class TrainStep:
     def __call__(self, x: torch.Tensor,
                  generator: Optional[torch.Generator] = None, **draws):
         """x on the model's device -> metrics (0-d tensors, not
-        synchronised); `draws` are the objective's given draws."""
+        synchronised; the ranks' means inside a process group); `draws`
+        are the objective's given draws and conditioning inputs."""
         self.optimizer.zero_grad()
         with no_tf32():
             loss, metrics = self.objective(x, generator, **draws)
@@ -147,6 +150,11 @@ class TrainStep:
             # w) gets a zero gradient, as the JAX package's optimizer sees it
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.distributed:
+            average_gradients(self.params)
+            keys = sorted(k for k, v in metrics.items() if torch.is_tensor(v))
+            metrics.update(zip(keys, average_values(
+                [metrics[k] for k in keys])))
         self.optimizer.step()
         if self.ema is not None:
             self.ema.update()
@@ -163,7 +171,6 @@ class VAETrainStep(TrainStep):
     def __init__(self, vae: VAE, lr_schedule: Callable[[int], float],
                  num_total_iter: int = 0):
         cfg = as_view(vae.cfg)
-        check_vae_supported(cfg)
         opt = cfg.trainer.opt
         super().__init__(vae.parameters(), lr_schedule, opt, opt.grad_clip,
                          float(opt.ema_decay) if cfg.ddpm.ema else 0.0)
@@ -182,9 +189,9 @@ class VAETrainStep(TrainStep):
 
     def objective(self, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None, **draws):
-        """x (B, N, input_dim); `draws` are `VAE.get_loss`'s `rho` and
-        `noisy_input`. The metrics are the loss and the print/ and msg/
-        keys (print/kl_weight a float)."""
+        """x (B, N, input_dim); `draws` are `VAE.get_loss`'s `rho`,
+        `noisy_input` and `class_label`. The metrics are the loss and the
+        print/ and msg/ keys (print/kl_weight a float)."""
         out = self.loss(x, generator, **draws)
         return out["loss"], {k: v for k, v in out.items()
                              if k == "loss" or k.startswith(("print/",
@@ -294,7 +301,8 @@ def prior_loss(lion: LION, x: torch.Tensor,
                timestep: Optional[torch.Tensor] = None,
                noise: Optional[Sequence[torch.Tensor]] = None,
                iw_rho: Optional[torch.Tensor] = None,
-               jac_probes=None, sn_state=None, step: int = 0):
+               jac_probes=None, sn_state=None, step: int = 0,
+               class_label=None, clip_feat=None):
     """The two-prior loss of x (B, N, 3): returns (loss, metrics) with
     metrics {"loss", "train/p_loss_0", "train/p_loss_1"} and, when they are
     on, "train/dae_norm_loss", "train/jac_reg_{0,1}" and
@@ -310,9 +318,10 @@ def prior_loss(lion: LION, x: torch.Tensor,
     tensors of the latent's shape) is given. `sn_state` holds the
     spectral-norm power-iteration vectors (required when
     sde.weight_decay_norm_dae > 0 under the weighted objective), updated
-    in place; `step` is the optimizer step that jac_reg_freq reads. Puts
+    in place; `step` is the optimizer step that jac_reg_freq reads.
+    `class_label` (B,) under data.cond_on_cat and `clip_feat` (B,
+    clipforge.feat_dim) under clipforge.enable condition the priors. Puts
     the VAE in eval mode and the priors in train mode."""
-    check_supported(lion.cfg)
     obj = Objective(lion.cfg, lion.mixed_prediction)
     b, dev = x.shape[0], x.device
     lion.vae.eval()
@@ -321,9 +330,15 @@ def prior_loss(lion: LION, x: torch.Tensor,
     set_dropout_generator(lion.global_prior, generator)
     set_dropout_generator(lion.local_prior, generator)
     with torch.no_grad():
+        cls_emb, clip_feat = lion.condition_inputs(b, class_label,
+                                                   clip_feat)
         eps, _, _ = lion.vae.encode(x, generator, rho)
     eps = eps.float()
     eps_global, eps_local = eps[:, :lion.style_dim], eps[:, lion.style_dim:]
+    # global2style is the identity; the class embedding joins the local
+    # prior's condition (train_2prior.py:243-245, 297-301)
+    condition = eps_global if cls_emb is None else \
+        torch.cat([eps_global, cls_emb], dim=1)
     diffusion, t, var_t, m_t, obj_w = obj.quantities(
         lion.diffusion, b, generator, dev, timestep, iw_rho)
     if noise is None:
@@ -345,9 +360,10 @@ def prior_loss(lion: LION, x: torch.Tensor,
         if obj.jac_coeff > 0.0:
             eps_t.requires_grad_(True)
         if i == 0:
-            pred_raw = prior(eps_t, t.float())
-        else:   # global2style is the identity
-            pred_raw = prior(eps_t, t.float(), condition_input=eps_global)
+            pred_raw = prior(eps_t, t.float(), clip_feat=clip_feat)
+        else:
+            pred_raw = prior(eps_t, t.float(), condition_input=condition,
+                             clip_feat=clip_feat)
         pred_raw = pred_raw.float()
         pred = pred_raw
         if obj.mixed:
@@ -431,7 +447,6 @@ class PriorTrainStep(TrainStep):
 
     def __init__(self, lion: LION, lr_schedule: Callable[[int], float]):
         cfg = as_view(lion.cfg)
-        check_supported(cfg)
         super().__init__(
             list(lion.global_prior.parameters())
             + list(lion.local_prior.parameters()), lr_schedule,

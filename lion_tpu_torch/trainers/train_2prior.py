@@ -26,9 +26,21 @@ the parameters, Adam, the EMA and the checkpoints stay float32, so a bf16
 run and a float32 run read each other's checkpoints. Every `viz.viz_freq`
 steps `vis_sample` draws a grid of samples (`viz.vis_sample_ddim_step`
 DDIM steps) into `<save_dir>/images/`; it needs matplotlib, which the
-trainer checks when it is built. Class and CLIP conditioning are refused,
-raising NotImplementedError with their ROADMAP item (J2). One process:
-the cross-process gather of the generated clouds is item I.
+trainer checks when it is built.
+
+Conditioning (lion_tpu/trainers/train_2prior.py:93-120, 154-245): under
+data.cond_on_cat each step reads the batch's `cate_idx` and `sample`
+conditions on the labels arange(n) % data.nclass; under clipforge.enable
+a CLIP encoder (`utils.clip_helper.get_clip_encoder`: the HashClip stand-in
+where no CLIP weights load; LION_REQUIRE_CLIP=1 makes that an error)
+encodes each batch's render views (data.clip_forge_enable), mean-pooled
+over the views, and `sample` takes the first test batch's features.
+
+Data parallel (base.py): `sample` splits its rows over the ranks
+(`LION.sample_chunked(group=)`) when the chain is chunked and the count
+divides the world; `eval_sample` has each rank generate its share of the
+clouds and gathers them in rank order; rank 0 scores them, and the
+decision that no reference set exists reaches every rank.
 """
 from __future__ import annotations
 
@@ -50,12 +62,14 @@ from ..eval.metrics import compute_all_metrics, jsd_between_point_cloud_sets
 from ..models.lion import LION
 from ..models.vae import VAE
 from ..nn.common import init_weights
+from ..parallel.dist import (broadcast_flag, fold_seed, gather_rows, rank,
+                             world)
 from .base import BaseTrainer
-from .steps import (check_supported, default_lr_schedule,
-                    make_prior_train_step)
+from .steps import default_lr_schedule, make_prior_train_step
 
-# eval_sample's answer when no reference set exists (no released reference
-# .pt and no test split): the caller falls back to a sanity statistic
+# eval_sample's answer, on every rank, when no reference set exists (no
+# released reference .pt and no test split): the callers fall back to a
+# sanity statistic together; rank > 0 otherwise gets None
 NO_REFS = object()
 
 # eval_sample's metric keys -> the scalar tags it logs
@@ -69,13 +83,6 @@ TEST_TAGS = {"lgan_cov-CD": "test/Coverage_CD",
              "jsd": "test/JSD"}
 
 
-def check_stage2_supported(cfg) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for what the
-    port's stage-2 trainers do not run: the steps' refusals
-    (`steps.check_supported`)."""
-    check_supported(cfg)
-
-
 def _ensure_csv(save_dir: str) -> str:
     d = os.path.join(save_dir, "results")
     os.makedirs(d, exist_ok=True)
@@ -84,11 +91,20 @@ def _ensure_csv(save_dir: str) -> str:
 
 class Trainer(BaseTrainer):
     def __init__(self, cfg, args, device="cuda"):
-        check_stage2_supported(cfg)
+        self.check_config(cfg)
+        if cfg.clipforge.enable and not cfg.data.clip_forge_enable:
+            raise ValueError("clipforge.enable: the trainer encodes the "
+                             "render views of data.clip_forge_enable, which "
+                             "is off")
         super().__init__(cfg, args, device)
         self.build_data()
         self.build_model()
         self.build_prior()
+
+    @classmethod
+    def check_config(cls, cfg) -> None:
+        """Raise for a configuration the trainer does not run (the
+        two-prior trainer runs every one)."""
 
     # ------------------------------------------------------------- build
     def _steps_per_epoch(self) -> int:
@@ -137,15 +153,64 @@ class Trainer(BaseTrainer):
                             for n, _ in getattr(self.lion,
                                                 prior).named_parameters()]
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.trainer.seed + 13)
+            fold_seed(cfg.trainer.seed, 13))
+        self.build_clip_encoder()
+
+    def build_clip_encoder(self):
+        """The CLIP encoder of clipforge.enable (None without it): real CLIP
+        when its weights load, else the HashClip stand-in with a warning;
+        LION_REQUIRE_CLIP=1 turns the stand-in into an error."""
+        self.clip_encoder = None
+        if not self.cfg.clipforge.enable:
+            return
+        from ..utils.clip_helper import get_clip_encoder
+        require = os.environ.get("LION_REQUIRE_CLIP", "0") == "1"
+        self.clip_encoder = get_clip_encoder(
+            self.cfg.clipforge.clip_model, normalize=False,
+            allow_fallback=not require)
+        if not self.clip_encoder.is_real:
+            self.writer.log("WARNING: CLIP weights unavailable; using "
+                            "HashClip pseudo-features (clipforge). Set "
+                            "LION_CLIP_MODEL to a local weight dir or "
+                            "LION_REQUIRE_CLIP=1 to fail instead")
 
     # ------------------------------------------------------------- train
+    def _batch_clip_feat(self, batch) -> Optional[np.ndarray]:
+        """The batch's CLIP image features: its (B, nimg, H, W, 3) render
+        views encoded and mean-pooled over the views
+        (train_2prior.py:248-258); None without clipforge.enable."""
+        if self.clip_encoder is None:
+            return None
+        tr_img = batch.get("tr_img")
+        if tr_img is None:
+            raise ValueError("clipforge.enable needs the render images of "
+                             "data.clip_forge_enable in the batch")
+        b, nimg = tr_img.shape[:2]
+        flat = tr_img.reshape(b * nimg, *tr_img.shape[2:])
+        feat = self.clip_encoder.encode_image(flat)
+        return feat.reshape(b, nimg, -1).mean(axis=1).astype(np.float32)
+
+    def conditions(self, batch) -> dict:
+        """The step's conditioning inputs of a batch: `class_label` from its
+        cate_idx under data.cond_on_cat, `clip_feat` from its render views
+        under clipforge.enable."""
+        cond = {}
+        if self.cfg.data.cond_on_cat:
+            cond["class_label"] = torch.as_tensor(
+                np.asarray(batch["cate_idx"]), dtype=torch.long,
+                device=self.device)
+        feat = self._batch_clip_feat(batch)
+        if feat is not None:
+            cond["clip_feat"] = self.put_batch(feat)
+        return cond
+
     def train_iter(self, batch, step: int, **draws) -> Dict[str, float]:
         """One step on the batch's clouds; the draws come from the
         trainer's generator unless given (`prior_loss`'s rho, timestep,
         noise)."""
         x = self.put_batch(batch["tr_points"])
-        metrics = self.step_fn(x, self.generator, **draws)
+        metrics = self.step_fn(x, self.generator, **self.conditions(batch),
+                               **draws)
         return {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------ sample
@@ -158,24 +223,57 @@ class Trainer(BaseTrainer):
         with ema.swapped() if ema is not None else contextlib.nullcontext():
             yield self.lion
 
+    def _test_clip_feat(self, num: int) -> Optional[np.ndarray]:
+        """CLIP features for sampling: the first test batch's, tiled or cut
+        to `num` rows (base_trainer.py:646-709); None without
+        clipforge.enable or a test split."""
+        if self.clip_encoder is None:
+            return None
+        if getattr(self, "_clip_feat_test", None) is None:
+            batch = next(iter(self.test_loader or []), None)
+            if batch is None:
+                return None
+            self._clip_feat_test = self._batch_clip_feat(batch)
+        feat = self._clip_feat_test
+        reps = (num + len(feat) - 1) // len(feat)
+        return np.tile(feat, (reps, 1))[:num]
+
     def sample(self, num_samples: int = 16, generator=None,
                use_ema: bool = True, ddim_step: int = 0,
-               given_noise=None) -> torch.Tensor:
+               given_noise=None, clip_feat=None,
+               local: bool = False) -> torch.Tensor:
         """Hierarchical sampling from the (EMA) priors -> points (B, N, 3):
         the ancestral chain in 4 segments (`sample_chunked`) when
         ddim_step is 0, the chain has 500 steps or more and sde.ode_sample
         is off, else `LION.sample(..., ddim_step)`, the PF-ODE under
-        sde.ode_sample (lion_tpu/trainers/train_2prior.py:230-261)."""
+        sde.ode_sample (lion_tpu/trainers/train_2prior.py:230-261). Under
+        data.cond_on_cat the labels are arange(num_samples) % data.nclass;
+        under clipforge.enable `clip_feat` defaults to the test split's.
+        Inside a process group the chunked chain splits its rows over the
+        ranks when the count divides the world, unless `local` (a call
+        that not every rank makes)."""
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
+        cond = {}
+        if self.cfg.data.cond_on_cat:
+            cond["class_label"] = torch.arange(
+                num_samples, device=self.device) % self.cfg.data.nclass
+        if clip_feat is None:
+            clip_feat = self._test_clip_feat(num_samples)
+        if clip_feat is not None:
+            cond["clip_feat"] = clip_feat
         with self.as_lion(use_ema) as lion:
             if (ddim_step == 0 and lion.diffusion.num_steps >= 500
                     and not self.cfg.sde.ode_sample):
+                if not local and world() > 1 and \
+                        num_samples % world() == 0:
+                    import torch.distributed as dist
+                    cond["group"] = dist.group.WORLD
                 out = lion.sample_chunked(num_samples, gen, chunks=4,
-                                          given_noise=given_noise)
+                                          given_noise=given_noise, **cond)
             else:
                 out = lion.sample(num_samples, gen, given_noise=given_noise,
-                                  ddim_step=ddim_step)
+                                  ddim_step=ddim_step, **cond)
         return out["points"]
 
     # -------------------------------------------------------------- eval
@@ -188,9 +286,12 @@ class Trainer(BaseTrainer):
         results = self.eval_sample(self.step, num_gen=n, metric2=None,
                                    save_samples=False)
         if results is NO_REFS:
+            # every rank samples together; rank 0 logs
             pts = self.sample(n)
             self.writer.add_scalar("eval/sample_abs_mean",
                                    float(pts.abs().mean()), self.step)
+            return None
+        if results is None:     # rank > 0: rank 0 scored
             return None
         return float(results["1-NN-CD-acc"])
 
@@ -243,25 +344,35 @@ class Trainer(BaseTrainer):
         shape-box normalization or the de-normalization by the
         references' statistics; the test/* scalars logged and the results
         appended to `eval_out.txt` and `results/eval_out.csv`. Returns the
-        results, or NO_REFS without a reference set."""
+        results, or NO_REFS without a reference set.
+
+        Inside a process group each rank generates ceil(num_gen / world)
+        shapes, from generators seeded trainer.seed + i + 7919 rank, and
+        the clouds are gathered in rank order and cut to num_gen; rank 0
+        decides whether references exist and tells every rank, so NO_REFS
+        comes back on all of them; ranks above 0 return None otherwise
+        (lion_tpu/trainers/train_2prior.py:350-383)."""
         cfg = self.cfg
         cats = get_cats(cfg.data.cates)
         if num_gen <= 0:
             num_gen = cfg.num_ref or (get_ref_num(cats) if cats in NUM_TEST
                                       else cfg.data.batch_size_test)
         batch = min(cfg.data.batch_size_test, num_gen)
+        per_rank = -(-num_gen // world())
         gen_pcs = []
-        for i in range(0, num_gen, batch):
+        for i in range(0, per_rank, batch):
             gen = torch.Generator(device=self.device).manual_seed(
-                cfg.trainer.seed + i)
-            pts = self.sample(min(batch, num_gen - i), generator=gen,
-                              ddim_step=cfg.eval_ddim_step)
-            gen_pcs.append(pts[:, :, :3].float().cpu().numpy())
-        gen_pcs = np.concatenate(gen_pcs)[:num_gen]
+                cfg.trainer.seed + i + rank() * 7919)
+            pts = self.sample(min(batch, per_rank - i), generator=gen,
+                              ddim_step=cfg.eval_ddim_step, local=True)
+            gen_pcs.append(pts[:, :, :3].float())
+        gen_pcs = gather_rows(torch.cat(gen_pcs))[:num_gen].cpu().numpy()
 
-        refs = self._load_refs(num_gen)
-        if refs is None:
+        refs = self._load_refs(num_gen) if rank() == 0 else None
+        if not broadcast_flag(refs is not None):
             return NO_REFS
+        if rank() != 0:
+            return None
         ref_pcs, m, s = refs
         if save_samples:
             out_name = os.path.join(self.save_dir, f"samples_{step}.pt")
@@ -305,8 +416,8 @@ class Trainer(BaseTrainer):
         n = min(self.cfg.num_val_samples, 8)
         gen = torch.Generator(device=self.device).manual_seed(step)
         self.add_sample_grid(self.sample(
-            n, generator=gen, ddim_step=self.cfg.viz.vis_sample_ddim_step),
-            step)
+            n, generator=gen, ddim_step=self.cfg.viz.vis_sample_ddim_step,
+            local=True), step)
 
     # -------------------------------------------------------------- ckpt
     def state_trees(self):

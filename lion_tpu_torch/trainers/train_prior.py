@@ -2,7 +2,9 @@
 train_prior.py).
 
 One `GlobalPrior` (the 'se_drop' ResNet of sde.num_channels_dae wide
-blocks) over the composed latent eps = [z_global, z_local] of the frozen
+blocks; under clipforge.enable the 'se_clip' blocks over the batch's CLIP
+features, lion_tpu/trainers/train_prior.py:39-58, 93-116) over the
+composed latent eps = [z_global, z_local] of the frozen
 VAE: style_dim + N (latent_dim + input_dim) values a shape, 8320 at the
 flagship. Its step: the frozen encode without gradients, t ~ U{1..T}
 (or the continuous VPSDE's importance-sampled t under sde.ode_sample) and
@@ -12,7 +14,10 @@ released objective) or the weighted objective with the spectral-norm,
 norm-scale and mixing-logit terms added once (`pvd_mse_loss = 0`; the JAX
 package's single prior takes no Jacobian or kinetic term), then Adam and
 the EMA. Sampling runs the ancestral chain over eps, splits it into the
-two latents and decodes, under sde.ode_sample too, as in the JAX package.
+two latents and decodes, under sde.ode_sample too, as in the JAX package
+(under clipforge.enable with the test split's features). Class
+conditioning is a two-prior feature (train_2prior.py:241-245): under
+data.cond_on_cat the trainer refuses to build, as the JAX one does.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from ..diffusion.discrete import DiffusionDiscretized, get_mixed_prediction
 from ..models.priors import GlobalPrior
 from ..models.vae import VAE
 from ..nn.common import init_weights, set_dropout_generator
+from ..parallel.dist import fold_seed
 from ..utils.spectral_norm import init_sn_state
 from .steps import Objective, TrainStep, default_lr_schedule
 from .train_2prior import Trainer as TwoPriorTrainer
@@ -58,13 +64,14 @@ class SinglePriorTrainStep(TrainStep):
                   rho: Optional[Sequence[torch.Tensor]] = None,
                   timestep: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None,
-                  iw_rho: Optional[torch.Tensor] = None):
+                  iw_rho: Optional[torch.Tensor] = None, clip_feat=None):
         """The loss of x (B, N, 3) -> (loss, {"loss"} and, with the
         spectral norm on, "train/dae_norm_loss"). Draws from `generator`
         in this order unless given: the encoder's two posterior noises
         (`rho`), t (`timestep` (B,), or the continuous diffusion's uniforms
         `iw_rho` (B,)), the diffusion noise (`noise`, eps's shape), then
-        the prior's dropout masks."""
+        the prior's dropout masks. `clip_feat` (B, clipforge.feat_dim)
+        conditions the 'se_clip' prior."""
         b, dev = x.shape[0], x.device
         obj = self.obj
         self.vae.eval()
@@ -78,7 +85,7 @@ class SinglePriorTrainStep(TrainStep):
         if noise is None:
             noise = torch.randn(eps.shape, generator=generator, device=dev)
         eps_t = diffusion.sample_q(eps, noise, var_t, m_t)
-        pred = self.dae(eps_t, t.float()).float()
+        pred = self.dae(eps_t, t.float(), clip_feat=clip_feat).float()
         if self.mixed_prediction:
             pred = get_mixed_prediction(
                 pred, self.dae.mixing_logit,
@@ -104,11 +111,19 @@ class Trainer(TwoPriorTrainer):
     checkpoint trees (dae, vae, opt, ema); the data, the VAE hand-over,
     the loop and `eval_sample` are the two-prior trainer's."""
 
+    @classmethod
+    def check_config(cls, cfg) -> None:
+        if cfg.data.cond_on_cat:
+            raise NotImplementedError(
+                "data.cond_on_cat requires trainer.type=trainers.train_2prior"
+                " (lion_tpu/trainers/train_prior.py:36-37)")
+
     def build_prior(self):
         cfg = self.cfg
         n = cfg.data.tr_max_sample_points
         self.eps_dim = cfg.latent_pts.style_dim + n * (
             cfg.shapelatent.latent_dim + cfg.ddpm.input_dim)
+        clip_on = bool(cfg.clipforge.enable)
         with self.device:
             self.dae = GlobalPrior(
                 num_input_channels=self.eps_dim,
@@ -117,9 +132,12 @@ class Trainer(TwoPriorTrainer):
                 embedding_dim=cfg.sde.embedding_dim,
                 embedding_type=cfg.sde.embedding_type,
                 embedding_scale=cfg.sde.embedding_scale,
-                dropout=cfg.sde.dropout, block_type="se_drop",
+                dropout=cfg.sde.dropout,
+                block_type="se_clip" if clip_on else "se_drop",
                 mixed_prediction=bool(cfg.sde.mixed_prediction),
-                mixing_logit_init=cfg.sde.mixing_logit_init)
+                mixing_logit_init=cfg.sde.mixing_logit_init,
+                clip_forge_enable=clip_on,
+                clip_feat_dim=cfg.clipforge.feat_dim)
         init_weights(self.dae,
                      torch.Generator().manual_seed(cfg.trainer.seed + 2))
         self.diffusion = DiffusionDiscretized(as_view(cfg))
@@ -129,18 +147,27 @@ class Trainer(TwoPriorTrainer):
         self.param_names = [f"dae.{n}" for n, _ in
                             self.dae.named_parameters()]
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.trainer.seed + 13)
+            fold_seed(cfg.trainer.seed, 13))
+        self.build_clip_encoder()
 
     @torch.no_grad()
     def sample(self, num_samples: int = 16, generator=None,
                use_ema: bool = True, ddim_step: int = 0,
-               given_noise=None) -> torch.Tensor:
+               given_noise=None, clip_feat=None,
+               local: bool = False) -> torch.Tensor:
         """The ancestral chain over the composed eps from the (EMA) prior,
         split into [z_global, z_local] and decoded -> points (B, N, 3)
         (lion_tpu/trainers/train_prior.py:155-175, which takes no mixing
         logit in the chain and ancestral steps whatever `ddim_step`).
         `given_noise` (init (B, eps_dim), steps (T, B, eps_dim)) replaces
-        every draw of the chain."""
+        every draw of the chain. Under clipforge.enable `clip_feat`
+        defaults to the test split's features; `local` is accepted for the
+        trainers' interface (each rank samples its own rows)."""
+        if clip_feat is None:
+            clip_feat = self._test_clip_feat(num_samples)
+        if clip_feat is not None:
+            clip_feat = torch.as_tensor(clip_feat, dtype=torch.float32,
+                                        device=self.device)
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
         init, steps = given_noise if given_noise is not None else (None,
@@ -150,7 +177,8 @@ class Trainer(TwoPriorTrainer):
         self.vae.eval()
         with ema.swapped() if ema is not None else contextlib.nullcontext():
             eps = self.diffusion.run_denoising_diffusion(
-                self.dae, num_samples, (self.eps_dim,), gen, self.device,
+                lambda x, t: self.dae(x, t, clip_feat=clip_feat),
+                num_samples, (self.eps_dim,), gen, self.device,
                 x_noisy=init, given_noise=steps)
         style_dim = self.cfg.latent_pts.style_dim
         return self.vae.sample(num_samples,

@@ -207,8 +207,14 @@ def test_resume_without_a_snapshot_warns(tmp_path, data_root, capsys):
     assert tr.step == 2
 
 
-def test_distributed_init_names_item_i(tmp_path, data_root):
-    with pytest.raises(NotImplementedError, match="item I"):
+def test_distributed_init_names_item_i(tmp_path, data_root, monkeypatch):
+    """--distributed_init (once refused as item I) joins the group that
+    torchrun's environment describes: without it, it stops before the
+    experiment exists, naming the variables (tests/test_torch_port_dist.py
+    runs it on two ranks)."""
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_dist.main(stage1_argv(tmp_path / "exp", data_root,
                                     "--distributed_init"))
     assert not (tmp_path / "exp").exists()
@@ -336,7 +342,10 @@ def test_demo_ddim_random_init_and_plot(tmp_path, stage2, capsys):
 
 @pytest.mark.parametrize("flag", ["--text", "--clip_feat"])
 def test_demo_refuses_clip_conditioning(tmp_path, stage2, flag):
-    with pytest.raises(NotImplementedError, match="item J2"):
+    """--text / --clip_feat (once refused as item J2) condition a CLIP
+    prior: a config without clipforge.enable, whose priors would ignore
+    the features, refuses them (tests/test_torch_port_clip.py runs them)."""
+    with pytest.raises(ValueError, match="clipforge.enable"):
         demo.main(["--config", os.path.join(stage2["save_dir"], "cfg.yml"),
                    flag, "a chair", "--device", "cpu"])
 

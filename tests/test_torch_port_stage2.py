@@ -156,7 +156,29 @@ def test_stage2_trainers_default_to_the_card(tmp_path, data_root, name):
     ("clipforge__enable", True, "item J")])
 def test_stage2_trainers_refuse_what_is_not_ported(tmp_path, data_root, cls,
                                                    key, value, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Class and CLIP conditioning (once refused as item J2): a trainer
+    that cannot take them refuses at build. The single prior refuses
+    data.cond_on_cat (a two-prior feature, as lion_tpu asserts); the
+    interpolation trainers refuse both (lion_tpu's interpolations give the
+    priors no label or feature); every trainer refuses clipforge.enable
+    without the render views of data.clip_forge_enable. The two-prior
+    trainer builds under cond_on_cat, with the class embedding and the
+    local prior's wider condition."""
+    if cls is TwoPrior and key == "data__cond_on_cat":
+        pt = _port(cls, tmp_path, data_root, **{key: value})
+        cfg = pt.cfg
+        assert tuple(pt.vae.class_embedding.kernel.shape) == (
+            cfg.data.nclass, cfg.tpu.cls_emb_dim)
+        widths = {tuple(v.shape)[0] for k, v in
+                  pt.lion.local_prior.state_dict().items()
+                  if k.endswith("emd.kernel")}
+        assert widths == {cfg.latent_pts.style_dim + cfg.tpu.cls_emb_dim}
+        return
+    interp = cls in (InterpolateLatentTrainer, EncodeInterpTrainer)
+    match = "no class label or CLIP" if interp else (
+        "train_2prior" if key == "data__cond_on_cat" else
+        "data.clip_forge_enable")
+    with pytest.raises((NotImplementedError, ValueError), match=match):
         _port(cls, tmp_path, data_root, **{key: value})
 
 

@@ -341,8 +341,18 @@ def test_trainer_trains_saves_resumes_and_scores_on_the_cpu(tmp_path,
     ("data__cond_on_cat", True, "item J2")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, data_root, key, value,
                                             match):
-    with pytest.raises(NotImplementedError, match=match):
-        _port_trainer(tmp_path, data_root, **{key: value})
+    """Class conditioning (once refused as item J2): the stage-1 trainer
+    builds with the class embedding and trains on the batches' cate_idx,
+    and refuses a data.nclass below the categories of data.cates (the
+    labels past it would have no one-hot row)."""
+    pt = _port_trainer(tmp_path, data_root, **{key: value})
+    assert tuple(pt.vae.class_embedding.kernel.shape)[0] == \
+        pt.cfg.data.nclass
+    metrics = pt.train_iter(next(iter(pt.train_loader)), 0)
+    assert np.isfinite(metrics["loss"])
+    pt.writer.close()
+    with pytest.raises(ValueError, match="data.nclass"):
+        _port_trainer(tmp_path, data_root, data__nclass=0, **{key: value})
 
 
 @pytest.mark.parametrize("viz_freq", [400, -2])

@@ -261,12 +261,21 @@ def test_vae_step_defaults_to_the_card():
 
 @pytest.mark.parametrize("key,value", [("data.cond_on_cat", True)])
 def test_vae_step_raises_on_what_is_not_ported(key, value):
+    """Class conditioning (once refused as item J2): the class-conditional
+    VAE's step refuses to run without labels, and runs with them (its
+    parity with lion_tpu is tests/test_torch_port_cond.py's)."""
     cfg = vae_cfg(get_default_cfg())
-    vae = VAE(cfg)
     node, leaf = key.split(".")
     setattr(getattr(cfg, node), leaf, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_vae_train_step(vae, device="cpu")
+    vae = VAE(cfg)
+    init_weights(vae, torch.Generator().manual_seed(7))
+    step = make_vae_train_step(vae, lambda i: 1e-3, device="cpu")
+    x = torch.from_numpy(noise(34, B, N, 3, scale=0.3))
+    with pytest.raises(ValueError, match="class_label"):
+        step(x, torch.Generator().manual_seed(1))
+    metrics = step(x, torch.Generator().manual_seed(1),
+                   class_label=torch.tensor([0, 3]))
+    assert np.isfinite(float(metrics["loss"]))
 
 
 @pytest.mark.parametrize("key", ["tpu.bf16", "sde.autocast_train"])

@@ -292,9 +292,15 @@ def test_registry_builds_the_plain_prior_and_refuses_se_clip():
     cfg.sde.embedding_type = "fourier"
     prior = build_global_prior(cfg)
     assert prior.temb_fun is not None and hasattr(prior.block0, "norm1")
+    # PriorSEClip (once refused as item J2) builds under clipforge.enable
+    # and refuses without it, as its blocks read the CLIP features
     cfg.latent_pts.style_prior = "models.score_sde.resnet.PriorSEClip"
-    with pytest.raises(NotImplementedError, match="item J"):
+    with pytest.raises(ValueError, match="se_clip"):
         build_global_prior(cfg)
+    cfg.clipforge.enable = 1
+    prior = build_global_prior(cfg)
+    assert prior.clip_feat_mapping is not None and \
+        hasattr(prior.block0, "se_fc1")
 
 
 def test_fourier_w_gets_a_zero_gradient_and_adam_state():
