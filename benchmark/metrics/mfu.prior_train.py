@@ -1,0 +1,2 @@
+"""mfu.prior_train: `benchmark.readers.mfu`."""
+from benchmark.readers import mfu as read  # noqa: F401

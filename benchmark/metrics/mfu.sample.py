@@ -1,0 +1,2 @@
+"""mfu.sample: `benchmark.readers.mfu`."""
+from benchmark.readers import mfu as read  # noqa: F401

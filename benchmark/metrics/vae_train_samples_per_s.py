@@ -1,0 +1,6 @@
+"""vae_train_samples_per_s: stage-1 training samples over the window's
+whole time (its start to the end of its last step on the device)."""
+
+
+def read(w):
+    return w["rate"]
