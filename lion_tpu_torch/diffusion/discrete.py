@@ -28,6 +28,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .schedules import make_beta_schedule
 
 
@@ -123,9 +124,10 @@ class DiffusionDiscretized:
                         mixing_logit=None):
         """One p(x_{t-1} | x_t) step from x at step index t."""
         k = self._coefficients(t)
-        timestep = torch.full((x.shape[0],), t + 1, dtype=torch.float32,
-                              device=x.device)
-        pred = model_fn(x, timestep)
+        with span("chain.prior"):
+            timestep = torch.full((x.shape[0],), t + 1, dtype=torch.float32,
+                                  device=x.device)
+            pred = model_fn(x, timestep)
         if mixing_logit is not None:
             mix = k["sqrt_1m_ab"] * x
             pred = get_mixed_prediction(
@@ -140,16 +142,19 @@ class DiffusionDiscretized:
                     mixing_logit=None, given_noise=None):
         """Run the reverse chain over the step indices `ts` (descending).
         `given_noise` (T, B, ...) replaces the Gaussian draw of step t by
-        given_noise[t], reshaped to x's shape."""
+        given_noise[t], reshaped to x's shape. Each step is a span
+        `chain.update` (the draw and the update) around its `chain.prior`."""
         for t in ts:
             t = int(t)
-            if given_noise is not None:
-                noise = given_noise[t].reshape(x.shape).to(x.device)
-            elif t > 0:
-                noise = randn(x.shape, generator, x.device)
-            else:
-                noise = None
-            x = self._ancestral_step(model_fn, x, t, noise, mixing_logit)
+            with span("chain.update"):
+                if given_noise is not None:
+                    noise = given_noise[t].reshape(x.shape).to(x.device)
+                elif t > 0:
+                    noise = randn(x.shape, generator, x.device)
+                else:
+                    noise = None
+                x = self._ancestral_step(model_fn, x, t, noise,
+                                         mixing_logit)
         return x
 
     def run_denoising_diffusion(self, model_fn: Callable, num_samples: int,
@@ -211,7 +216,9 @@ class DiffusionDiscretized:
         * x + c * eps + sigma * noise, c = sqrt(max(1 - a_next - sigma^2,
         0)) - sqrt(1 - a_t) * sqrt(a_next / a_t). The initial x and every
         noise draw come from `generator`; a step whose sigma is 0 draws
-        none. Returns x_0 of shape (num_samples, *shape)."""
+        none. Each step is a span `chain.prior` (the prior call), then a
+        span `chain.update` (the rest of the step). Returns x_0 of shape
+        (num_samples, *shape)."""
         x_shape = (num_samples,) + tuple(shape)
         if x_noisy is None:
             x_noisy = randn(x_shape, generator, device)
@@ -223,17 +230,20 @@ class DiffusionDiscretized:
         one = np.float32(1.0)
         for t, a_next, sig in zip(taus, alpha_next, sigma):
             a_tau = self.alpha_bars[t]
-            timestep = torch.full((num_samples,), t + 1,
-                                  dtype=torch.float32, device=x.device)
-            pred = model_fn(x, timestep)
-            if mixing_logit is not None:
-                mix = float(np.sqrt(one - a_tau)) * x
-                pred = get_mixed_prediction(
-                    pred, mixing_logit.reshape(x_shape[1:]), mix)
-            scale = np.sqrt(a_next / a_tau)
-            c = np.sqrt(np.maximum(one - a_next - sig * sig, np.float32(0))) \
-                - np.sqrt(one - a_tau) * scale
-            x = float(scale) * x + float(c) * pred
-            if sig != 0:
-                x = x + float(sig) * randn(x_shape, generator, x.device)
+            with span("chain.prior"):
+                timestep = torch.full((num_samples,), t + 1,
+                                      dtype=torch.float32, device=x.device)
+                pred = model_fn(x, timestep)
+            with span("chain.update"):
+                if mixing_logit is not None:
+                    mix = float(np.sqrt(one - a_tau)) * x
+                    pred = get_mixed_prediction(
+                        pred, mixing_logit.reshape(x_shape[1:]), mix)
+                scale = np.sqrt(a_next / a_tau)
+                c = np.sqrt(np.maximum(one - a_next - sig * sig,
+                                       np.float32(0))) \
+                    - np.sqrt(one - a_tau) * scale
+                x = float(scale) * x + float(c) * pred
+                if sig != 0:
+                    x = x + float(sig) * randn(x_shape, generator, x.device)
         return x

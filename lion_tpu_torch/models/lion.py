@@ -35,7 +35,6 @@ and gathers them back on every rank (lion_tpu's `mesh`).
 """
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
@@ -47,6 +46,7 @@ from ..diffusion.continuous import make_diffusion
 from ..diffusion.discrete import DiffusionDiscretized, randn
 from ..nn.common import init_weights
 from ..parallel.dist import gather_rows
+from ..utils.spans import span
 from .registry import build_global_prior, build_local_prior
 from .vae import VAE
 
@@ -120,12 +120,14 @@ class LION(nn.Module):
         draw of the two ancestral chains (lion_tpu's given_noise); under
         the PF-ODE the steps are None and the inits are the ODE's starting
         points (lion_tpu's `sample_model_ode(noise=)`). Returns z_global
-        (B, style),
-        z_local (B, N*C), points (B, N, 3), the wall seconds of each stage
-        (`stage_seconds`, after a device sync) and under the PF-ODE the
-        function evaluations of both priors (`nfe`) and of each
-        (`nfe_global`, `nfe_local`). `class_label` (cond_on_cat) and
-        `clip_feat` (clipforge.enable) condition the sample."""
+        (B, style), z_local (B, N*C), points (B, N, 3), the wall seconds of
+        each stage (`stage_seconds`: "global", "local" and "decode", the
+        host seconds of the spans `sample.global`, `sample.local` and
+        `sample.decode` of `utils.spans`, each closed after a device sync)
+        and under the PF-ODE the function evaluations of both priors
+        (`nfe`) and of each (`nfe_global`, `nfe_local`). `class_label`
+        (cond_on_cat) and `clip_feat` (clipforge.enable) condition the
+        sample."""
         use_ode = bool(self.cfg.sde.ode_sample)
         if use_ode and ddim_step > 0:
             raise ValueError("ode_sample and ddim_step are exclusive")
@@ -251,57 +253,58 @@ class LION(nn.Module):
 
     def _sample(self, num_samples, generator, given_noise, chunks,
                 ddim_step=0, ode=False, class_label=None, clip_feat=None):
-        self.eval()
-        dev = self.device
-        cls_emb, clip_feat = self.condition_inputs(num_samples, class_label,
-                                                   clip_feat, ode)
-        global_fn = lambda xx, t: self.global_prior(  # noqa: E731
-            xx, t, clip_feat=clip_feat)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        (x_g, noise_g), (x_l, noise_l) = given_noise or ((None, None),
-                                                         (None, None))
-        mix_g = self.global_prior.mixing_logit if self.mixed_prediction \
-            else None
-        mix_l = self.local_prior.mixing_logit if self.mixed_prediction \
-            else None
-        seconds = {}
+        with span("sample"):
+            self.eval()
+            dev = self.device
+            cls_emb, clip_feat = self.condition_inputs(
+                num_samples, class_label, clip_feat, ode)
+            global_fn = lambda xx, t: self.global_prior(  # noqa: E731
+                xx, t, clip_feat=clip_feat)
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            (x_g, noise_g), (x_l, noise_l) = given_noise or (
+                (None, None), (None, None))
+            mix_g = self.global_prior.mixing_logit \
+                if self.mixed_prediction else None
+            mix_l = self.local_prior.mixing_logit \
+                if self.mixed_prediction else None
+            nfe = {}
 
-        t0 = time.perf_counter()
-        shape_g = (num_samples, self.style_dim)
-        x = randn(shape_g, generator, dev) if x_g is None \
-            else x_g.reshape(shape_g).to(dev)
-        nfe = {}
-        if ode:
-            z_global, nfe["nfe_global"] = self._ode(global_fn, x, mix_g)
-        else:
-            z_global = self._chain(global_fn, x, generator, mix_g,
-                                   noise_g, chunks, ddim_step)
-        _sync(dev)
-        t1 = time.perf_counter()
-        seconds["global"] = t1 - t0
+            with span("sample.global") as st_global:
+                shape_g = (num_samples, self.style_dim)
+                x = randn(shape_g, generator, dev) if x_g is None \
+                    else x_g.reshape(shape_g).to(dev)
+                if ode:
+                    z_global, nfe["nfe_global"] = self._ode(global_fn, x,
+                                                            mix_g)
+                else:
+                    z_global = self._chain(global_fn, x, generator, mix_g,
+                                           noise_g, chunks, ddim_step)
+                _sync(dev)
 
-        shape_l = (num_samples, self.num_points, self.point_channels)
-        x = randn(shape_l, generator, dev) if x_l is None \
-            else x_l.reshape(shape_l).to(dev)
-        condition = z_global if cls_emb is None else \
-            torch.cat([z_global, cls_emb], dim=1)
-        local_fn = lambda xx, t: self.local_prior(  # noqa: E731
-            xx, t, condition_input=condition, clip_feat=clip_feat)
-        if ode:
-            z_local, nfe["nfe_local"] = self._ode(local_fn, x, mix_l)
-            nfe["nfe"] = nfe["nfe_global"] + nfe["nfe_local"]
-        else:
-            z_local = self._chain(local_fn, x, generator, mix_l, noise_l,
-                                  chunks, ddim_step)
-        z_local = z_local.reshape(num_samples, self.local_dim)
-        _sync(dev)
-        t2 = time.perf_counter()
-        seconds["local"] = t2 - t1
+            with span("sample.local") as st_local:
+                shape_l = (num_samples, self.num_points, self.point_channels)
+                x = randn(shape_l, generator, dev) if x_l is None \
+                    else x_l.reshape(shape_l).to(dev)
+                condition = z_global if cls_emb is None else \
+                    torch.cat([z_global, cls_emb], dim=1)
+                local_fn = lambda xx, t: self.local_prior(  # noqa: E731
+                    xx, t, condition_input=condition, clip_feat=clip_feat)
+                if ode:
+                    z_local, nfe["nfe_local"] = self._ode(local_fn, x, mix_l)
+                    nfe["nfe"] = nfe["nfe_global"] + nfe["nfe_local"]
+                else:
+                    z_local = self._chain(local_fn, x, generator, mix_l,
+                                          noise_l, chunks, ddim_step)
+                z_local = z_local.reshape(num_samples, self.local_dim)
+                _sync(dev)
 
-        points = self.vae.sample(num_samples, [z_global, z_local],
-                                 class_label=class_label)
-        _sync(dev)
-        seconds["decode"] = time.perf_counter() - t2
-        return {"z_global": z_global, "z_local": z_local, "points": points,
-                "stage_seconds": seconds, **nfe}
+            with span("sample.decode") as st_decode:
+                points = self.vae.sample(num_samples, [z_global, z_local],
+                                         class_label=class_label)
+                _sync(dev)
+            seconds = {"global": st_global.seconds,
+                       "local": st_local.seconds,
+                       "decode": st_decode.seconds}
+            return {"z_global": z_global, "z_local": z_local,
+                    "points": points, "stage_seconds": seconds, **nfe}

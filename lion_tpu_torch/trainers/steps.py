@@ -81,6 +81,7 @@ from ..nn.common import set_dropout_generator
 from ..ops._cuda import no_tf32
 from ..parallel.dist import (average_gradients, average_values,
                              broadcast_params, initialized)
+from ..utils.spans import span
 from ..utils.spectral_norm import (init_sn_state, norm_scale_loss,
                                    spectral_norm_loss)
 from .optim import EMA, Optimizer, warmup_cosine_schedule
@@ -140,25 +141,33 @@ class TrainStep:
                  generator: Optional[torch.Generator] = None, **draws):
         """x on the model's device -> metrics (0-d tensors, not
         synchronised; the ranks' means inside a process group); `draws`
-        are the objective's given draws and conditioning inputs."""
-        self.optimizer.zero_grad()
-        with no_tf32():
-            loss, metrics = self.objective(x, generator, **draws)
-            loss.backward()
-        for p in self.params:
-            # a parameter the loss does not reach (the Fourier embedding's
-            # w) gets a zero gradient, as the JAX package's optimizer sees it
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.distributed:
-            average_gradients(self.params)
-            keys = sorted(k for k, v in metrics.items() if torch.is_tensor(v))
-            metrics.update(zip(keys, average_values(
-                [metrics[k] for k in keys])))
-        self.optimizer.step()
-        if self.ema is not None:
-            self.ema.update()
-        self.after_update()
+        are the objective's given draws and conditioning inputs. The step
+        is the span `train.step`, its phases `train.forward`,
+        `train.backward` and `train.update` (`utils.spans`)."""
+        with span("train.step"):
+            self.optimizer.zero_grad()
+            with no_tf32():
+                with span("train.forward"):
+                    loss, metrics = self.objective(x, generator, **draws)
+                with span("train.backward"):
+                    loss.backward()
+            with span("train.update"):
+                for p in self.params:
+                    # a parameter the loss does not reach (the Fourier
+                    # embedding's w) gets a zero gradient, as the JAX
+                    # package's optimizer sees it
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if self.distributed:
+                    average_gradients(self.params)
+                    keys = sorted(k for k, v in metrics.items()
+                                  if torch.is_tensor(v))
+                    metrics.update(zip(keys, average_values(
+                        [metrics[k] for k in keys])))
+                self.optimizer.step()
+                if self.ema is not None:
+                    self.ema.update()
+                self.after_update()
         return {k: (v.detach() if torch.is_tensor(v) else v)
                 for k, v in metrics.items()}
 
@@ -329,7 +338,7 @@ def prior_loss(lion: LION, x: torch.Tensor,
     lion.local_prior.train()
     set_dropout_generator(lion.global_prior, generator)
     set_dropout_generator(lion.local_prior, generator)
-    with torch.no_grad():
+    with span("prior.encode"), torch.no_grad():
         cls_emb, clip_feat = lion.condition_inputs(b, class_label,
                                                    clip_feat)
         eps, _, _ = lion.vae.encode(x, generator, rho)
