@@ -6,13 +6,15 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero:
   1. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off for matmuls and cuDNN.
-  2. build: compiles the fourteen CUDA kernels from lion_tpu_torch/csrc
-     (K1-K13 and the ordered row sum of the backwards).
+  2. build: compiles the fifteen CUDA kernels from lion_tpu_torch/csrc
+     (K1-K13, the ordered row sum of the backwards and K10's weight
+     gradient).
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main paths' shapes (batch 16), fp32 and bf16, with times
      from CUDA events; every K4 and K10 case with its bound and cuDNN's
-     conv beside it (bf16 in channels-last, fp32 with TF32 off); K8 beside
-     two cuDNN convs;
+     conv beside it (bf16 in channels-last, fp32 with TF32 off); K10's
+     weight gradient at r32 C64->64 B16 and C3->32 B32 beside cuDNN's
+     `conv3d_weight`; K8 beside two cuDNN convs;
      K12's approximate EMD on the evaluation's block of 16 x 33 pairs of
      2048-point clouds (repeating bit for bit), N != M both ways and a
      permuted copy; K13's
@@ -225,9 +227,10 @@ BF16_PATH = ("fps", "avg_voxelize", "conv3d_3x3_fused",
              "trilinear_devoxelize", "three_nn_interpolate", "sa_fused",
              "conv3d_pair", "pvconv_block_pair")
 # the two-prior step: the frozen encode's eval flow (K1-K6), the priors'
-# train flow (K10 forward and dx), the SA blocks' backward (K11) and the
-# point ops' backwards (the ordered row sum)
-TRAIN_PATH = FP32_PATH + ("conv3d_3x3_same", "ball_query", "row_sum")
+# train flow (K10 forward, dx and its weight gradient), the SA blocks'
+# backward (K11) and the point ops' backwards (the ordered row sum)
+TRAIN_PATH = FP32_PATH + ("conv3d_3x3_same", "conv3d_weight_grad",
+                          "ball_query", "row_sum")
 # the channel-first grouping op (K13) has no model caller; its path is the
 # op at scripts/profile_bqg_cf.py's shapes. Evaluation samples on the bf16
 # path and scores with K12.
@@ -246,15 +249,18 @@ STAGE2_TRAINER_PATH = VAE_TRAIN_PATH
 # eval flow (no K4)
 STAGE1_STEP_PATH = ("fps", "ball_query_group", "avg_voxelize",
                     "trilinear_devoxelize", "three_nn_interpolate",
-                    "conv3d_3x3_same", "ball_query", "row_sum")
+                    "conv3d_3x3_same", "conv3d_weight_grad", "ball_query",
+                    "row_sum")
 # the bf16 training steps and trainers launch the training path's kernels,
 # these among them on bf16 tensors (the U-Nets' convs and grouping)
-BF16_TRAIN_KERNELS = ("conv3d_3x3_same", "ball_query_group",
+BF16_TRAIN_KERNELS = ("conv3d_3x3_same", "conv3d_weight_grad",
+                      "ball_query_group",
                       "avg_voxelize", "trilinear_devoxelize",
                       "three_nn_interpolate", "row_sum")
 REPORT_ORDER = FP32_PATH + ("sa_fused", "conv3d_pair", "pvconv_block_pair",
-                            "conv3d_3x3_same", "ball_query",
-                            "ball_query_group_cf", "emd_cost", "row_sum")
+                            "conv3d_3x3_same", "conv3d_weight_grad",
+                            "ball_query", "ball_query_group_cf", "emd_cost",
+                            "row_sum")
 BATCH_TRAIN = 16   # scripts/profile_train_step.py's batch
 WARMUP_STEPS, TRAIN_STEPS = 2, 5
 BATCH_VAE = 32     # stage 1's released batch a GPU (script/train_vae.sh)
@@ -585,6 +591,31 @@ def _conv_dx_check(randn, b, r, ci, co, iters, dtype=torch.float32):
         bound(nbytes(gy, w) + b * r ** 3 * ci * gy.element_size(),
               **{"bf16_ops" if bf else "fp32_ops": _conv_ops(b, r, co, ci)}),
         lambda: torch.nn.grad.conv3d_input(shape, wc, gyc, padding=1))
+
+
+def _wgrad_check(randn, b, r, ci, co, iters, dtype=torch.float32):
+    """K10's weight gradient at one shape: x and the output's gradient g
+    against the plain version (cuDNN's, TF32 off, on float32 copies), with
+    cuDNN's `conv3d_weight` on x and g as they are beside it as the
+    library's time. fp32: sums of b r^3 products in another order, within
+    1e-4 of the largest entry; bf16: the same float32 sums rounded once.
+    Bound: FFMA (the products are float32 in both dtypes)."""
+    x = randn(b, r, r, r, ci).to(dtype)
+    g = randn(b, r, r, r, co).to(dtype)
+    xc, gc = _ncdhw(x), _ncdhw(g)
+    bf = dtype == torch.bfloat16
+
+    def gate(got, ref):
+        scale = float(ref.float().abs().max())
+        return _close(0, 1e-4 * scale)(got, ref) if not bf else \
+            _bf16_close(1e-2)(got, ref)
+    return KernelCheck(
+        "conv3d_weight_grad", f"{'bf16 ' if bf else ''}B{b} r{r} C{ci}->{co}",
+        (x, g), {}, gate, iters, max(2, iters // 2),
+        bound(nbytes(x, g) + 27 * ci * co * x.element_size(),
+              fp32_ops=_conv_ops(b, r, ci, co)),
+        lambda: torch.nn.grad.conv3d_weight(xc, (co, ci, 3, 3, 3), gc,
+                                            padding=1))
 
 
 def _row_sum_check(randn, case, idx, rows, n, iters):
@@ -987,6 +1018,12 @@ def phase_kernels():
         _conv_dx_check(randn, b, 32, 64, 64, 5, bf),
         *(_conv_dx_check(randn, BATCH_VAE, r, co, ci, 5, bf)
           for r, ci, co in STAGE1_K10_DX),
+        # K10's weight gradient: the stage-1 step's widest conv at the
+        # kernels' batch and its smallest (C3 -> 32) at its batch of 32
+        _wgrad_check(randn, b, 32, 64, 64, 5),
+        _wgrad_check(randn, BATCH_VAE, 32, 3, 32, 10),
+        _wgrad_check(randn, b, 32, 64, 64, 5, bf),
+        _wgrad_check(randn, BATCH_VAE, 32, 3, 32, 10, bf),
         # K2 on bf16 features (the SA blocks' train flow under bf16): the
         # coordinates rounded once, the features copied, bit for bit
         KernelCheck("ball_query_group", "bf16 B16 N2048 M1024 K32 r0.1 C32",
@@ -1513,14 +1550,14 @@ def _timed_steps(tag, step, x, gen, warmup, steps, batch, path):
     wall_p, groups = _device_groups(lambda: step(x, gen), 2)
     busy = sum(v[0] for v in groups.values())
     k10 = groups.get("K conv3d_3x3_same", [0.0, 0])
-    wgrad = groups.get("cuDNN wgrad", [0.0, 0])
+    wgrad = groups.get("K conv3d_weight_grad", [0.0, 0])
     log(f"[{tag}] losses {[round(v, 4) for v in losses]}; "
         f"{wall / steps * 1e3:.3f} ms/step, {batch * steps / wall:.3f} "
         f"samples/s at batch {batch}; peak device memory "
         f"{peak / 2 ** 30:.3f} GiB; fp32 parameters, {moved} values "
         f"changed; under torch.profiler {wall_p:.3f} ms wall, device "
         f"{busy:.3f} ms, busy share {busy / wall_p:.3f}: K10 "
-        f"{k10[0]:.3f} ms, cuDNN wgrad {wgrad[0]:.3f} ms")
+        f"{k10[0]:.3f} ms, K10's wgrad {wgrad[0]:.3f} ms")
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:6]:
         log(f"[{tag}]   {ms:9.3f} ms {n:6d} ops  {name}")
     return counts

@@ -22,7 +22,7 @@ Layout:
   config/     yacs-compatible config tree (copy of lion_tpu/config)
   diffusion/  beta schedules, the discrete DDPM and DDIM samplers, the
               continuous VPSDE and its ODE solvers
-  ops/        point-cloud ops; the fourteen hand-written CUDA kernels
+  ops/        point-cloud ops; the fifteen hand-written CUDA kernels
               (csrc/*.cu) each sit beside a plain PyTorch version; the ops
               the training steps differentiate are autograd.Functions
   nn/         AdaGN, SharedMLP, PVConv (eval flow, its fused bf16 branches

@@ -11,7 +11,8 @@ gradient (`emd_approx` is the differentiable form).
 """
 from ._cuda import KERNELS, reset_counts
 from .chamfer import chamfer, chamfer_dist, chamfer_l1
-from .conv3d import conv3d_3x3_fused, conv3d_3x3_same, conv3d_pair
+from .conv3d import (conv3d_3x3_fused, conv3d_3x3_same, conv3d_pair,
+                     conv3d_weight_grad)
 from .emd import approx_match, emd_approx, emd_cost
 from .interpolate import nearest_neighbor_interpolate
 from .points import (ball_query, ball_query_group, ball_query_group_cf, fps,
@@ -25,7 +26,8 @@ from .voxel import (avg_voxelize, normalize_coords, trilinear_devoxelize,
 
 __all__ = [
     "KERNELS", "reset_counts", "chamfer", "chamfer_dist", "chamfer_l1",
-    "conv3d_3x3_fused", "conv3d_3x3_same", "conv3d_pair", "approx_match",
+    "conv3d_3x3_fused", "conv3d_3x3_same", "conv3d_pair",
+    "conv3d_weight_grad", "approx_match",
     "emd_approx", "emd_cost", "nearest_neighbor_interpolate", "ball_query",
     "ball_query_group", "ball_query_group_cf", "fps",
     "furthest_point_sample", "furthest_point_sample_idx", "gather",

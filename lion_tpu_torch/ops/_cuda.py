@@ -50,6 +50,7 @@ _SIGNATURES = {
     "lion_avg_voxelize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lion_conv3d_brick": (_P,) * 8 + (_I,) * 18 + (_P,),
     "lion_conv3d_pair": (_P,) * 13 + (_I,) * 13 + (_P,),
+    "lion_conv3d_wgrad": (_P,) * 4 + (_I,) * 10 + (_P,),
     "lion_pvconv_block_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _P),
     "lion_sa_fused": (_P,) * 9 + (_I,) + (_P,) * 5 + (_I,) * 9 + (_F, _P),
@@ -269,15 +270,3 @@ def no_tf32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = conv
-
-
-@contextlib.contextmanager
-def cudnn_deterministic(on: bool = True):
-    """cuDNN's deterministic algorithms inside the block (when `on`); the
-    previous setting comes back after it."""
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = on
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev

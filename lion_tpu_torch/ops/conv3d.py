@@ -12,13 +12,13 @@ Kernels here:
      float32, y rounded once), with a gradient (`conv3d_3x3_same`): dL/dx
      is K10 again on the output gradient with flipped, channel-transposed
      weights in the gradient's dtype, as the JAX VJP computes it
-     (conv3d.py:589-593); dL/dw is cuDNN's weight gradient in full float32
-     from the float32 x and g, where the JAX package leaves it to XLA,
-     rounded to w's dtype as the JAX VJP rounds it (conv3d.py:594-600). The
-     weight gradient runs with cuDNN's deterministic algorithms
-     (`DETERMINISTIC_WGRAD`): its default at some stage-1 shapes adds with
-     atomics and a step would not repeat bit for bit; the deterministic
-     choice cost ~3% of its time on the H100.
+     (conv3d.py:589-593); dL/dw is K10's weight gradient below.
+  `conv3d_weight_grad` (csrc/conv3d_wgrad.cu): dL/dw of K10 in exact fp32
+     FFMA from x and g (bf16 widened in registers), summed in a fixed order
+     and rounded to w's dtype as the JAX VJP rounds it (conv3d.py:594-600),
+     where the JAX package leaves it to XLA. It repeats bit for bit: the
+     long sum over the voxels is split into slabs by the shape alone
+     (`wgrad_plan`) and the slabs' partials are summed in slab order.
 
 K4: y = conv3d_SAME(swish?(x * in_scale + in_bias), w), bias-free, plus the
 per-channel statistics stats[b] = (sum of y, sum of y^2) over the grid, which
@@ -44,13 +44,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._cuda import (check_cuda, check_float, cudnn_deterministic, kernel,
-                    launch, no_tf32, ptr, stream_of)
+from ._cuda import check_cuda, check_float, kernel, launch, ptr, stream_of
 
 GN_GROUPS, GN_EPS = 8, 1e-5
-# K10's weight gradient on cuDNN's deterministic algorithms (profile_step
-# --repeat turns it off to measure what it costs and what it fixes)
-DETERMINISTIC_WGRAD = True
 
 # The halo-brick kernels of K4 and K10 (csrc/conv_brick.cuh): shared memory
 # a block may use on the H100 and an SM holds (1 KB of it reserved per
@@ -173,6 +169,75 @@ def conv_plan(b: int, r: int, ci: int, co: int,
     return best[1]
 
 
+# K10's weight gradient (csrc/conv3d_wgrad.cu): the brick a block stages
+# (d, h, w; a thread's runs lie along w), the (kc, bn) channel tiles it is
+# compiled for, on 256 threads (a thread: one input channel by 4 output
+# channels for all 27 taps), the blocks a launch aims at (two rounds of one
+# block per SM on the H100: one register set fills an SM) and the cap on
+# the slabs' partials. Both fix the slabs, and so the order of dw's sums,
+# from the shape alone, on every card.
+WGRAD_BRICK = (4, 4, 8)
+_WGRAD_TILES = ((16, 64), (32, 32), (8, 32), (4, 32))
+WGRAD_THREADS = 256
+WGRAD_BLOCKS = 264
+WGRAD_SCRATCH = 32 << 20
+
+
+class WgradPlan(NamedTuple):
+    """How the weight-gradient kernel covers one (b, r, ci, co) problem:
+    blocks of `kc` input by `bn` output channels, each channel tile split
+    into `streams` groups of warps that walk alternate runs of a brick; the
+    (item, brick) pairs, item-major, cut into `slabs` runs of `per_slab`
+    (the last may be shorter), one block per (channel tile, slab) (`grid`);
+    `smem` the dynamic shared memory, `scratch` the slabs' partials'
+    bytes."""
+    kc: int
+    bn: int
+    streams: int
+    pairs: int
+    slabs: int
+    per_slab: int
+    grid: Tuple[int, int]
+    smem: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(b: int, r: int, ci: int, co: int,
+               dtype: torch.dtype) -> WgradPlan:
+    """The weight-gradient kernel's plan for x (b, r, r, r, ci) and g
+    (b, r, r, r, co) in `dtype`.
+
+    The tile wastes the fewest products on channels past ci and co, then
+    stages the fewest elements a product (halo cells x kc plus voxels x bn
+    over kc x bn). The slabs: as many as give at most WGRAD_BLOCKS blocks,
+    their partials within WGRAD_SCRATCH bytes, and no slab empty. Nothing
+    here reads the card, so the sums' order depends on the shape alone.
+    Cached: the wrapper asks at every call."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    cells = math.prod(s + 2 for s in WGRAD_BRICK)
+    vox = math.prod(WGRAD_BRICK)
+
+    def cost(t):
+        kc, bn = t
+        padded = -(-ci // kc) * kc * (-(-co // bn)) * bn
+        return padded, (cells * kc + vox * bn) / (kc * bn)
+    kc, bn = min(_WGRAD_TILES, key=cost)
+    lanes = kc * bn // 4
+    streams = WGRAD_THREADS // lanes
+    tiles = -(-ci // kc) * (-(-co // bn))
+    pairs = b * math.prod(-(-r // s) for s in WGRAD_BRICK)
+    partial = 4 * 27 * ci * co
+    slabs = max(1, min(WGRAD_BLOCKS // tiles, WGRAD_SCRATCH // partial,
+                       pairs))
+    per_slab = -(-pairs // slabs)
+    slabs = -(-pairs // per_slab)
+    staging = 2 * esize * (cells * kc + vox * bn)
+    merge = 4 * (streams - 1) * 4 * 27 * lanes
+    return WgradPlan(kc, bn, streams, pairs, slabs, per_slab,
+                     (tiles, slabs), max(staging, merge), slabs * partial)
+
+
 # (device, stream) -> the int32 tickets of the statistics' merge
 _TICKETS = {}
 
@@ -289,14 +354,73 @@ def conv3d_3x3_same_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _conv3d_weight_grad_plain(x: torch.Tensor,
+                              g: torch.Tensor) -> torch.Tensor:
+    """In float32 from float32 copies of x and g, rounded once to x's
+    dtype."""
+    ci, co = x.shape[-1], g.shape[-1]
+    dw = torch.nn.grad.conv3d_weight(
+        x.float().permute(0, 4, 1, 2, 3), (co, ci, 3, 3, 3),
+        g.float().permute(0, 4, 1, 2, 3), padding=1)
+    return dw.permute(2, 3, 4, 1, 0).to(x.dtype).contiguous()
+
+
+@kernel("conv3d_weight_grad", _conv3d_weight_grad_plain,
+        "lion_tpu_torch/csrc/conv3d_wgrad.cu",
+        "none (XLA's convolution: lion_tpu/ops/pallas/conv3d.py:594)")
+def conv3d_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x (B, R, R, R, Ci), g (B, R, R, R, Co) of one dtype (f32 or bf16) ->
+    dw (3, 3, 3, Ci, Co) of that dtype, the weight gradient of K10's
+    bias-free SAME conv: a tile kernel writes each slab's partial
+    (`wgrad_plan`) and a second kernel sums them in slab order."""
+    dt = check_float(x, "conv3d_weight_grad")
+    check_cuda(x, g, dtype=dt)
+    b, r, ci, co = x.shape[0], x.shape[1], x.shape[4], g.shape[4]
+    if x.shape[1:] != (r, r, r, ci) or g.shape[:4] != x.shape[:4]:
+        raise ValueError(f"conv3d_weight_grad: x {tuple(x.shape)}, "
+                         f"g {tuple(g.shape)}")
+    p = wgrad_plan(b, r, ci, co, dt)
+    part = torch.empty(p.scratch // 4, device=x.device)
+    dw = torch.empty((3, 3, 3, ci, co), device=x.device, dtype=dt)
+    launch("lion_conv3d_wgrad", ptr(x), ptr(g), ptr(part), ptr(dw), b, r,
+           ci, co, int(dt == torch.bfloat16), p.kc, p.bn, p.slabs,
+           p.per_slab, p.smem, stream_of(x))
+    return dw
+
+
+class _Conv3dWeightGrad(torch.autograd.Function):
+    """dL/dw of K10 with its own gradient, so that a backward taken with
+    create_graph stays differentiable through dw. dw is bilinear in x and
+    g: for a cotangent v of dw, g's gradient is K10(x, v) and x's is
+    K10(g, v flipped over the taps with Ci and Co swapped), the form dx
+    takes; both go through _Conv3dSame for the orders above."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.save_for_backward(x, g)
+        return conv3d_weight_grad(x, g)
+
+    @staticmethod
+    def backward(ctx, v):
+        x, g = ctx.saved_tensors
+        v = v.contiguous()
+        gx = gg = None
+        if ctx.needs_input_grad[0]:
+            gx = _Conv3dSame.apply(
+                g, v.flip(0, 1, 2).transpose(3, 4).contiguous())
+        if ctx.needs_input_grad[1]:
+            gg = _Conv3dSame.apply(x, v)
+        return gx, gg
+
+
 class _Conv3dSame(torch.autograd.Function):
     """K10 with its gradient. dx is K10 again on the flipped, transposed
     kernel, called through this Function so that a backward taken with
     create_graph (the Jacobian regularizer's J^T v) is itself
     differentiable: the kernel's raw launch is invisible to autograd, and
     a direct call would drop every second-order term through the conv.
-    dw is cuDNN's weight gradient in float32 on its deterministic
-    algorithms, which autograd differentiates, returned in w's dtype."""
+    dw is the weight-gradient kernel, through _Conv3dWeightGrad for the
+    same reason, in w's dtype (x's)."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -312,12 +436,7 @@ class _Conv3dSame(torch.autograd.Function):
             w_flip = w.flip(0, 1, 2).transpose(3, 4).contiguous()
             dx = _Conv3dSame.apply(g, w_flip)
         if ctx.needs_input_grad[1]:
-            with no_tf32(), cudnn_deterministic(DETERMINISTIC_WGRAD):
-                dw = torch.nn.grad.conv3d_weight(
-                    x.float().permute(0, 4, 1, 2, 3),
-                    tuple(w.permute(4, 3, 0, 1, 2).shape),
-                    g.float().permute(0, 4, 1, 2, 3), padding=1)
-            dw = dw.permute(2, 3, 4, 1, 0).to(w.dtype)
+            dw = _Conv3dWeightGrad.apply(x, g)
         return dx, dw
 
 

@@ -38,10 +38,8 @@ seed): the fp32 two-prior step at batch 16, the fp32 stage-1 step at 32,
 the fp32 weighted step (the continuous objective with SN, Jacobian and
 kinetic terms) at 16, and the bf16 two-prior and stage-1 steps; it prints
 whether the updated parameters and EMA are equal bit for bit (and which
-tensors differ), with K10's weight gradient on cuDNN's default algorithms
-and again on its deterministic ones (`ops.conv3d.DETERMINISTIC_WGRAD`, the
-port's setting); then the stage-1 step's device ms of cuDNN's weight
-gradient and of the whole step, in both settings.
+tensors differ); then the stage-1 step's device ms of K10's weight
+gradient and of the whole step.
 
 With --convs it prints the device ms per call of every K4 and K10 case of
 `chip_smoke.py` phase 3 and of cuDNN's conv on the same inputs (bf16 in
@@ -49,7 +47,10 @@ channels-last, fp32 with TF32 off; dx against `conv3d_input`): the kernels
 alone, without the wrapper's host time that CUDA events include. Then K8
 at r32 C64 beside two cuDNN bf16 convs (its yardstick; no PyTorch call
 computes the pair), and K9 at r8 C128 N256 at the batch and at batch 1
-(one cluster of 8 blocks alone).
+(one cluster of 8 blocks alone). Then K10's weight gradient at every shape
+of the benchmark's two training steps (`WGRAD_STEPS`) in fp32 beside
+cuDNN's `conv3d_weight`, and each step's sum of calls x device ms (`--only
+wgrad` keeps those alone).
 
 With --split it prints, for K1 (`fps`) at the local step's four levels
 (N 2048 -> 1024, 1024 -> 256, 256 -> 64, 64 -> 16), for K2
@@ -128,7 +129,8 @@ _OURS = {"fps_kernel": "fps", "bqg_kernel": "ball_query_group",
          "pair_conv1_brick": "conv3d_pair", "pair_fold_kernel": "conv3d_pair",
          "pvblock_brick": "pvconv_block_pair", "bq_kernel": "ball_query",
          "row_order_kernel": "row_sum", "row_sum_kernel": "row_sum",
-         "bqg_cf_kernel": "ball_query_group_cf"}
+         "bqg_cf_kernel": "ball_query_group_cf",
+         "k10_wgrad_": "conv3d_weight_grad"}
 # K4's cases (r, ci, co, dtype, affine + swish prologue): fp32, the encode's
 # and the fp32 path's widest convs; bf16, every (r, ci, co) of the bf16
 # local step's twelve K4 calls. K10's: (r, ci, co), its dx at r32 C64.
@@ -152,6 +154,19 @@ K10_CASES = ((32, 64, 64), (32, 4, 32), (16, 128, 64), (8, 192, 128))
 STAGE1_K10_CASES = ((32, 3, 32), (32, 32, 32), (16, 32, 32), (16, 64, 64),
                     (8, 128, 128), (16, 128, 128))
 STAGE1_K10_DX = ((32, 32, 4),)
+# K10's weight gradients a step takes, {(b, r, ci, co): calls}: the stage-1
+# step at its batch of 32 and the two-prior step at 40, the benchmark's
+# training cells (counted from its plain reference on the meta device)
+WGRAD_STEPS = {
+    "stage1 B32": {(32, 32, 64, 64): 8, (32, 32, 32, 32): 9,
+                   (32, 32, 4, 32): 1, (32, 32, 3, 32): 2,
+                   (32, 16, 128, 128): 8, (32, 16, 64, 64): 4,
+                   (32, 16, 32, 32): 2, (32, 8, 128, 128): 28},
+    "two-prior B40": {(40, 32, 64, 64): 4, (40, 32, 32, 32): 3,
+                      (40, 32, 4, 32): 1, (40, 16, 128, 128): 4,
+                      (40, 16, 64, 64): 1, (40, 16, 128, 64): 1,
+                      (40, 8, 128, 128): 13, (40, 8, 192, 128): 1},
+}
 VAE_BATCH = 32   # stage 1's released batch a GPU (script/train_vae.sh)
 # K4's kernels without statistics are K10 (the training conv), fp32 and bf16
 _K10 = ("conv3d_brick_f32<", "conv3d_brick_bf16<")
@@ -316,31 +331,22 @@ REPEAT_CASES = (("prior", False, 16), ("vae", False, 32),
 
 def repeat_steps(only=None) -> None:
     """`only`: the kinds of REPEAT_CASES to run (all by default)."""
-    from .ops import conv3d
     print(f"[setup] {torch.cuda.get_device_name(0)}, each training step "
           f"twice from the same state and draws")
-    for deterministic in (False, True):
-        # K10's weight gradient on cuDNN's default algorithms, then on its
-        # deterministic ones (the port's setting)
-        conv3d.DETERMINISTIC_WGRAD = deterministic
-        for kind, bf16, batch in REPEAT_CASES:
-            if only and kind not in only:
-                continue
-            differ, losses = step_twice(kind, bf16, batch)
-            print(f"[repeat] deterministic wgrad {deterministic}: {kind} "
-                  f"{'bf16' if bf16 else 'fp32'} B{batch}: "
-                  f"{'bit-equal' if not differ else 'DIFFERS'}; losses "
-                  f"{losses}; {len(differ)} tensors differ"
-                  + (f" (first: {differ[:6]})" if differ else ""))
-        step, _, x, gen = train_step_of("vae", False, 32)
-        wall, groups = _device_groups(lambda: step(x, gen), 2)
-        wgrad = groups.get("cuDNN wgrad", [0.0, 0])
-        print(f"[repeat] deterministic wgrad {deterministic}: stage-1 fp32 "
-              f"B32 step: wall {wall:.3f} ms, device "
-              f"{sum(v[0] for v in groups.values()):.3f} ms, cuDNN wgrad "
-              f"{wgrad[0]:.3f} ms in {wgrad[1]} launches")
-        del step, x
-    conv3d.DETERMINISTIC_WGRAD = True
+    for kind, bf16, batch in REPEAT_CASES:
+        if only and kind not in only:
+            continue
+        differ, losses = step_twice(kind, bf16, batch)
+        print(f"[repeat] {kind} {'bf16' if bf16 else 'fp32'} B{batch}: "
+              f"{'bit-equal' if not differ else 'DIFFERS'}; losses "
+              f"{losses}; {len(differ)} tensors differ"
+              + (f" (first: {differ[:6]})" if differ else ""))
+    step, _, x, gen = train_step_of("vae", False, 32)
+    wall, groups = _device_groups(lambda: step(x, gen), 2)
+    wgrad = groups.get("K conv3d_weight_grad", [0.0, 0])
+    print(f"[repeat] stage-1 fp32 B32 step: wall {wall:.3f} ms, device "
+          f"{sum(v[0] for v in groups.values()):.3f} ms, K10's weight "
+          f"gradient {wgrad[0]:.3f} ms in {wgrad[1]} launches")
 
 
 def profile_train(batch: int, steps: int, bf16: bool = False) -> None:
@@ -454,9 +460,7 @@ def _oidhw(w):
         memory_format=torch.channels_last_3d)
 
 
-def profile_convs(batch: int, steps: int) -> None:
-    import torch.nn.functional as F
-    from . import ops
+def profile_convs(batch: int, steps: int, only=None) -> None:
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -467,6 +471,39 @@ def profile_convs(batch: int, steps: int) -> None:
 
     print(f"[setup] {torch.cuda.get_device_name(0)}, batch {batch}, "
           f"{steps} profiled calls per case")
+    if only != "wgrad":
+        profile_k4_k10(batch, device_ms, randn)
+        profile_pair(batch, device_ms, randn)
+    profile_wgrad(device_ms, randn)
+
+
+def profile_wgrad(device_ms, randn) -> None:
+    """K10's weight gradient at the training cells' shapes beside cuDNN's
+    conv3d_weight (fp32, TF32 off), and each step's total."""
+    from . import ops
+    for step, calls in WGRAD_STEPS.items():
+        total = [0.0, 0.0]
+        for (b, r, ci, co), n in calls.items():
+            x, gy = randn(b, r, r, r, ci), randn(b, r, r, r, co)
+            k = device_ms(functools.partial(ops.conv3d_weight_grad, x, gy))
+            c = device_ms(functools.partial(
+                torch.nn.grad.conv3d_weight, _ncdhw(x), (co, ci, 3, 3, 3),
+                _ncdhw(gy), padding=1))
+            bound = 2 * 27 * ci * co * b * r ** 3 / 67e12 * 1e3
+            total[0] += n * k
+            total[1] += n * c
+            print(f"[wgrad] {step} r{r} C{ci}->{co} x{n}: kernel {k:.4f} "
+                  f"ms, cuDNN {c:.4f} ms (device), bound {bound:.4f} ms "
+                  f"(FFMA), {bound / k:.1%} of it")
+            del x, gy
+        print(f"[wgrad] {step}: kernel {total[0]:.2f} ms a step, cuDNN "
+              f"{total[1]:.2f} ms")
+
+
+def profile_k4_k10(batch, device_ms, randn) -> None:
+    """K4's and K10's cases beside cuDNN's conv (dx: conv3d_input)."""
+    import torch.nn.functional as F
+    from . import ops
     cases = []
     for r, ci, co, dt, pro in K4_CASES:
         x = randn(batch, r, r, r, ci).to(dt)
@@ -495,7 +532,6 @@ def profile_convs(batch: int, steps: int) -> None:
         k, c = device_ms(ours), device_ms(cudnn)
         print(f"[convs] {label} B{batch}: kernel {k:.4f} ms, cuDNN {c:.4f} "
               f"ms (device), ratio {k / c:.2f}")
-    profile_pair(batch, device_ms, randn)
 
 
 def profile_pair(batch, device_ms, randn) -> None:
@@ -1176,9 +1212,7 @@ def main(argv=None):
                     "training steps (fp32, or bf16 with --bf16)")
     ap.add_argument("--repeat", action="store_true",
                     help="each training step twice from the same state: "
-                    "bit-equal?, with K10's wgrad on cuDNN's default and "
-                    "deterministic algorithms, and "
-                    "the cost of cuDNN's weight gradient")
+                    "bit-equal?, and the cost of K10's weight gradient")
     ap.add_argument("--convs", action="store_true",
                     help="device ms of every K4 / K10 case and cuDNN's conv")
     ap.add_argument("--split", action="store_true",
@@ -1189,6 +1223,7 @@ def main(argv=None):
                     help="with --split: the cases whose labels start with "
                     "one of these comma-separated prefixes (e.g. 'K5,K12'); "
                     "with --plans: the kernels named (e.g. 'K11,K13'); "
+                    "with --convs: 'wgrad' for its cases alone; "
                     "with --repeat: the steps named (prior, vae, weighted)")
     ap.add_argument("--given-noise", metavar="PATH", default=None,
                     help="write the 10-step given_noise samples of both "
@@ -1218,7 +1253,7 @@ def main(argv=None):
         repeat_steps(args.only.split(",") if args.only else None)
         return
     if args.convs:
-        profile_convs(args.batch, args.steps)
+        profile_convs(args.batch, args.steps, args.only)
         return
     if args.split:
         profile_split(args.batch, args.steps,

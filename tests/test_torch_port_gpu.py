@@ -16,7 +16,8 @@ import torch
 
 from lion_tpu_torch import ops
 from lion_tpu_torch.ops import voxel
-from lion_tpu_torch.profile_step import STAGE1_K10_CASES, STAGE1_K10_DX
+from lion_tpu_torch.profile_step import (STAGE1_K10_CASES, STAGE1_K10_DX,
+                                         WGRAD_STEPS)
 
 pytestmark = pytest.mark.gpu
 BF16 = torch.bfloat16
@@ -947,6 +948,83 @@ def test_conv3d_same_kernel_at_the_stage1_shapes(gen, r, ci, co):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
+# (b, r, ci, co) of the weight gradients of the stage-1 step (batch 32)
+# and the two-prior step (batch 40), and edge shapes: grids that end inside
+# a brick, channel counts past a tile, a single slab
+WGRAD_CASES = sorted({k for calls in WGRAD_STEPS.values()
+                      for k in calls}) + [
+    (2, 5, 7, 9), (1, 12, 48, 96), (3, 2, 3, 4), (2, 7, 192, 3)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+@pytest.mark.parametrize("b,r,ci,co", WGRAD_CASES)
+def test_conv3d_weight_grad_kernel(gen, b, r, ci, co, dt):
+    """K10's weight gradient against its plain version (cuDNN's, TF32 off,
+    on float32 copies): fp32 sums of b r^3 products in another order, 1e-4
+    of the largest entry (their round-off is ~1e-5 of it at b r^3 = 1.3e6);
+    bf16: the same float32 sums rounded once, a bf16 ulp apart where the
+    orders straddle a rounding."""
+    x = _randn(gen, b, r, r, r, ci).to(dt)
+    g = _randn(gen, b, r, r, r, co).to(dt)
+    got, ref = _both("conv3d_weight_grad", x, g)
+    assert got.shape == (3, 3, 3, ci, co) and got.dtype == dt
+    if dt == BF16:
+        _assert_bf16_close(got, ref, 1e-2)
+    else:
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_conv3d_weight_grad_repeats_on_any_stream(gen, dt):
+    """The slabs' partials are summed in a fixed order: two calls, and a
+    call on a side stream, give the same bits (the stage-1 step's widest
+    shape, and its C3 -> 32 conv of eight streams a block)."""
+    for b, r, ci, co in ((32, 32, 64, 64), (32, 32, 3, 32)):
+        x = _randn(gen, b, r, r, r, ci).to(dt)
+        g = _randn(gen, b, r, r, r, co).to(dt)
+        first = ops.conv3d_weight_grad(x, g)
+        again = ops.conv3d_weight_grad(x, g)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            other = ops.conv3d_weight_grad(x, g)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again) and torch.equal(first, other)
+
+
+def test_conv3d_same_backward_takes_the_kernel_or_raises(gen, monkeypatch):
+    """On the card K10's backward never reaches cuDNN's weight gradient:
+    with `conv3d_weight` made to raise it still runs, the profiler sees
+    only the port's wgrad kernels, and inputs the kernel does not take
+    raise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("cuDNN's weight gradient was called")
+    monkeypatch.setattr(torch.nn.grad, "conv3d_weight", refuse)
+    k = ops.KERNELS["conv3d_weight_grad"]
+    before, plain_before = k.launches, k.plain_calls
+    x = _randn(gen, 4, 16, 16, 16, 32).requires_grad_(True)
+    w = _randn(gen, 3, 3, 3, 32, 64, scale=(27 * 32) ** -0.5)
+    w.requires_grad_(True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.conv3d_3x3_same(x, w).square().sum().backward()
+        torch.cuda.synchronize()
+    assert k.launches - before == 1 and k.plain_calls == plain_before
+    names = {e.key for e in prof.key_averages()}
+    wgrad = {n for n in names if "wgrad" in n.lower()}
+    assert wgrad and all(n.startswith(("k10_wgrad_tile", "k10_wgrad_sum"))
+                         or "::k10_wgrad_" in n for n in wgrad), wgrad
+    with pytest.raises(TypeError):
+        ops.conv3d_weight_grad(x.detach().half(), x.detach().half())
+    with pytest.raises(TypeError):
+        ops.conv3d_weight_grad(x.detach(), x.detach().to(BF16))
+    with pytest.raises(ValueError):
+        ops.conv3d_weight_grad(x.detach(), _randn(gen, 4, 8, 8, 8, 32))
+
+
 def test_stage1_trainer_takes_two_steps_on_the_card(gen, tmp_path):
     """The flagship VAE's Trainer for two steps at batch 4 on a synthetic
     PointFlow tree: only kernels launch, the losses and parameters stay
@@ -1083,12 +1161,12 @@ def test_voxel_ops_take_non_finite_clouds_as_on_the_cpu(gen):
 
 @pytest.mark.parametrize("r,ci,co", [(8, 16, 32), (16, 32, 32)])
 def test_conv3d_same_second_order_matches_plain(gen, r, ci, co):
-    """A gradient of a function of K10's input gradient (what the Jacobian
-    regularizer differentiates): f = <tanh(conv(x, w)), v>, J^T v = df/dx
-    by a backward with create_graph, then the input's and weight's
-    gradients of |J^T v|^2 + <J^T v, x>, on the card (K10 forward and dx,
-    inside autograd's record) against the same graph of the plain
-    version."""
+    """A gradient of a function of K10's input and weight gradients (what
+    the Jacobian regularizer differentiates): f = <tanh(conv(x, w)), v>,
+    J^T v = df/dx and dw = df/dw by a backward with create_graph, then the
+    input's and weight's gradients of |J^T v|^2 + <J^T v, x> + |dw|^2, on
+    the card (K10 forward and dx and the weight-gradient kernel, inside
+    autograd's record) against the same graph of the plain version."""
     x = _randn(gen, 2, r, r, r, ci)
     w = _randn(gen, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
     v = _randn(gen, 2, r, r, r, co)
@@ -1097,17 +1175,18 @@ def test_conv3d_same_second_order_matches_plain(gen, r, ci, co):
         xx = x.clone().requires_grad_(True)
         ww = w.clone().requires_grad_(True)
         f = (torch.tanh(conv(xx, ww)) * v).sum()
-        (jtv,) = torch.autograd.grad(f, xx, create_graph=True)
-        loss = (jtv * jtv).sum() + (jtv * xx).sum()
+        jtv, gw = torch.autograd.grad(f, (xx, ww), create_graph=True)
+        loss = (jtv * jtv).sum() + (jtv * xx).sum() + (gw * gw).sum()
         return torch.autograd.grad(loss, (xx, ww))
 
     w10 = ops.KERNELS["conv3d_3x3_same"]
-    before = w10.launches
+    wg = ops.KERNELS["conv3d_weight_grad"]
+    before, before_wg = w10.launches, wg.launches
     got = second_order(ops.conv3d_3x3_same)
-    # the forward, dx in the first backward; in the second, the dx node's
-    # own dx (its cotangent depends on tanh(conv(x, w))) and the forward's
-    # dx again
-    assert w10.launches - before >= 4
+    # the forward, dx and dw in the first backward; in the second, the dx
+    # node's own dx (its cotangent depends on tanh(conv(x, w))), the dw
+    # node's two K10 calls (x's and g's gradients), the forward's dx and dw
+    assert w10.launches - before >= 6 and wg.launches - before_wg >= 2
     ref = second_order(w10.plain)
     for g, rr in zip(got, ref):
         scale = float(rr.abs().max())
@@ -1267,8 +1346,9 @@ def test_conv3d_same_bf16_kernel_at_the_training_shapes(gen, b, r, ci, co,
 
 
 def test_conv3d_same_bf16_gradients_match_the_cpu(gen):
-    """K10's autograd Function in bf16: dx by K10 in bf16, dw by cuDNN in
-    float32 rounded to bf16, against the CPU's plain versions."""
+    """K10's autograd Function in bf16: dx by K10 in bf16, dw by the
+    weight-gradient kernel on bf16 x and g, summed in float32 and rounded
+    to bf16, against the CPU's plain versions."""
     x = _randn(gen, 2, 16, 16, 16, 32).to(BF16).requires_grad_(True)
     w = _randn(gen, 3, 3, 3, 32, 4, scale=(27 * 32) ** -0.5).to(
         BF16).requires_grad_(True)

@@ -182,21 +182,25 @@ def test_k2_backward_sums_the_coordinates_and_features_in_one_row_sum():
 
 
 def test_k10_weight_gradient_runs_on_deterministic_cudnn(monkeypatch):
-    """K10's weight gradient (cuDNN's on the card) runs with cuDNN's
-    deterministic algorithms, whatever the global setting, and leaves the
-    setting as it was: its default algorithm at some stage-1 shapes adds
-    with atomics (profile_step --repeat)."""
-    from lion_tpu_torch.ops import conv3d
+    """K10's weight gradient on the CPU takes the wrapper's plain version,
+    `torch.nn.grad.conv3d_weight` in float32, once per backward, and equals
+    it; on the card the same wrapper launches the port's fixed-order kernel
+    (csrc/conv3d_wgrad.cu), which repeats bit for bit without cuDNN's
+    deterministic algorithms (tests/test_torch_port_gpu.py)."""
     seen = []
     wgrad = torch.nn.grad.conv3d_weight
 
     def spy(*args, **kwargs):
-        seen.append(torch.backends.cudnn.deterministic)
+        seen.append(args[0].dtype)
         return wgrad(*args, **kwargs)
     monkeypatch.setattr(torch.nn.grad, "conv3d_weight", spy)
+    k = ops.KERNELS["conv3d_weight_grad"]
+    before = k.plain_calls
     x = torch.randn(1, 4, 4, 4, 3, requires_grad=True)
     w = torch.randn(3, 3, 3, 3, 5, requires_grad=True)
-    before = torch.backends.cudnn.deterministic
-    ops.conv3d_3x3_same(x, w).sum().backward()
-    assert seen == [True] and conv3d.DETERMINISTIC_WGRAD
-    assert torch.backends.cudnn.deterministic == before
+    g = torch.randn(1, 4, 4, 4, 5)
+    ops.conv3d_3x3_same(x, w).backward(g)
+    assert seen == [torch.float32] and k.plain_calls - before == 1
+    want = wgrad(x.detach().permute(0, 4, 1, 2, 3), (5, 3, 3, 3, 3),
+                 g.permute(0, 4, 1, 2, 3), padding=1).permute(2, 3, 4, 1, 0)
+    assert torch.equal(w.grad, want)
