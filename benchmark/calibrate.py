@@ -1,8 +1,8 @@
 """The readings the check's limits are set from: the numbers `correct`
 compares, for many seeds in one process, of the program as the
-configuration states it, of the control (the program's own bf16 path,
-`tpu.bf16`, the nearest precision below the configuration's float32) or of
-a planted fault (`benchmark.faults`).
+configuration states it, of the control (the family's `CONTROL`: for LION
+the program's own bf16 path, `tpu.bf16`, the nearest precision below the
+configuration's float32) or of a planted fault (the family's `FAULTS`).
 
     python benchmark/calibrate.py --workload <cell> --seeds 1,2,3
         [--control] [--fault NAME] [--seconds S]
@@ -30,12 +30,12 @@ def main() -> int:
     ap.add_argument("--fault", default=None)
     ap.add_argument("--seconds", type=float, default=0.001)
     args = ap.parse_args()
-    from benchmark.faults import FAULTS
-    from benchmark.harness import cell_of, manifest, run_cell
-    kind = cell_of(manifest(), args.workload)[2]["kind"]
-    keys = {"tpu.bf16": True} if args.control else {}
+    from benchmark.harness import cell_of, family_of, manifest, run_cell
+    _, conf, mix = cell_of(manifest(), args.workload)
+    family = family_of(conf)
+    keys = family.CONTROL if args.control else {}
     for seed in (int(s) for s in args.seeds.split(",")):
-        ctx = FAULTS[args.fault](kind) if args.fault else \
+        ctx = family.FAULTS[args.fault](mix["kind"]) if args.fault else \
             contextlib.nullcontext()
         t = time.perf_counter()
         with ctx:

@@ -1,5 +1,6 @@
-"""Faults planted in the program for the check's own tests: each is a
-context manager that patches the port's timed path while it is active.
+"""The LION family's faults, planted in the program for the check's own
+tests: each is a context manager that patches the port's timed path while
+it is active.
 
   frozen         a step that returns its state unchanged: the DDIM update
                  keeps x (sampling); Adam's update leaves the parameters

@@ -1,8 +1,10 @@
 """The benchmark's harness, driven by `BENCHMARK.json`: it finds a cell's
-configuration (`configs/<config>.json`), traffic mix (`mixes/<traffic>.json`)
-and metric readers (`metrics/<metric>.py`) by the names the manifest gives,
-runs the cell once and returns the result line. Nothing here belongs to
-one cell.
+configuration (`configs/<config>.json`), its model family
+(`families/<family>.py`, named in the configuration file), traffic mix
+(`mixes/<traffic>.json`) and metric readers (`metrics/<metric>.py`) by the
+names the manifest and the files give, runs the cell once and returns the
+result line. Nothing here belongs to one cell or one family: the family
+makes the weights, the traffic and the check (`families/__init__.py`).
 
 One run: weights and inputs from the seed, the system under test built and
 warmed up (set-up), the measured window, with `--trace 1` a profiled
@@ -17,6 +19,7 @@ import gc
 import importlib.util
 import json
 import random
+import re
 import sys
 import time
 from pathlib import Path
@@ -27,13 +30,34 @@ import torch
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "lion_tpu")
+# the directories a cell's mixes, families and metric readers are looked up
+# in, in order (the CPU tests put a directory of their own first)
+DIRS = (BENCH,)
 
 
 def manifest(root: Path = ROOT) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
 
 
-def cell_of(man: dict, workload: str):
+def find(sub: str, name: str, dirs=DIRS) -> Optional[Path]:
+    """The first dirs[i]/sub/name that exists, else None."""
+    for d in dirs:
+        path = Path(d) / sub / name
+        if path.exists():
+            return path
+    return None
+
+
+def _load(path: Path, prefix: str, name: str):
+    """The module of a file, loaded by path as `<prefix>_<name>`."""
+    mod_name = f"{prefix}_{re.sub(r'[^0-9A-Za-z_]', '_', name)}"
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cell_of(man: dict, workload: str, dirs=DIRS):
     """(cell, configuration entry, mix) of a workload name."""
     cells = {c["name"]: c for c in man["workloads"]}
     if workload not in cells:
@@ -41,15 +65,44 @@ def cell_of(man: dict, workload: str):
                          f"{sorted(cells)}")
     cell = cells[workload]
     conf = {c["name"]: c for c in man["configs"]}[cell["config"]]
-    mix = json.loads((BENCH / "mixes" / f"{cell['traffic']}.json")
-                     .read_text())
-    return cell, conf, mix
+    path = find("mixes", f"{cell['traffic']}.json", dirs)
+    if path is None:
+        raise SystemExit(f"no mix file for traffic {cell['traffic']!r} of "
+                         f"workload {workload!r}")
+    return cell, conf, json.loads(path.read_text())
+
+
+def config_file(conf: dict, root: Path = ROOT) -> dict:
+    """The whole configuration file of a configuration entry."""
+    return json.loads((root / conf["file"]).read_text())
 
 
 def config_of(conf: dict, root: Path = ROOT) -> dict:
     """The configuration tree (a plain nested dict) a configuration file
     holds under "cfg"."""
-    return json.loads((root / conf["file"]).read_text())["cfg"]
+    return config_file(conf, root)["cfg"]
+
+
+def load_family(name: str, dirs=DIRS):
+    """The module of families/<name>.py; an unknown family exits."""
+    path = find("families", f"{name}.py", dirs)
+    if path is None:
+        known = sorted({p.stem for d in dirs
+                        for p in (Path(d) / "families").glob("*.py")
+                        if p.stem != "__init__"})
+        raise SystemExit(f"unknown family {name!r}; known: {known}")
+    return _load(path, "benchmark_family", name)
+
+
+def family_of(conf: dict, root: Path = ROOT, dirs=DIRS):
+    """The family module of a configuration entry: the file's "family"
+    key, `lion` where it has none."""
+    return load_family(config_file(conf, root).get("family", "lion"), dirs)
+
+
+def reference_path(family) -> Path:
+    """The path of a family's plain reference (`REFERENCE`)."""
+    return Path(family.__file__).resolve().parents[1] / family.REFERENCE
 
 
 def set_keys(cfg: dict, keys: Dict[str, object]) -> dict:
@@ -67,14 +120,6 @@ def set_keys(cfg: dict, keys: Dict[str, object]) -> dict:
     return cfg
 
 
-def port_config(cfg: dict):
-    """The program's config tree: its defaults with the file's values."""
-    from lion_tpu_torch.config import CfgNode, get_default_cfg
-    node = get_default_cfg()
-    node.merge_from_other_cfg(CfgNode(cfg))
-    return node
-
-
 def metrics_for(man: dict, workload: str, trace: bool) -> List[dict]:
     """The metrics a run of the cell reports: the end-to-end ones without
     tracing, the per-layer ones with it, each where its `workloads` (if
@@ -84,14 +129,12 @@ def metrics_for(man: dict, workload: str, trace: bool) -> List[dict]:
             if "workloads" not in m or workload in m["workloads"]]
 
 
-def reader(name: str):
-    """The `read(window)` function of benchmark/metrics/<name>.py."""
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{name.replace('.', '_').replace('-', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+def reader(name: str, dirs=DIRS):
+    """The `read(window)` function of metrics/<name>.py."""
+    path = find("metrics", f"{name}.py", dirs)
+    if path is None:
+        raise SystemExit(f"no reader for metric {name!r}")
+    return _load(path, "benchmark_metric", name).read
 
 
 def forbidden_loaded(modules=None) -> List[str]:
@@ -148,8 +191,9 @@ def device_info(device, chips: int) -> Dict:
             "memory_peak_bytes": int(torch.cuda.max_memory_allocated(dev))}
 
 
-def trace_units(traffic, units: int) -> Dict:
-    """Profile `units` further units of the traffic and reduce the trace."""
+def trace_units(traffic, units: int, groups=None) -> Dict:
+    """Profile `units` further units of the traffic and reduce the trace
+    (`groups`: the family's kernel groups)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from .trace import events_of, reduce
     acts = [ProfilerActivity.CPU]
@@ -163,7 +207,7 @@ def trace_units(traffic, units: int) -> Dict:
     lo, hi = span[0]
     # the device may still run the last unit's work after the host's range
     hi = max([hi] + [e for _, s, e in dev if s >= lo])
-    out = reduce(dev, host, lo, hi)
+    out = reduce(dev, host, lo, hi, groups=groups)
     out["units"] = units
     return out
 
@@ -171,36 +215,41 @@ def trace_units(traffic, units: int) -> Dict:
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device="cuda", keys: Optional[Dict] = None,
              t_start: Optional[float] = None,
-             readings: bool = False) -> Dict:
+             readings: bool = False, man: Optional[dict] = None,
+             dirs=DIRS) -> Dict:
     """One run of a cell -> the result line's object, `checks` last.
     `keys` sets configuration keys (CPU tests: small sizes; the control:
-    tpu.bf16); `readings` adds every number the check computed and its
-    seconds (`readings`, `check_s`). `diag` holds what explains a run's
-    numbers and is not one of them: each part of set-up in seconds, the
-    window's start and end by the wall clock, the host's mean time to
-    issue a training step, the allocator's retries in the window."""
+    the family's `CONTROL`); `readings` adds every number the check
+    computed and its seconds (`readings`, `check_s`); `man` and `dirs`
+    stand in for BENCHMARK.json and the benchmark's directory (the CPU
+    tests' own family). `diag` holds what explains a run's numbers and is
+    not one of them: each part of set-up in seconds, the window's start
+    and end by the wall clock, the host's mean time to issue a training
+    step, the allocator's retries in the window."""
     from lion_tpu_torch.ops import KERNELS, reset_counts
     from lion_tpu_torch.ops._cuda import library
-    from .check import check
-    from .traffic import KINDS, sub_seed, sync
-    from .weights import make_weights
+    from .traffic import sub_seed, sync
     from .work import unit_work
     t_start = time.perf_counter() if t_start is None else t_start
+    man = manifest() if man is None else man
+    cell, conf, mix = cell_of(man, workload, dirs)
+    family = family_of(conf, dirs=dirs)
+    if mix["kind"] not in family.KINDS:
+        raise SystemExit(f"the family of {conf['name']!r} has no traffic "
+                         f"kind {mix['kind']!r}; known: "
+                         f"{sorted(family.KINDS)}")
     marks = {"import": time.perf_counter()}
-    man = manifest()
-    cell, conf, mix = cell_of(man, workload)
     cfg = set_keys(config_of(conf), keys or {})
     if torch.device(device).type == "cuda":
         torch.cuda.init()
         marks["context"] = time.perf_counter()
         library()
         marks["kernels"] = time.perf_counter()
-    state = make_weights(cfg, sub_seed(seed, 0), device,
-                         damp_style_head=0.01)
+    state = family.make_weights(cfg, sub_seed(seed, 0), device)
     sync(device)
     marks["weights"] = time.perf_counter()
-    traffic = KINDS[mix["kind"]](port_config(cfg), cfg, mix, state, seed,
-                                 device)
+    traffic = family.KINDS[mix["kind"]](family.port_config(cfg), cfg, mix,
+                                        state, seed, device)
     reset_counts()
     traffic.setup()
     marks.update(traffic.marks)
@@ -223,9 +272,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     failed = traffic.failed()
     dev_info = device_info(device, cell["chips"])
     if trace:
-        w["trace"] = trace_units(traffic, mix["trace_units"])
+        w["trace"] = trace_units(traffic, mix["trace_units"],
+                                 getattr(family, "GROUPS", None))
         w["layer"] = traffic.layer_windows()
-        w["work_of_unit"] = unit_work(cfg, mix)
+        w["work_of_unit"] = unit_work(cfg, mix, family)
         dev_info["busy_s"] = w["trace"]["busy_s"]
         dev_info["window_s"] = w["trace"]["window_s"]
     rng = random.Random(seed)
@@ -237,7 +287,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers = check(cfg, mix, state, kept, device)
+    numbers = family.check(cfg, mix, state, kept, device)
     check_s = time.perf_counter() - t_check
     # a kernel wrapper's plain version may not run in the window: on the
     # card it would mean work left the kernels (on the CPU the plain
@@ -251,7 +301,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         c["value"] <= c["limit"] for c in checks.values())
     metrics = {}
     for m in metrics_for(man, workload, trace):
-        value = reader(m["name"])(w)
+        value = reader(m["name"], dirs)(w)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     result = {"correct": correct, "attempted": w["units"], "failed": failed,

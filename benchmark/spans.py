@@ -208,7 +208,7 @@ def span_metrics(kind: str, table) -> Dict[str, float]:
     return out
 
 
-def trace_units_by_span(traffic, units: int) -> Dict:
+def trace_units_by_span(traffic, units: int, groups=None) -> Dict:
     """`harness.trace_units` (the same profile, window and reduction), with
     the trace also reduced by span (`spans`), written to standard error."""
     import torch
@@ -224,7 +224,7 @@ def trace_units_by_span(traffic, units: int) -> Dict:
     span = [(s, e) for n, s, e in host if n == "bench.traced"]
     lo, hi = span[0]
     hi = max([hi] + [e for _, s, e in dev if s >= lo])
-    out = reduce(dev, host, lo, hi)
+    out = reduce(dev, host, lo, hi, groups=groups)
     out["units"] = units
     table = by_span(*span_events(prof), lo, hi)
     kind = traffic.mix["kind"]

@@ -4,32 +4,41 @@ skipped; the port runs its kernels' plain versions) with the timed path
 broken underneath, and sees `correct` come out false with a number far
 above both its limit and the same run's reading without the fault:
 
-- every fault the cell's kind can have (`benchmark.faults.OF_KIND`): a step
-  that returns its state unchanged; Adam's moments formed but the
-  parameters left unchanged (a learning rate of 0); half of the batch left out, the loss
-  the mean over the rest; an answer altered where it is produced;
-- the control: the program's own bf16 path (`tpu.bf16`), the nearest
-  precision below the configurations' float32.
+- every fault the cell's kind can have (its family's `OF_KIND`; LION's
+  `benchmark.faults`): a step that returns its state unchanged; Adam's
+  moments formed but the parameters left unchanged (a learning rate of 0);
+  half of the batch left out, the loss the mean over the rest; an answer
+  altered where it is produced;
+- the control (its family's `CONTROL`): for LION the program's own bf16
+  path (`tpu.bf16`), the nearest precision below the configurations'
+  float32.
 """
 import contextlib
 
 import pytest
 
-from benchmark.faults import FAULTS, OF_KIND
-from benchmark.harness import cell_of, manifest, run_cell
-from benchmark.tests.tiny import KEYS
+from benchmark.harness import cell_of, family_of, manifest, run_cell
 
 MAN = manifest()
 CELLS = [w["name"] for w in MAN["workloads"]]
+
+
+def _family(cell):
+    _, conf, mix = cell_of(MAN, cell)
+    return family_of(conf), mix["kind"]
+
+
 CASES = [(cell, fault) for cell in CELLS
-         for fault in OF_KIND[cell_of(MAN, cell)[2]["kind"]] + ("control",)]
+         for family, kind in [_family(cell)]
+         for fault in family.OF_KIND[kind] + ("control",)]
 _SOUND = {}
 
 
 def _run(cell, fault=None):
-    kind = cell_of(MAN, cell)[2]["kind"]
-    keys = dict(KEYS, **({"tpu.bf16": True} if fault == "control" else {}))
-    ctx = FAULTS[fault](kind) if fault in FAULTS else \
+    family, kind = _family(cell)
+    keys = dict(family.TINY,
+                **(family.CONTROL if fault == "control" else {}))
+    ctx = family.FAULTS[fault](kind) if fault in family.FAULTS else \
         contextlib.nullcontext()
     with ctx:
         return run_cell(cell, 2 ** 31 + 77, 0.001, False, device="cpu",

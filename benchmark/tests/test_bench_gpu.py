@@ -1,15 +1,17 @@
 """The benchmark's tests on the card (marker `gpu`; skipped without CUDA):
 each cell at its own size comes out correct for a short window, and its
-control, the program's bf16 path, fails the check on three seeds.
+control (its family's `CONTROL`: for LION the program's bf16 path) fails
+the check on three seeds.
 
     python -m pytest benchmark/tests/test_bench_gpu.py -m gpu
 """
 import pytest
 import torch
 
-from benchmark.harness import manifest, run_cell
+from benchmark.harness import cell_of, family_of, manifest, run_cell
 
-CELLS = [w["name"] for w in manifest()["workloads"]]
+MAN = manifest()
+CELLS = [w["name"] for w in MAN["workloads"]]
 
 
 def _card():
@@ -30,6 +32,7 @@ def test_cell_is_correct_on_the_card(cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_on_the_card(cell):
     _card()
+    control = family_of(cell_of(MAN, cell)[1]).CONTROL
     for seed in (2 ** 31 + 11, 2 ** 31 + 12, 2 ** 31 + 13):
-        r = run_cell(cell, seed, 0.001, False, keys={"tpu.bf16": True})
+        r = run_cell(cell, seed, 0.001, False, keys=control)
         assert r["correct"] is False, r["checks"]

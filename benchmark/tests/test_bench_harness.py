@@ -59,22 +59,27 @@ def test_metrics_name_their_cells_and_moves():
 def test_cell_files_found_by_name(cell):
     c, conf, mix = harness.cell_of(MAN, cell)
     cfg = harness.config_of(conf)
-    assert cfg["data"]["tr_max_sample_points"] == 2048
+    family = harness.family_of(conf)
     assert conf["file"].startswith("benchmark/configs/")
-    assert mix["kind"] in ("sample", "train_vae", "train_prior")
+    assert mix["kind"] in family.KINDS
     assert mix["limits"], "a cell's mix states its limits"
     for trace_on in (False, True):
         ms = harness.metrics_for(MAN, cell, trace_on)
         assert ms
         for m in ms:
             assert callable(harness.reader(m["name"]))
-    port = harness.port_config(cfg)
-    assert port.sde.num_channels_dae == 2048
+    assert family.port_config(cfg) is not None
 
 
 def test_config_files_hold_the_released_widths():
-    for conf in MAN["configs"]:
+    lion = [c for c in MAN["configs"]
+            if harness.config_file(c).get("family", "lion") == "lion"]
+    assert lion
+    for conf in lion:
         cfg = harness.config_of(conf)
+        assert cfg["data"]["tr_max_sample_points"] == 2048
+        assert harness.family_of(conf).port_config(cfg) \
+            .sde.num_channels_dae == 2048
         assert cfg["sde"]["num_channels_dae"] == 2048
         assert cfg["latent_pts"]["style_dim"] == 128
         assert cfg["tpu"]["bf16"] is False
@@ -150,6 +155,12 @@ def test_kernel_groups():
         "cuDNN wgrad"
     assert trace.group("cudnn::engines_precompiled::nchwToNhwcKernel") == \
         "cuDNN other"
+    # the port's own weight gradient of K10 (csrc/conv3d_wgrad.cu), one of
+    # the convolutions' groups
+    for name in ("void k10_wgrad_tile<64, 32, float>(Wgrad)",
+                 "void k10_wgrad_sum<float>(float const*, int, int)"):
+        assert trace.group(name) == "K10 wgrad"
+    assert "K10 wgrad" in trace.CONV_GROUPS
 
 
 def test_import_rule_compares_whole_top_level_names():
@@ -166,7 +177,8 @@ def test_the_benchmark_loads_no_jax():
     code = ("import sys; sys.path.insert(0, %r); import benchmark.run, "
             "benchmark.harness, benchmark.check, benchmark.traffic, "
             "benchmark.work, benchmark.calibrate, benchmark.spread, "
-            "benchmark.readers, lion_tpu_torch.models, "
+            "benchmark.readers, benchmark.families.lion, "
+            "lion_tpu_torch.models, "
             "lion_tpu_torch.trainers; from benchmark.harness import "
             "forbidden_loaded; print(forbidden_loaded())" % str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -175,9 +187,21 @@ def test_the_benchmark_loads_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-def test_reference_imports_nothing_of_the_program():
-    for path in (BENCH / "reference").glob("*.py"):
+def reference_sources(family):
+    """The .py files of a family's plain reference."""
+    ref = harness.reference_path(family)
+    return sorted(ref.rglob("*.py")) if ref.is_dir() else [ref]
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.stem for p in (BENCH / "families").glob("*.py")
+    if p.stem != "__init__"))
+def test_reference_imports_nothing_of_the_program(name):
+    sources = reference_sources(harness.load_family(name))
+    assert sources
+    for path in sources:
         src = path.read_text()
+        # lion_tpu_torch (the program) and lion_tpu (the JAX package)
         assert "lion_tpu" not in src, path
         assert "import jax" not in src and "from jax" not in src, path
 

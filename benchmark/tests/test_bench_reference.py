@@ -8,7 +8,7 @@ import torch
 from benchmark import harness, work
 from benchmark.check import INPUTS, check_sample, check_train, rel_items
 from benchmark.reference import Lion, Schedule
-from benchmark.tests.tiny import KEYS
+from benchmark.families import lion
 from benchmark.traffic import KINDS
 from benchmark.weights import make_weights
 
@@ -17,7 +17,8 @@ MAN = harness.manifest()
 
 def tiny(cell, **extra):
     _, conf, mix = harness.cell_of(MAN, cell)
-    return harness.set_keys(harness.config_of(conf), {**KEYS, **extra}), mix
+    return harness.set_keys(harness.config_of(conf),
+                            {**lion.TINY, **extra}), mix
 
 
 @pytest.mark.parametrize("cell", ["uncond-sample-ddim25-b64",
@@ -26,7 +27,7 @@ def test_forwards_match_the_program(cell):
     from lion_tpu_torch.models import LION
     cfg, _ = tiny(cell)
     state = make_weights(cfg, 3, "cpu", damp_style_head=0.01)
-    port = LION(harness.port_config(cfg), device="cpu")
+    port = LION(lion.port_config(cfg), device="cpu")
     port.load_state_dict(state, strict=True)
     ref = Lion(cfg)
     ref.load_state_dict(state, strict=True)
@@ -73,7 +74,7 @@ def test_ddim_schedule_matches_the_program():
     cfg = harness.config_of(harness.cell_of(
         MAN, "uncond-sample-ddim25-b64")[1])
     taus, a_next, sigma = DiffusionDiscretized(
-        harness.port_config(cfg)).ddim_constants(25, "uniform", 1.0)
+        lion.port_config(cfg)).ddim_constants(25, "uniform", 1.0)
     ours = Schedule(cfg).ddim(25, "uniform", 1.0)
     assert [t for t, *_ in ours] == list(taus)
     np.testing.assert_allclose([s for *_, s in ours], sigma, rtol=1e-6)
@@ -83,7 +84,7 @@ def test_ddim_schedule_matches_the_program():
 def test_sample_check_reads_the_program_as_sound():
     cfg, mix = tiny("uncond-sample-ddim25-b64")
     state = make_weights(cfg, 4, "cpu", damp_style_head=0.01)
-    tr = KINDS["sample"](harness.port_config(cfg), cfg, mix, state, 9, "cpu")
+    tr = KINDS["sample"](lion.port_config(cfg), cfg, mix, state, 9, "cpu")
     tr.setup()
     tr.window(0.001)
     numbers = check_sample(cfg, mix, state, tr.release([0]), "cpu")
@@ -98,7 +99,7 @@ def test_sample_check_reads_the_program_as_sound():
 def test_train_check_follows_the_program_step(cell):
     cfg, mix = tiny(cell, **{"ddpm.dropout": 0.1})
     state = make_weights(cfg, 5, "cpu", damp_style_head=0.01)
-    tr = KINDS[mix["kind"]](harness.port_config(cfg), cfg, mix, state, 6,
+    tr = KINDS[mix["kind"]](lion.port_config(cfg), cfg, mix, state, 6,
                             "cpu")
     tr.setup()
     numbers = check_train(cfg, mix, state, tr.release(), "cpu")
@@ -145,6 +146,6 @@ def test_conv_flops_closed_form():
 
 def test_unit_work_counts_the_cells_convs():
     cfg, mix = tiny("uncond-train-vae-b32")
-    w = work.unit_work(cfg, mix)
+    w = work.unit_work(cfg, mix, lion)
     assert 0 < w["conv_flops"] <= w["model_flops"]
     assert w["conv_least_s"] > 0

@@ -4,15 +4,16 @@ gaps and its time by kernel group.
 Busy time is the union of the device's activity intervals (kernels,
 copies, sets) on the trace's own timeline, inside the traced window: the
 profiler's host overhead widens the window's idle gaps, never the busy
-time. Kernel groups are the port's kernel names (csrc/*.cu) and the
-library kernels' families. An idle gap is labelled with the host event
+time. Kernel groups are the port's kernel names (csrc/*.cu), then the
+family's own patterns (`GROUPS` of its family file), then the library
+kernels' families. An idle gap is labelled with the host event
 that began most recently before it (what the host was doing while the
 device waited).
 """
 from __future__ import annotations
 
 import bisect
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # the port's __global__ kernel names -> its wrappers (kernel numbers as the
 # port's documents give them)
@@ -29,21 +30,26 @@ OURS = {"fps_kernel": "K1 fps", "bqg_kernel": "K2 ball_query_group",
         "pvblock_brick": "K9 pvconv_block_pair",
         "bq_kernel": "K11 ball_query",
         "row_order_kernel": "row_sum", "row_sum_kernel": "row_sum",
+        "k10_wgrad_tile": "K10 wgrad", "k10_wgrad_sum": "K10 wgrad",
         "bqg_cf_kernel": "K13 ball_query_group_cf",
         "emd_": "K12 emd_cost"}
 # the brick kernel without statistics is the training conv (K10)
 K10 = ("conv3d_brick_f32<", "conv3d_brick_bf16<")
 # groups whose kernels compute the 3x3x3 convolutions
 CONV_GROUPS = ("K4 conv3d_3x3_fused", "K10 conv3d_3x3_same",
-               "K8 conv3d_pair", "cuDNN wgrad", "cuDNN other")
+               "K8 conv3d_pair", "K10 wgrad", "cuDNN wgrad", "cuDNN other")
 
 
-def group(name: str) -> str:
+def group(name: str, groups: Optional[Dict[str, str]] = None) -> str:
+    """The group of a kernel name; `groups` (a family's kernel-name
+    substrings -> labels) is tried after the port's names and before the
+    library kernels' families."""
     if any(k in name for k in K10) and ", false>" in name:
         return "K10 conv3d_3x3_same"
-    for k, v in OURS.items():
-        if k in name:
-            return v
+    for table in (OURS, groups or {}):
+        for k, v in table.items():
+            if k in name:
+                return v
     low = name.lower()
     if "wgrad" in low:
         return "cuDNN wgrad"
@@ -91,17 +97,19 @@ def gaps(intervals: List[Tuple[float, float]], lo: float, hi: float):
 
 
 def reduce(device_events, host_events, lo: float, hi: float,
-           top: int = 10) -> Dict:
+           top: int = 10, groups: Optional[Dict[str, str]] = None) -> Dict:
     """device_events / host_events: [(name, start_s, end_s)] on one clock;
-    [lo, hi] the traced window. -> busy_s, window_s, conv_s (the device
-    time of the 3x3x3 convolutions' kernels), device_ops (time by group,
-    largest first) and idle_gaps (idle time by the host's latest event)."""
+    [lo, hi] the traced window; `groups` the family's kernel groups. ->
+    busy_s, window_s, group_s (the device time of every group, in the
+    order first seen), conv_s (the device time of the 3x3x3 convolutions'
+    kernels), device_ops (the `top` groups, largest first) and idle_gaps
+    (idle time by the host's latest event)."""
     inside = [(n, max(s, lo), min(e, hi)) for n, s, e in device_events
               if e > lo and s < hi]
     busy = union_length([(s, e) for _, s, e in inside])
     by_group: Dict[str, float] = {}
     for n, s, e in inside:
-        g = group(n)
+        g = group(n, groups)
         by_group[g] = by_group.get(g, 0.0) + (e - s)
     host = sorted((s, n) for n, s, e in host_events)
     starts = [s for s, _ in host]
@@ -111,7 +119,7 @@ def reduce(device_events, host_events, lo: float, hi: float,
         label = host[i][1] if i >= 0 else "before the first host event"
         idle[label] = idle.get(label, 0.0) + (e - s)
     order = lambda d: sorted(d.items(), key=lambda kv: -kv[1])  # noqa: E731
-    return {"busy_s": busy, "window_s": hi - lo,
+    return {"busy_s": busy, "window_s": hi - lo, "group_s": by_group,
             "conv_s": sum(v for k, v in by_group.items()
                           if k in CONV_GROUPS),
             "device_ops": [[k, v] for k, v in order(by_group)[:top]],

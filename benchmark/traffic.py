@@ -1,5 +1,8 @@
-"""The general traffic generator: one class per kind of mix, driven by the
-parameters of a mix file (`benchmark/mixes/<name>.json`).
+"""The traffic generator: what every kind of mix gives the harness
+(`Traffic`), the seeded inputs and, for the LION family, one class per kind
+of mix, driven by the parameters of a mix file
+(`benchmark/mixes/<name>.json`). Another family's kinds subclass `Traffic`
+in its own family file.
 
 - `sample`: a closed loop of `LION.sample(batch, ddim_step=..., generator)`
   requests, back to back, each with its own generator seeded from the run's
@@ -77,7 +80,6 @@ class Traffic:
                  device):
         self.port_cfg, self.cfg, self.mix = port_cfg, cfg, mix
         self.state, self.seed, self.device = state, seed, device
-        self.clip = bool(cfg["clipforge"]["enable"])
         self.readings: Dict = {}
         self.marks: Dict[str, float] = {}
         self.issue_s: List[float] = []
@@ -90,7 +92,15 @@ class Traffic:
         return {}
 
 
-class SampleTraffic(Traffic):
+class LionTraffic(Traffic):
+    """LION's kinds: the base with the configuration's CLIP switch."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.clip = bool(self.cfg["clipforge"]["enable"])
+
+
+class SampleTraffic(LionTraffic):
     def setup(self):
         from lion_tpu_torch.models import LION
         self.batch, self.steps = self.mix["batch"], self.mix["ddim_step"]
@@ -192,7 +202,7 @@ class SampleTraffic(Traffic):
         return kept
 
 
-class TrainTraffic(Traffic):
+class TrainTraffic(LionTraffic):
     def setup(self):
         from lion_tpu_torch.trainers import (make_prior_train_step,
                                              make_vae_train_step)

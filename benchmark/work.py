@@ -8,12 +8,15 @@ convolutions; forward for sampling, forward and backward for training),
 so the count does not move with the program. The 3x3x3 convolutions'
 work is counted call by call (`ConvWork`): FLOPs 2 * 27 * Ci * Co * R^3 * B
 for the forward, the input gradient and the weight gradient alike, bytes
-as each operand read once and each result written once.
+as each operand read once and each result written once. A family adds
+counters of its own (`COUNTERS`), each a `TorchDispatchMode` with a
+`numbers()` method, whose numbers sit beside these.
 """
 from __future__ import annotations
 
+import contextlib
 import json
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -40,6 +43,12 @@ def conv_flops(x_shape, w_shape, y_shape) -> int:
     return 2 * out * w_shape[1] * taps
 
 
+def least_s(flops: float, nbytes: float) -> float:
+    """The least time of one call on the H100: the larger of its FLOPs at
+    the fp32 peak and its bytes at the HBM bandwidth."""
+    return max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
+
+
 class ConvWork(TorchDispatchMode):
     """Counts the convolutions run inside it: `flops`, `bytes` and
     `least_s`, the sum over calls of max(flops / peak, bytes / bandwidth)
@@ -52,8 +61,13 @@ class ConvWork(TorchDispatchMode):
     def _add(self, flops, nbytes):
         self.flops += flops
         self.bytes += nbytes
-        self.least_s += max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
+        self.least_s += least_s(flops, nbytes)
         self.calls += 1
+
+    def numbers(self) -> Dict[str, float]:
+        return {"conv_flops": float(self.flops),
+                "conv_bytes": float(self.bytes),
+                "conv_least_s": self.least_s, "conv_calls": self.calls}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -72,28 +86,35 @@ class ConvWork(TorchDispatchMode):
         return out
 
 
-def count(fn: Callable[[], None]) -> Dict[str, float]:
+def count(fn: Callable[[], None],
+          counters: Sequence[type] = ()) -> Dict[str, float]:
     """Run fn (the reference's work of one unit, on the meta device) under
-    both counters -> {model_flops, conv_flops, conv_bytes, conv_least_s}."""
-    convs = ConvWork()
+    the model FLOPs' counter, the convolutions' and each of `counters` ->
+    {model_flops, conv_flops, conv_bytes, conv_least_s, conv_calls} and
+    every counter's numbers."""
     flops = FlopCounterMode(display=False)
-    with flops, convs:
+    modes = [ConvWork()] + [c() for c in counters]
+    with contextlib.ExitStack() as stack:
+        for mode in [flops] + modes:
+            stack.enter_context(mode)
         fn()
-    return {"model_flops": float(flops.get_total_flops()),
-            "conv_flops": float(convs.flops),
-            "conv_bytes": float(convs.bytes),
-            "conv_least_s": convs.least_s, "conv_calls": convs.calls}
+    out = {"model_flops": float(flops.get_total_flops())}
+    for mode in modes:
+        out.update(mode.numbers())
+    return out
 
 
-def unit_work(cfg: dict, mix: dict) -> Dict[str, float]:
-    """The work of one request or step of `mix` on configuration `cfg`,
-    counted on the meta device (no memory, no device)."""
-    from .reference import work_of
-    return count(work_of(cfg, mix, "meta"))
+def unit_work(cfg: dict, mix: dict, family) -> Dict[str, float]:
+    """The work of one request or step of `mix` on configuration `cfg` of
+    `family`, counted on the meta device (no memory, no device)."""
+    return count(family.work_of(cfg, mix, "meta"),
+                 getattr(family, "COUNTERS", ()))
 
 
 if __name__ == "__main__":  # python -m benchmark.work CONFIG.json MIX.json
     import sys
-    cfg = json.load(open(sys.argv[1]))["cfg"]
+    from .harness import load_family
+    conf = json.load(open(sys.argv[1]))
     mix = json.load(open(sys.argv[2]))
-    print(unit_work(cfg, mix))
+    print(unit_work(conf["cfg"], mix,
+                    load_family(conf.get("family", "lion"))))
