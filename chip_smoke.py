@@ -6,9 +6,9 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero:
   1. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off for matmuls and cuDNN.
-  2. build: compiles the fifteen CUDA kernels from lion_tpu_torch/csrc
-     (K1-K13, the ordered row sum of the backwards and K10's weight
-     gradient).
+  2. build: compiles the sixteen CUDA kernels from lion_tpu_torch/csrc
+     (K1-K13, the ordered row sum of the backwards, K10's weight gradient
+     and DiT-3D's attention).
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main paths' shapes (batch 16), fp32 and bf16, with times
      from CUDA events; every K4 and K10 case with its bound and cuDNN's
@@ -192,6 +192,22 @@ non-zero:
      class- and one CLIP-conditioned two-prior step at B10; `demo --text`
      on 4 shapes. Each run launched its path's kernels and no plain
      version.
+ 25. DiT-3D's attention (after phase 3; `csrc/attention.cu`) at the
+     DiT-3D step's shapes, B4 x 16 heads x 4096 tokens x head dim 72 (the
+     global blocks) and the same clouds' 64-token windows on the batch
+     axis (256 x 16 x 64 x 72), on views of one packed qkv as the blocks
+     take them: the forward (o, logsumexp) and the backward (dq, dk, dv)
+     against their plain versions on the card within a relative L2 of
+     DIT_ATTN_TOL, and the kernels with TF32 operands outside it; times of
+     the forward, the backward and both through autograd, beside SDPA's
+     fp32 memory-efficient backend.
+ 26. DiT-3D XL/2 (`get_default_cfg(dit3d=True)`, the benchmark cell
+     dit3d-xl2-train-b4's widths) at random weights: DIT_WARMUP +
+     DIT_STEPS `DiT3DTrainStep` steps at B4 (its launch counters zeroed
+     just before), finite losses, every parameter tensor moved, the peak;
+     then a DDIM sample of DIT_SAMPLE_SHAPES clouds over DIT_DDIM_STEPS
+     steps (counters zeroed again). Each launched its path's kernels and
+     no plain version.
 Beside each kernel the JSON line gives its bound on the card (the larger of
 its bytes over 3.35 TB/s and its operations over 67 TFLOP/s fp32 or 989
 TFLOP/s bf16, H100 SXM peaks, with exps at the special-function units' 16
@@ -205,6 +221,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -257,10 +274,16 @@ BF16_TRAIN_KERNELS = ("conv3d_3x3_same", "conv3d_weight_grad",
                       "ball_query_group",
                       "avg_voxelize", "trilinear_devoxelize",
                       "three_nn_interpolate", "row_sum")
+# DiT-3D's step: K3 voxelizes the noisy points, K5 devoxelizes the
+# prediction (its backward on the ordered row sum), the blocks' attention
+# forward and backward; its sampler runs the forward alone
+DIT3D_TRAIN_PATH = ("avg_voxelize", "trilinear_devoxelize", "row_sum",
+                    "attention", "attention_backward")
+DIT3D_SAMPLE_PATH = ("avg_voxelize", "trilinear_devoxelize", "attention")
 REPORT_ORDER = FP32_PATH + ("sa_fused", "conv3d_pair", "pvconv_block_pair",
                             "conv3d_3x3_same", "conv3d_weight_grad",
                             "ball_query", "ball_query_group_cf", "emd_cost",
-                            "row_sum")
+                            "row_sum", "attention", "attention_backward")
 BATCH_TRAIN = 16   # scripts/profile_train_step.py's batch
 WARMUP_STEPS, TRAIN_STEPS = 2, 5
 BATCH_VAE = 32     # stage 1's released batch a GPU (script/train_vae.sh)
@@ -294,6 +317,16 @@ DP_TIMEOUT = 300
 # phase 24, conditioning: the class config's categories (all of ShapeNet)
 # and embedding width
 COND_NCLASS, COND_EMB = 55, 64
+# phases 25-26, DiT-3D: the attention's (N, H, L, d) at the step's global
+# and window calls; its relative L2 limit against the plain version on the
+# card (IEEE fp32 reads ~1e-6 over sums of 4096 terms, TF32 operands
+# ~1e-3); the step's batch (the cell's), its warm-up and timed steps; the
+# sample's clouds and DDIM steps
+DIT_ATTN_SHAPES = (("global", (4, 16, 4096, 72)),
+                   ("window", (4 * 64, 16, 64, 72)))
+DIT_ATTN_TOL = 2e-5
+DIT_BATCH, DIT_WARMUP, DIT_STEPS = 4, 1, 3
+DIT_SAMPLE_SHAPES, DIT_DDIM_STEPS = 4, 5
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the tensor
 # cores, bf16 on them, device memory; the special-function units (exp)
 # give 16 results per SM per clock against the fp32 lanes' 256 operations
@@ -3121,6 +3154,186 @@ def phase_conditioning(steps, tmp):
     return out
 
 
+def _attention_bound(n, h, length, d, backward):
+    """The least time of one attention call over (n, h, length, d) q, k, v
+    (as many keys as queries): per query-key pair and channel 4 flops in
+    the forward (q k^T, P v) and 8 in the backward (dP, dV, dQ, dK), one
+    exp a pair; the bytes of q, k, v and o and the logsumexp, the
+    backward's also dO, dq, dk, dv and its row sums of dO * O."""
+    pairs, rows = n * h * length * length, n * h * length
+    if backward:
+        return bound(8 * rows * d * 4 + 2 * rows * 4,
+                     fp32_ops=8 * pairs * d, exps=pairs)
+    return bound(4 * rows * d * 4 + rows * 4, fp32_ops=4 * pairs * d,
+                 exps=pairs)
+
+
+def phase_dit3d_attention():
+    """DiT-3D's attention at the step's two shapes (phase 25 of the module
+    docstring) -> {"attention": ..., "attention_backward": ...}, each with
+    the global call's numbers and the window call's under "window"."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.ops.attention import attention
+    fwd, bwd = ops.KERNELS["attention"], ops.KERNELS["attention_backward"]
+    g = torch.Generator(device="cuda").manual_seed(2425)
+    results = {}
+    for case, (n, h, length, d) in DIT_ATTN_SHAPES:
+        scale = d ** -0.5
+        qkv = torch.randn(n, length, 3, h, d, generator=g, device="cuda")
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        do = torch.randn(n, h, length, d, generator=g, device="cuda")
+        ref_o, ref_lse = fwd.plain(q, k, v, scale)
+        ref = (ref_o, ref_lse) + tuple(
+            bwd.plain(q, k, v, ref_o, ref_lse, do, scale))
+        errs, gots = {}, {}
+        for tf32 in (False, True):
+            o, lse = fwd(q, k, v, scale, tf32)
+            gots[tf32] = (o, lse) + tuple(
+                bwd(q, k, v, o, lse, do, scale, tf32))
+            errs[tf32] = [_rel_l2(a, b) for a, b in zip(gots[tf32], ref)]
+        got = gots[False]
+        err = max_abs(got[0], ref_o)
+        log(f"[dit attention {case}] relative L2 of o, lse, dq, dk, dv "
+            f"against the plain version: fp32 "
+            f"{[f'{e:.2e}' for e in errs[False]]}, TF32 operands "
+            f"{[f'{e:.2e}' for e in errs[True]]} (limit {DIT_ATTN_TOL})")
+        if max(errs[False]) >= DIT_ATTN_TOL:
+            raise AssertionError(f"attention {case}: fp32 {errs[False]}")
+        # the logsumexp moves by a TF32 rounding of logits around
+        # log(Lk) + O(1), within the limit; o and the gradients do not
+        tf32_errs = errs[True][:1] + errs[True][2:]
+        if min(tf32_errs) <= DIT_ATTN_TOL:
+            raise AssertionError(f"attention {case}: TF32 operands within "
+                                 f"the limit: {errs[True]}")
+        o, lse = _bit_equal(f"attention {case}",
+                            lambda: fwd(q, k, v, scale), "dit attention")
+        _bit_equal(f"attention_backward {case}",
+                   lambda: bwd(q, k, v, o, lse, do, scale), "dit attention")
+        ms_f = cuda_time_ms(lambda: fwd(q, k, v, scale), 5)
+        ms_b = cuda_time_ms(lambda: bwd(q, k, v, o, lse, do, scale), 5)
+        plain_f = cuda_time_ms(lambda: fwd.plain(q, k, v, scale), 1,
+                               warmup=1)
+        plain_b = cuda_time_ms(
+            lambda: bwd.plain(q, k, v, o, lse, do, scale), 1, warmup=1)
+        # forward and backward through autograd: the kernels on the
+        # packed views the blocks hand them, SDPA's fp32 memory-efficient
+        # backend on contiguous q, k, v
+        leaf = qkv.requires_grad_()
+        leaves = [t.contiguous().requires_grad_() for t in (q, k, v)]
+
+        def kernel_both():
+            qq, kk, vv = (t.transpose(1, 2) for t in leaf.unbind(2))
+            attention(qq, kk, vv).backward(do)
+
+        def sdpa_both():
+            F.scaled_dot_product_attention(*leaves).backward(do)
+
+        ms_fb = cuda_time_ms(kernel_both, 5)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib_f = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    *(t.detach() for t in leaves)), 5)
+            lib_fb = cuda_time_ms(sdpa_both, 5)
+        f_work = _attention_bound(n, h, length, d, False)
+        b_work = _attention_bound(n, h, length, d, True)
+        flops = 4 * n * h * length * length * d
+        shape = f"N{n} H{h} L{length} d{d}"
+        log(f"[dit attention {case}] {shape}: forward {ms_f:.4f} ms "
+            f"({flops / ms_f / 1e9:.2f} TFLOP/s, bound "
+            f"{f_work['bound_ms']:.4f} {f_work['bound_by']}), backward "
+            f"{ms_b:.4f} ms (bound {b_work['bound_ms']:.4f} "
+            f"{b_work['bound_by']}), both through autograd {ms_fb:.4f} ms "
+            f"({3 * flops / ms_fb / 1e9:.2f} TFLOP/s); plain {plain_f:.4f} "
+            f"/ {plain_b:.4f} ms; SDPA fp32 memory-efficient forward "
+            f"{lib_f:.4f} ms, both {lib_fb:.4f} ms")
+        entry_f = {"case": f"{case} {shape}", "max_abs_err": err,
+                   "rel_l2": errs[False][:2], "rel_l2_tf32": errs[True][:2],
+                   "ms": ms_f, "plain_ms": plain_f, **f_work,
+                   "library_ms": lib_f}
+        entry_b = {"case": f"{case} {shape}",
+                   "max_abs_err": max(max_abs(a, b) for a, b in
+                                      zip(got[2:], ref[2:])),
+                   "rel_l2": errs[False][2:], "rel_l2_tf32": errs[True][2:],
+                   "ms": ms_b, "ms_with_forward": ms_fb, "plain_ms": plain_b,
+                   **b_work, "library_ms": lib_fb}
+        if not results:
+            results = {"attention": entry_f, "attention_backward": entry_b}
+        else:
+            results["attention"][case] = entry_f
+            results["attention_backward"][case] = entry_b
+        del qkv, leaf, leaves, ref, got, gots, o, lse
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_dit3d(batch, warmup, steps, shapes, ddim_steps):
+    """DiT-3D XL/2's training step and DDIM sampler at random weights
+    (phase 26 of the module docstring) -> the launch counts of the steps'
+    window and of the sample's."""
+    from lion_tpu_torch import ops
+    from lion_tpu_torch.config import get_default_cfg
+    from lion_tpu_torch.models import DiT3D
+    from lion_tpu_torch.trainers import DiT3DTrainStep, dit3d_lr_schedule
+    torch.cuda.empty_cache()
+    cfg = get_default_cfg(dit3d=True)
+    t0 = time.perf_counter()
+    model = DiT3D(cfg).init_params(
+        torch.Generator(device="cuda").manual_seed(24))
+    step = DiT3DTrainStep(model, dit3d_lr_schedule(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn(batch, 2048, 3, generator=gen, device="cuda") * 0.3
+    n_params = sum(p.numel() for p in step.params)
+    log(f"[dit3d] DiT-3D XL/2, {n_params} params, init "
+        f"{time.perf_counter() - t0:.1f} s; batch {batch}, {warmup} warm-up "
+        f"+ {steps} timed steps")
+    before = [float(p.detach().double().norm()) for p in step.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(x, gen)["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = _path_counts(DIT3D_TRAIN_PATH, "dit3d train")
+    losses = [float(v) for v in losses]
+    log(f"[dit3d] losses {[round(v, 5) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    after = [float(p.detach().double().norm()) for p in step.params]
+    moved = sum(a != b for a, b in zip(after, before))
+    log(f"[dit3d] {moved} of {len(before)} parameter tensors moved")
+    if not all(math.isfinite(v) for v in after) or moved == 0:
+        raise AssertionError("the parameters did not move or are not "
+                             "finite")
+    log(f"[dit3d] {wall / steps * 1e3:.3f} ms/step, "
+        f"{batch * steps / wall:.4f} samples/s at batch {batch}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+        f"GiB")
+    del step
+    torch.cuda.empty_cache()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    pts = model.sample(shapes, generator=gen, ddim_step=ddim_steps)
+    torch.cuda.synchronize()
+    sample = _path_counts(DIT3D_SAMPLE_PATH, "dit3d sample")
+    if tuple(pts.shape) != (shapes, 2048, 3) or not bool(
+            torch.isfinite(pts).all()):
+        raise AssertionError(f"sample: shape {tuple(pts.shape)} or not "
+                             "finite")
+    log(f"[dit3d] sample of {shapes} clouds over {ddim_steps} DDIM steps: "
+        f"{time.perf_counter() - t0:.3f} s, points std "
+        f"{float(pts.std()):.4f}")
+    del model
+    torch.cuda.empty_cache()
+    return train, sample
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=100,
@@ -3143,6 +3356,7 @@ def main(argv=None):
     from lion_tpu_torch.ops import KERNELS
     phase_build()
     results = phase_kernels()
+    results.update(phase_dit3d_attention())
     phase_forward_parity(flagship_cfg())
     phase_repeat_paths(flagship_cfg())
     fp32 = phase_main_path(flagship_cfg(), args.steps, BATCH, REQUESTS,
@@ -3187,6 +3401,8 @@ def main(argv=None):
             cond = phase_conditioning(args.steps, tmp)
         finally:
             os.chdir(cwd)
+    dit3d_train, dit3d_sample = phase_dit3d(DIT_BATCH, DIT_WARMUP, DIT_STEPS,
+                                            DIT_SAMPLE_SHAPES, DIT_DDIM_STEPS)
 
     paths = {"fp32": fp32, "bf16": bf16, "train": train, "cf_op": cf,
              "eval": evaluation, "vae_train": vae_train,
@@ -3196,6 +3412,7 @@ def main(argv=None):
              "bf16_vae_train": bf16_train["vae"],
              "bf16_vae_trainer": bf16_trainers["trainers.hvae_trainer"],
              "bf16_stage2_trainer": bf16_trainers["trainers.train_2prior"],
+             "dit3d_train": dit3d_train, "dit3d_sample": dit3d_sample,
              **clis, **dp, **cond}
     report = []
     for name in REPORT_ORDER:

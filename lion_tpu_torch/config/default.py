@@ -417,9 +417,57 @@ _DEPRECATED = [
 ]
 
 
-def get_default_cfg() -> CfgNode:
-    """Build a fresh default config tree (not shared / not frozen)."""
+# DiT-3D (github.com/DiT-3D/DiT-3D, the DiT-XL/2 entry of its model table
+# on its 32^3 voxel grid): the `dit3d` node, which a tree has only for a
+# DiT-3D run (`get_default_cfg(dit3d=True)`), so LION's trees and their
+# dumps stay the reference's. DiT-3D's other settings live in the keys the
+# trees share: ddpm.* (PVD's linear betas, 1000 steps), trainer.opt (Adam
+# at 1e-4, betas (0.5, 0.999), step_decay per epoch, no clip, no weight
+# decay), ddpm.ema (0: no EMA), data.* (the ShapeNet split),
+# sde.ddim_skip_type / ddim_kappa for DDIM sampling.
+DIT3D_TRAINER = "trainers.dit3d_trainer"
+_DIT3D = {
+    "hidden_size": 1152,
+    "depth": 28,
+    "num_heads": 16,
+    "mlp_ratio": 4.0,
+    "patch_size": 2,
+    "voxel_size": 32,
+    "window_size": 4,
+    # the blocks that attend within windows; the rest attend globally
+    "window_blocks": [0, 3, 6, 9, 12, 15, 18, 21, 24, 27],
+    "num_classes": 1,
+    "class_dropout_prob": 0.1,
+    "frequency_embedding_size": 256,
+    # TF32 products in the GEMMs and the attention (the benchmark's
+    # control); DiT-3D trains in float32
+    "tf32": False,
+}
+
+
+def get_default_cfg(dit3d: bool = False) -> CfgNode:
+    """Build a fresh default config tree (not shared / not frozen); with
+    `dit3d`, DiT-3D's: the `dit3d` node, its trainer and its optimizer's
+    betas, no EMA."""
     cfg = CfgNode(_DEFAULTS)
     for key in _DEPRECATED:
         cfg.register_deprecated_key(key)
+    if dit3d:
+        cfg.dit3d = CfgNode(_DIT3D)
+        cfg.trainer.type = DIT3D_TRAINER
+        cfg.trainer.opt.beta1 = 0.5
+        cfg.ddpm.ema = 0
     return cfg
+
+
+def default_cfg_for(tree: dict = None, opts=()) -> CfgNode:
+    """The defaults a run merges its config file (`tree`, as parsed) and
+    its `key value` override pairs (`opts`) over: DiT-3D's when the
+    trainer.type they set is DIT3D_TRAINER (the pairs after the file, as
+    they are merged), LION's otherwise."""
+    kind = ((tree or {}).get("trainer") or {}).get("type")
+    opts = list(opts)
+    for key, value in zip(opts[::2], opts[1::2]):
+        if key == "trainer.type":
+            kind = value
+    return get_default_cfg(dit3d=kind == DIT3D_TRAINER)

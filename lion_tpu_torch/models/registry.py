@@ -1,5 +1,6 @@
 """Builds the priors from the config's dotted model names (port of
-lion_tpu/models/registry.py, the two prior builders)."""
+lion_tpu/models/registry.py, the two prior builders), and DiT-3D from
+cfg.dit3d."""
 from __future__ import annotations
 
 from .priors import GlobalPrior, LocalPrior
@@ -37,3 +38,13 @@ def build_local_prior(cfg) -> LocalPrior:
     if not name.endswith("PVCNN2Prior"):
         raise KeyError(f"Unknown local prior: {name}")
     return LocalPrior(cfg)
+
+
+def build_dit3d(cfg, device="cuda"):
+    """DiT-3D (`models.dit3d.DiT3D`) of cfg.dit3d on `device`, its
+    parameters not yet drawn (`init_params`)."""
+    from .dit3d import DiT3D
+    if "dit3d" not in cfg:
+        raise KeyError("build_dit3d: the config has no dit3d node (build "
+                       "it with get_default_cfg(dit3d=True))")
+    return DiT3D(cfg, device=device)

@@ -7,9 +7,11 @@ exported here that the training path differentiates (`conv3d_3x3_same`,
 `nearest_neighbor_interpolate`, and `ball_query_group_cf`) are
 `torch.autograd.Function`s around their kernels, whose backwards sum rows
 in a fixed order (`scatter_rows`, the row-sum kernel); `emd_cost` has no
-gradient (`emd_approx` is the differentiable form).
+gradient (`emd_approx` is the differentiable form). DiT-3D's softmax
+`attention` is one too, its backward a fused kernel of its own.
 """
 from ._cuda import KERNELS, reset_counts
+from .attention import attention
 from .chamfer import chamfer, chamfer_dist, chamfer_l1
 from .conv3d import (conv3d_3x3_fused, conv3d_3x3_same, conv3d_pair,
                      conv3d_weight_grad)
@@ -25,7 +27,8 @@ from .voxel import (avg_voxelize, normalize_coords, trilinear_devoxelize,
                     voxelize)
 
 __all__ = [
-    "KERNELS", "reset_counts", "chamfer", "chamfer_dist", "chamfer_l1",
+    "KERNELS", "reset_counts", "attention", "chamfer", "chamfer_dist",
+    "chamfer_l1",
     "conv3d_3x3_fused", "conv3d_3x3_same", "conv3d_pair",
     "conv3d_weight_grad", "approx_match",
     "emd_approx", "emd_cost", "nearest_neighbor_interpolate", "ball_query",

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "lion_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P),
     "lion_row_sum": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "lion_dit_attention_fwd": (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
+    "lion_dit_attention_bwd": (_P,) * 11 + (_I,) * 5 + (_F, _I, _P),
 }
 
 # name -> wrapper, in registration order (one entry per kernel)
@@ -257,16 +259,27 @@ def reset_counts() -> None:
 
 
 @contextlib.contextmanager
-def no_tf32():
-    """Full float32 for cuBLAS matmuls and cuDNN convolutions inside the
-    block (cuDNN runs float32 convolutions in TF32 by default); the previous
-    settings come back after it."""
+def _tf32(allowed: bool):
     mm, conv = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allowed
+    torch.backends.cudnn.allow_tf32 = allowed
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = conv
+
+
+def no_tf32():
+    """Full float32 for cuBLAS matmuls and cuDNN convolutions inside the
+    block (cuDNN runs float32 convolutions in TF32 by default); the previous
+    settings come back after it."""
+    return _tf32(False)
+
+
+def allow_tf32():
+    """TF32 tensor cores for float32 matmuls and convolutions inside the
+    block (a model's precision below float32); the previous settings come
+    back after it."""
+    return _tf32(True)

@@ -17,7 +17,9 @@ samples the category's reference count of shapes (or `--num_samples`)
 into `<save_dir>/eval/samples.pt` and scores them against
 `./datasets/test_data/ref_val_<cate>.pt` when that file exists.
 `lion_tpu_torch/scripts/train_vae.sh` and `train_prior.sh` run the
-released recipes through it.
+released recipes through it. `trainer.type trainers.dit3d_trainer` (on
+the command line or in the config file) trains DiT-3D instead: the tree
+then holds the `dit3d` node (`config.default_cfg_for`).
 
 Data parallel, one process a GPU: `torchrun --nproc_per_node=N -m
 lion_tpu_torch.train_dist --distributed_init ...` (the scripts do so when
@@ -66,8 +68,13 @@ def build_cfg(args):
     """The run's config; creates its experiment directory and writes
     `cfg.yml` there (rank 0 of a process group alone)."""
     from .parallel.dist import rank
-    from .config import get_default_cfg
-    cfg = get_default_cfg()
+    import yaml
+    from .config import default_cfg_for
+    tree = None
+    if args.config:
+        with open(args.config) as f:
+            tree = yaml.safe_load(f)
+    cfg = default_cfg_for(tree, args.opts or ())
     if args.config:
         cfg.merge_from_file(args.config)
     if args.opts:

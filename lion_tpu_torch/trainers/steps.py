@@ -75,6 +75,7 @@ import torch
 from ..config.view import as_view
 from ..diffusion.continuous import make_diffusion
 from ..diffusion.discrete import get_mixed_prediction
+from ..diffusion.schedules import make_beta_schedule
 from ..models.lion import LION, resolve_device
 from ..models.vae import VAE
 from ..nn.common import set_dropout_generator
@@ -137,6 +138,10 @@ class TrainStep:
     def after_update(self) -> None:
         """Runs after Adam and the EMA."""
 
+    def precision(self):
+        """The precision of the loss and its gradients: full float32."""
+        return no_tf32()
+
     def __call__(self, x: torch.Tensor,
                  generator: Optional[torch.Generator] = None, **draws):
         """x on the model's device -> metrics (0-d tensors, not
@@ -146,7 +151,7 @@ class TrainStep:
         `train.backward` and `train.update` (`utils.spans`)."""
         with span("train.step"):
             self.optimizer.zero_grad()
-            with no_tf32():
+            with self.precision():
                 with span("train.forward"):
                     loss, metrics = self.objective(x, generator, **draws)
                 with span("train.backward"):
@@ -504,3 +509,75 @@ def make_prior_train_step(lion: LION,
     if lr_schedule is None:
         lr_schedule = default_lr_schedule(lion.cfg)
     return PriorTrainStep(lion, lr_schedule)
+
+
+class DiT3DTrainStep(TrainStep):
+    """DiT-3D's step (PVD's objective, `train_generation.py`, which
+    DiT-3D's `train.py` keeps): t ~ U{0..T-1}, eps ~ N(0, I) over the
+    points, each label dropped to the null row with probability
+    dit3d.class_dropout_prob; x_t = sqrt(ab_t) x + sqrt(1 - ab_t) eps with
+    the coefficients computed in float64 and rounded to float32, as PVD's
+    tables are; loss = mean((model(x_t, t, y) - eps)^2); Adam with
+    trainer.opt's betas, clip and weight decay, the EMA under ddpm.ema.
+
+    The draws come from the caller's generator (t, then eps, then the
+    dropout's uniforms), or are given: `t` (B,) int64, `noise` (B, N, 3),
+    `drop` (B,) bool; `class_label` (B,) defaults to zeros. Float32
+    throughout, TF32 only under dit3d.tf32 (`DiT3D.precision`)."""
+
+    def __init__(self, model, lr_schedule: Callable[[int], float]):
+        cfg = as_view(model.cfg)
+        opt = cfg.trainer.opt
+        super().__init__(model.parameters(), lr_schedule, opt,
+                         opt.grad_clip,
+                         float(opt.ema_decay) if cfg.ddpm.ema else 0.0)
+        self.model = model
+        self.drop_prob = float(cfg.dit3d.class_dropout_prob)
+        ab = np.cumprod(1.0 - make_beta_schedule(
+            cfg.ddpm.sched_mode, cfg.ddpm.beta_1, cfg.ddpm.beta_T,
+            int(cfg.ddpm.num_steps)).astype(np.float64))
+        dev = next(model.parameters()).device
+        self.sqrt_ab = torch.from_numpy(np.sqrt(ab)).float().to(dev)
+        self.sqrt_1m_ab = torch.from_numpy(np.sqrt(1.0 - ab)).float().to(dev)
+
+    def precision(self):
+        return self.model.precision()
+
+    def draws(self, x: torch.Tensor, generator=None, t=None, noise=None,
+              drop=None):
+        """(t, noise, drop): the given ones, the rest drawn from
+        `generator` (on its device) in that order."""
+        b, gdev = x.shape[0], (generator.device if generator is not None
+                               else x.device)
+        if t is None:
+            t = torch.randint(0, self.sqrt_ab.shape[0], (b,),
+                              generator=generator, device=gdev)
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=gdev)
+        if drop is None:
+            drop = torch.rand(b, generator=generator,
+                              device=gdev) < self.drop_prob
+        return t.to(x.device), noise.to(x.device), drop.to(x.device)
+
+    def loss(self, x: torch.Tensor, generator=None, t=None, noise=None,
+             drop=None, class_label=None) -> torch.Tensor:
+        """The step's loss in train mode, on the given or drawn draws."""
+        self.model.train()
+        t, noise, drop = self.draws(x, generator, t, noise, drop)
+        x_t = self.sqrt_ab[t][:, None, None] * x \
+            + self.sqrt_1m_ab[t][:, None, None] * noise
+        eps = self.model(x_t, t, class_label, drop)
+        return ((eps - noise) ** 2).mean()
+
+    def objective(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, **draws):
+        loss = self.loss(x, generator, **draws)
+        return loss, {"loss": loss}
+
+
+def dit3d_lr_schedule(cfg, steps_per_epoch: int = 1):
+    """trainer.opt.lr times trainer.opt.step_decay per finished epoch
+    (PVD's ExponentialLR, stepped once an epoch)."""
+    opt = as_view(cfg).trainer.opt
+    lr, decay = float(opt.lr), float(opt.step_decay)
+    return lambda step: lr * decay ** (step // max(steps_per_epoch, 1))

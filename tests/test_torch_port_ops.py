@@ -175,13 +175,14 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
         "trilinear_devoxelize", "three_nn_interpolate", "sa_fused",
         "conv3d_pair", "pvconv_block_pair", "conv3d_3x3_same",
         "conv3d_weight_grad", "ball_query", "ball_query_group_cf",
-        "emd_cost", "row_sum"}
+        "emd_cost", "row_sum", "attention", "attention_backward"}
     for name, k in ops.KERNELS.items():
         assert k.source.startswith("lion_tpu_torch/csrc/")
-        # the ordered row sum of the backwards and K10's weight gradient
-        # replace no TPU kernel
+        # the ordered row sum of the backwards, K10's weight gradient and
+        # DiT-3D's attention replace no TPU kernel
         assert k.replaces.startswith(
-            "none" if name in ("row_sum", "conv3d_weight_grad")
+            "none" if name in ("row_sum", "conv3d_weight_grad", "attention",
+                               "attention_backward")
             else "lion_tpu/ops/pallas/")
     ops.reset_counts()
     assert ops.KERNELS["fps"].plain_calls == 0

@@ -124,7 +124,8 @@ def test_get_trainer_maps_the_five_names_as_lion_tpu():
     names = ["trainers.hvae_trainer", "trainers.train_2prior",
              "trainers.train_prior", "trainers.interpolate_latent",
              "trainers.encode_interp_interp"]
-    assert sorted(TRAINERS) == sorted(names)
+    # beside lion_tpu's five, the port's DiT-3D trainer
+    assert sorted(TRAINERS) == sorted(names + ["trainers.dit3d_trainer"])
     want = {"trainers.hvae_trainer": Stage1,
             "trainers.train_2prior": TwoPrior,
             "trainers.train_prior": SinglePrior,
